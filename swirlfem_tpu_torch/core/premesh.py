@@ -1,0 +1,130 @@
+"""Host-side staging mesh (numpy) that finalizes into a torch `Mesh`.
+
+Counterpart of ``swirlfem_tpu/core/premesh.py``.  A `Premesh` stages
+connectivity, physical groups and periodic links; `finalize()` builds the
+static exchange indices (periodic dedup included) and produces a
+:class:`swirlfem_tpu_torch.core.mesh.Mesh` on one device.  Partitioned
+premeshes are staged but not finalized yet (ROADMAP.md, Queue 1 item 17).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from swirlfem_tpu_torch.core import topology
+from swirlfem_tpu_torch.core.mesh import Mesh
+from swirlfem_tpu_torch.core.quadrature import Nodes1D
+from swirlfem_tpu_torch.core.quadrature import NodeType
+
+
+def _group_mask(facets: np.ndarray, node_indices: np.ndarray,
+                periodic_links=None) -> np.ndarray:
+  """Boolean mask over `node_indices` of membership in the facet node set.
+
+  Facet ids are folded through the periodic dedup first, so a group node
+  remapped to its periodic master keeps its membership.
+  """
+  members = np.unique(np.asarray(facets).reshape(-1))
+  members = topology.unique_node_indices(members, periodic_links)
+  return np.isin(node_indices, members)
+
+
+@dataclasses.dataclass(frozen=True)
+class Premesh:
+  """Staging representation of a mesh, all host-side numpy.
+
+  Attributes:
+    order: polynomial order of the elements.
+    gridpoints_1d: 1D node family on the reference element.
+    node_coords: ``(num_nodes, ndim)`` coordinates.
+    elements: ``(num_elements, (order+1)^ndim)`` node ids, lexicographic
+      tensor order within each element.
+    physical_groups: name -> ``(num_facets, nodes_per_facet)`` facet node ids.
+    periodic_links: ``(num_pairs, 2, nodes_per_facet)`` parallel arrays of
+      node ids identified periodically, or None.
+    partitions: ``(num_elements,)`` partition id per element, or None.
+    box_info: ``(num_elements_per_dim, periodic_dims)`` of an order-1 box
+      premesh (enables the structured refinement), or None.
+    structured: `StructuredInfo` of a refined premesh in grid numbering.
+  """
+
+  order: int
+  gridpoints_1d: Nodes1D
+  node_coords: np.ndarray
+  elements: np.ndarray
+  physical_groups: Mapping[str, np.ndarray]
+  periodic_links: np.ndarray | None = None
+  partitions: np.ndarray | None = None
+  box_info: tuple | None = None
+  structured: object | None = None
+
+  @classmethod
+  def create(cls, node_coords, elements, order=None, gridpoints_1d=None,
+             physical_groups=None, periodic_links=None,
+             partitions=None) -> 'Premesh':
+    node_coords = np.asarray(node_coords)
+    elements = np.asarray(elements)
+    ndim = node_coords.shape[-1]
+    nper = elements.shape[-1]
+    if gridpoints_1d is None:
+      num_points = int(round(nper ** (1.0 / ndim)))
+      gridpoints_1d = Nodes1D.create(num_points=num_points,
+                                     node_type=NodeType.NEWTON_COTES)
+    if nper != gridpoints_1d.num_points**ndim:
+      raise ValueError(
+          f'nodes per element {nper} != {gridpoints_1d.num_points}^{ndim}')
+    if order is None:
+      order = gridpoints_1d.num_points - 1
+    return cls(order=order, gridpoints_1d=gridpoints_1d,
+               node_coords=node_coords, elements=elements,
+               physical_groups=dict(physical_groups or {}),
+               periodic_links=periodic_links, partitions=partitions)
+
+  @property
+  def ndim(self) -> int:
+    return self.node_coords.shape[-1]
+
+  @property
+  def num_nodes(self) -> int:
+    return self.node_coords.shape[-2]
+
+  @property
+  def num_elements(self) -> int:
+    return len(self.elements)
+
+  @property
+  def num_nodes_per_element(self) -> int:
+    return self.elements.shape[-1]
+
+  def is_partitioned(self) -> bool:
+    return self.partitions is not None
+
+  def replace(self, **kwargs) -> 'Premesh':
+    return dataclasses.replace(self, **kwargs)
+
+  def finalize(self, *, device: torch.device | str = 'cpu',
+               dtype: torch.dtype = torch.float64) -> Mesh:
+    """Builds the exchange indices and returns a `Mesh` on `device`."""
+    if self.is_partitioned():
+      raise NotImplementedError(
+          'partitioned meshes are not ported yet (ROADMAP.md, Queue 1 '
+          'item 17)')
+    node_indices = topology.unique_node_indices(
+        np.arange(self.num_nodes, dtype=np.int64), self.periodic_links)
+    gather_idx, uniq = topology.exchange_indices(node_indices)
+    masks = {name: _group_mask(facets, node_indices, self.periodic_links)
+             for name, facets in self.physical_groups.items()}
+    return Mesh.create(
+        node_coords=self.node_coords,
+        elements=self.elements,
+        node_indices=node_indices,
+        gridpoints_1d=self.gridpoints_1d,
+        physical_masks=masks,
+        exchange_gather_indices=gather_idx,
+        exchange_unique_indices=uniq,
+        structured=self.structured,
+        device=device, dtype=dtype)

@@ -1,0 +1,59 @@
+"""Builds the port's solver state from numpy arrays.
+
+There are no learned weights on the datagen path; the state carried across
+is the solver's factor fields and the el-form time history.  These helpers
+take plain numpy arrays (for instance the fields of a JAX ``Sem2DOps``), so
+the port's step can run on exactly the fields another implementation built.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from swirlfem_tpu_torch.core.structured import StructuredInfo
+from swirlfem_tpu_torch.ops.sem2d import Sem2DOps
+
+# Tensor fields of `Sem2DOps`, moved to the device in the working dtype.
+FIELD_NAMES = ('g11', 'g12', 'g22', 'wmass', 'kinv', 'wmass_o', 'kinv_o')
+# Static float64 host matrices of `Sem2DOps`.
+STATIC_NAMES = ('dmat', 'interp_p', 'interp_o', 'interp_o_grad', 'wq2d')
+
+
+def sem2d_ops_from_arrays(arrays: Mapping[str, np.ndarray], *,
+                          vinfo: StructuredInfo, pinfo: StructuredInfo,
+                          c_uniform: tuple | None, device, dtype,
+                          kernel_precision: str = 'highest') -> Sem2DOps:
+  """A `Sem2DOps` from numpy arrays of `FIELD_NAMES` and `STATIC_NAMES`.
+
+  An optional ``'g_affine'`` entry ((3, E) per-element metric scalars) is
+  carried over too.
+  """
+  def dev(a):
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+  g_affine = arrays.get('g_affine')
+  return Sem2DOps(
+      **{name: dev(arrays[name]) for name in FIELD_NAMES},
+      **{name: np.asarray(arrays[name], dtype=np.float64)
+         for name in STATIC_NAMES},
+      vinfo=vinfo, pinfo=pinfo,
+      g_affine=None if g_affine is None else dev(g_affine),
+      c_uniform=None if c_uniform is None else tuple(map(float, c_uniform)),
+      kernel_precision=kernel_precision)
+
+
+def el_state_from_arrays(us, ps, cus, *, device, dtype):
+  """The el-form history ``(us, ps, cus)`` from numpy arrays.
+
+  `us` and `cus` are sequences (oldest first) of per-component sequences
+  of ``(k, k, n, n)`` arrays; `ps` a sequence of ``(m, m, n, n)`` arrays.
+  """
+  def dev(a):
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+  return (tuple(tuple(dev(c) for c in u) for u in us),
+          tuple(dev(p) for p in ps),
+          tuple(tuple(dev(c) for c in cu) for cu in cus))

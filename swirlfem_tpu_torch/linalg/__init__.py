@@ -1,0 +1,1 @@
+"""linalg modules of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""niles modules of the PyTorch port (see the package docstring)."""

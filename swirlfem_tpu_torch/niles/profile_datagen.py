@@ -1,0 +1,89 @@
+"""Profiles the el datagen step on a CUDA device.
+
+At the reference config, times 20 steps with CUDA events (no profiler),
+then records 20 more under `torch.profiler` and prints the device kernels by
+self time, the kernel launches per step and the device's busy share of the
+profiled wall time.  Run from the repository root on a GPU host:
+
+    python -m swirlfem_tpu_torch.niles.profile_datagen [--certified]
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from swirlfem_tpu_torch.niles import datagen
+
+
+def _self_device_us(evt) -> float:
+  return float(getattr(evt, 'self_device_time_total', None)
+               or getattr(evt, 'self_cuda_time_total', 0.0))
+
+
+def main(argv=None) -> None:
+  parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  parser.add_argument('--certified', action='store_true',
+                      help='FDM-seeded viscous CG instead of exact solves')
+  args = parser.parse_args(argv)
+  steps, warmup, rows = 20, 50, 25
+
+  device = torch.device('cuda', 0)
+  cfg = datagen.DatagenConfig()
+  sem = datagen.build_solver(cfg, device=device, dtype=torch.float32)
+  step = datagen.make_one_step(sem, cfg, exact_solves=not args.certified)
+  state = datagen.initial_state(sem, cfg)
+
+  def run(count, state):
+    us, ps, cus = state
+    for _ in range(count):
+      u, p, cu, _ = step(us, ps, cus)
+      us, ps, cus = us[1:] + (u,), ps[1:] + (p,), cus[1:] + (cu,)
+    return us, ps, cus
+
+  state = run(warmup, state)
+  torch.cuda.synchronize(device)
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  t0 = time.perf_counter()
+  start.record()
+  state = run(steps, state)
+  end.record()
+  torch.cuda.synchronize(device)
+  host_ms = (time.perf_counter() - t0) / steps * 1e3
+  print(f'{cfg.resolution}x{cfg.resolution} order {cfg.order}, '
+        f'{"certified" if args.certified else "exact"} solves: '
+        f'{start.elapsed_time(end) / steps:.4f} ms/step (CUDA events), '
+        f'{host_ms:.4f} ms/step (host clock)')
+
+  activities = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=activities) as prof:
+    t0 = time.perf_counter()
+    state = run(steps, state)
+    torch.cuda.synchronize(device)
+    wall_us = (time.perf_counter() - t0) * 1e6
+  kernels = [e for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and _self_device_us(e) > 0]
+  busy_us = sum(_self_device_us(e) for e in kernels)
+  launches = sum(e.count for e in kernels)
+  if not kernels:
+    print('device kernel time: not measured (the profiler saw no kernels)')
+    return
+  print(f'profiled {steps} steps: wall {wall_us / 1e3:.3f} ms, device '
+        f'busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), '
+        f'{launches / steps:.1f} kernel launches/step, '
+        f'{busy_us / launches:.2f} us/kernel on average')
+  kernels.sort(key=_self_device_us, reverse=True)
+  print(f'{"self device us/step":>20} {"share":>6} {"calls/step":>10}  kernel')
+  for e in kernels[:rows]:
+    print(f'{_self_device_us(e) / steps:20.2f} '
+          f'{100 * _self_device_us(e) / busy_us:5.1f}% '
+          f'{e.count / steps:10.1f}  {e.key[:110]}')
+
+
+if __name__ == '__main__':
+  main()

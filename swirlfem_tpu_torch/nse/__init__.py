@@ -1,0 +1,1 @@
+"""nse modules of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,101 @@
+"""Builds and loads the port's hand-written Hopper kernels (csrc/*.cu).
+
+The CUDA sources are compiled by ``nvcc`` for ``sm_90a`` into ONE shared
+library with a plain C interface and loaded with `ctypes` (no PyTorch
+headers, so a build takes seconds).  The build happens at first use, into
+``swirlfem_tpu_torch/_build/<hash>/``, keyed by a hash of the sources and
+flags; a later process with the same sources reuses it.  Importing this
+module builds nothing and needs no CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import time
+
+_PKG = pathlib.Path(__file__).resolve().parents[1]
+_CSRC = _PKG / 'csrc'
+_BUILD = _PKG / '_build'
+_SOURCES = ('exchange2d.cu', 'stiffness_uniform.cu')
+_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+          '-shared', '-Xcompiler', '-fPIC')
+
+_P = ctypes.c_void_p
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_I = ctypes.c_int
+_SIGNATURES = {
+    # (w, out, k, n0, n1, stream)
+    'exchange2d_f32': (_P, _P, _I, _I, _I, _P),
+    'exchange2d_f64': (_P, _P, _I, _I, _I, _P),
+    # (amat, us[], outs[], num_c, k2, num_e, stream)
+    'stiffness_uniform_f32': (_P, _PP, _PP, _I, _I, _I, _P),
+    'stiffness_uniform_f64': (_P, _PP, _PP, _I, _I, _I, _P),
+}
+
+_library: ctypes.CDLL | None = None
+build_seconds: float | None = None
+
+
+def _nvcc() -> str:
+  for cand in (os.path.join(os.environ.get('CUDA_HOME', ''), 'bin', 'nvcc'),
+               shutil.which('nvcc') or '', '/usr/local/cuda/bin/nvcc'):
+    if cand and os.path.isfile(cand):
+      return cand
+  raise RuntimeError('nvcc not found (set CUDA_HOME or put nvcc on PATH); '
+                     'the CUDA kernels cannot be built')
+
+
+def _source_hash() -> str:
+  h = hashlib.sha256(' '.join(_FLAGS).encode())
+  for name in _SOURCES:
+    h.update(name.encode())
+    h.update((_CSRC / name).read_bytes())
+  return h.hexdigest()[:16]
+
+
+def library_path() -> pathlib.Path:
+  """Where the shared library for the current sources lives (or will)."""
+  return _BUILD / _source_hash() / 'libswirlfem_kernels.so'
+
+
+def _compile(so: pathlib.Path) -> None:
+  so.parent.mkdir(parents=True, exist_ok=True)
+  fd, tmp = tempfile.mkstemp(suffix='.so', dir=so.parent)
+  os.close(fd)
+  cmd = [_nvcc(), *_FLAGS, '-o', tmp, *(str(_CSRC / s) for s in _SOURCES)]
+  proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+  if proc.returncode != 0:
+    os.unlink(tmp)
+    raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{" ".join(cmd)}\n'
+                       f'{proc.stdout}\n{proc.stderr}')
+  os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
+
+
+def library() -> ctypes.CDLL:
+  """The loaded kernel library, built from csrc/ on first use."""
+  global _library, build_seconds
+  if _library is None:
+    start = time.perf_counter()
+    so = library_path()
+    if not so.exists():
+      _compile(so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+      fn = getattr(lib, name)
+      fn.argtypes = argtypes
+      fn.restype = ctypes.c_int
+    build_seconds = time.perf_counter() - start
+    _library = lib
+  return _library
+
+
+def check(rc: int, what: str) -> None:
+  """Raises if a kernel's C entry point returned a CUDA error code."""
+  if rc != 0:
+    raise RuntimeError(f'{what}: CUDA error {rc} at launch')

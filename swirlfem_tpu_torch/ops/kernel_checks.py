@@ -1,0 +1,100 @@
+"""Kernel-against-plain checks and timings, shared by chip_smoke.py and tests.
+
+Each check runs a hand-written kernel and its plain PyTorch version on the
+same inputs on one CUDA device and reports their difference; the timings
+use CUDA events.  Launches made here count in the wrappers' launch
+counters: callers reset the counters before a run they want to attribute.
+"""
+
+from __future__ import annotations
+
+import statistics
+
+import numpy as np
+import torch
+
+from swirlfem_tpu_torch.ops import cuda_exchange
+from swirlfem_tpu_torch.ops import cuda_stiffness
+
+# Gate of the stiffness kernel against the float64 operator, relative to
+# the largest output entry (the JAX bench's gate, bench.py:602-611).
+STIFFNESS_REL_TOL = 1e-5
+
+
+def random_field(shape, *, dtype, device, seed=0) -> torch.Tensor:
+  rng = np.random.default_rng(seed)
+  return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                         device=device)
+
+
+def check_exchange2d(w: torch.Tensor) -> dict:
+  """exchange2d kernel vs `exchange2d_plain` on `w`: must be bitwise equal."""
+  got = cuda_exchange.exchange2d(w)
+  want = cuda_exchange.exchange2d_plain(w)
+  torch.cuda.synchronize(w.device)
+  return {'bitwise_equal': bool(torch.equal(got, want)),
+          'max_abs_err': float((got - want).abs().max())}
+
+
+def check_stiffness_uniform(ops, us) -> dict:
+  """stiffness_uniform kernel vs its plain version and the float64 operator.
+
+  `ops` is a congruent-element `Sem2DOps` on the device; `us` a tuple of
+  ``(k, k, E)`` fields in its dtype.
+  """
+  amat = ops.mats['amat']
+  got = cuda_stiffness.stiffness_uniform(us, amat)
+  plain = cuda_stiffness.stiffness_uniform_plain(us, amat)
+  a64 = torch.as_tensor(
+      cuda_stiffness.uniform_amat_np(ops.c_uniform, ops.wq2d, ops.dmat),
+      dtype=torch.float64, device=amat.device)
+  ref = cuda_stiffness.stiffness_uniform_plain(
+      tuple(u.double() for u in us), a64)
+  torch.cuda.synchronize(amat.device)
+  scale = max(float(r.abs().max()) for r in ref)
+  return {
+      'max_abs_err': max(float((g - p).abs().max())
+                         for g, p in zip(got, plain)),
+      'rel_err_f64': max(float((g.double() - r).abs().max())
+                         for g, r in zip(got, ref)) / scale,
+      'plain_rel_err_f64': max(float((p.double() - r).abs().max())
+                               for p, r in zip(plain, ref)) / scale,
+  }
+
+
+def time_ms(fn, *, device, calls: int = 20, runs: int = 7, warmup: int = 10,
+            device_only: bool = True) -> float:
+  """Median over `runs` of the time of one call of `fn`, in ms.
+
+  Each run times `calls` back-to-back calls between two CUDA events.  With
+  `device_only` the device is first kept busy (``torch.cuda._sleep``) until
+  the host has enqueued the whole run, so the events measure device time
+  alone — the kernels and the gaps between them, without the host's
+  dispatch cost.  Without it the time includes that cost, as an eager
+  caller pays it.
+  """
+  for _ in range(warmup):
+    fn()
+  torch.cuda.synchronize(device)
+  samples = []
+  sleep_cycles = 20_000_000  # ~10 ms at the H100's clock
+  while len(samples) < runs:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if device_only:
+      torch.cuda._sleep(sleep_cycles)  # pylint: disable=protected-access
+    start.record()
+    for _ in range(calls):
+      fn()
+    end.record()
+    if device_only and start.query():
+      # The device reached `start` before the host finished: a gap entered.
+      torch.cuda.synchronize(device)
+      sleep_cycles *= 2
+      if sleep_cycles > 2_000_000_000:
+        raise RuntimeError('the host could not enqueue a timed run while '
+                           'the device slept')
+      continue
+    torch.cuda.synchronize(device)
+    samples.append(start.elapsed_time(end) / calls)
+  return statistics.median(samples)

@@ -1,0 +1,100 @@
+"""The port's Hopper kernels against their plain PyTorch versions, on a card.
+
+The same checks as ``chip_smoke.py`` (``swirlfem_tpu_torch.ops
+.kernel_checks``) plus wrapper validation and a short datagen cycle on the
+card against the CPU.  Every test is marked ``cuda`` and skips without a
+CUDA device.  On a GPU host (no JAX needed):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from swirlfem_tpu_torch.niles import datagen
+from swirlfem_tpu_torch.ops import cuda_exchange
+from swirlfem_tpu_torch.ops import cuda_stiffness
+from swirlfem_tpu_torch.ops import kernel_checks
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def device():
+  if not torch.cuda.is_available():
+    pytest.skip('needs a CUDA device')
+  return torch.device('cuda', 0)
+
+
+def _solver(device, dtype, resolution=8, order=8):
+  cfg = datagen.DatagenConfig(resolution=resolution, order=order)
+  return cfg, datagen.build_solver(cfg, device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('shape', [(9, 9, 64, 64), (5, 5, 8, 8),
+                                   (4, 4, 3, 7), (2, 2, 1, 1)])
+def test_exchange2d_bitwise_equals_plain(device, shape, dtype):
+  w = kernel_checks.random_field(shape, dtype=dtype, device=device)
+  result = kernel_checks.check_exchange2d(w)
+  assert result['bitwise_equal'], result
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('order,num_e', [(8, 4096), (8, 37), (3, 100)])
+def test_stiffness_uniform_matches_f64_operator(device, order, num_e, dtype):
+  _, sem = _solver(device, dtype, resolution=4, order=order)
+  k = order + 1
+  us = tuple(kernel_checks.random_field((k, k, num_e), dtype=dtype,
+                                        device=device, seed=s)
+             for s in (1, 2))
+  result = kernel_checks.check_stiffness_uniform(sem.fast_ops, us)
+  tol = kernel_checks.STIFFNESS_REL_TOL if dtype == torch.float32 else 1e-13
+  assert result['rel_err_f64'] <= tol, result
+
+
+def test_launches_are_counted(device):
+  _, sem = _solver(device, torch.float32, resolution=4, order=4)
+  w = torch.ones(5, 5, 4, 4, device=device)
+  before = (cuda_exchange.exchange2d.launches,
+            cuda_stiffness.stiffness_uniform.launches)
+  cuda_exchange.exchange2d(w)
+  sem.fast_ops.stiffness_el_multi((w.reshape(5, 5, 16),) * 2)
+  assert (cuda_exchange.exchange2d.launches,
+          cuda_stiffness.stiffness_uniform.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(device):
+  _, sem = _solver(device, torch.float32, resolution=4, order=4)
+  w = torch.ones(5, 5, 4, 4, device=device)
+  with pytest.raises(ValueError, match='contiguous'):
+    cuda_exchange.exchange2d(w.transpose(2, 3))
+  with pytest.raises(TypeError):
+    cuda_exchange.exchange2d(w.half())
+  with pytest.raises(ValueError, match='components'):
+    cuda_stiffness.stiffness_uniform((w.reshape(5, 5, 16),) * 5,
+                                     sem.fast_ops.mats['amat'])
+  bf16x3 = dataclasses.replace(sem.fast_ops, kernel_precision='bf16x3')
+  with pytest.raises(NotImplementedError, match='ROADMAP'):
+    bf16x3.stiffness_el(w.reshape(5, 5, 16))
+
+
+@pytest.mark.parametrize('exact_solves', [True, False])
+def test_datagen_cycle_on_card_matches_cpu(device, exact_solves):
+  """float64 on both sides: the kernels change only rounding."""
+  cfg = datagen.DatagenConfig(resolution=4, order=4, reynolds_number=1000.0,
+                              dt=2e-3, num_steps_per_cycle=5,
+                              snapshot_every=5)
+  out = []
+  for dev in (device, torch.device('cpu')):
+    sem = datagen.build_solver(cfg, device=dev, dtype=torch.float64)
+    advance = datagen.make_step_fn(sem, cfg, exact_solves=exact_solves)
+    (us, ps, _), _ = advance(*datagen.initial_state(sem, cfg))
+    out.append((us[-1], ps[-1]))
+  (gu, gp), (cu, cp) = out
+  for g, c in zip(gu + (gp,), cu + (cp,)):
+    err = float((g.cpu() - c).abs().max() / c.abs().max())
+    assert err <= 1e-10, err

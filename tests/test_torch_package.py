@@ -1,0 +1,69 @@
+"""The port imports torch and never JAX or the JAX package."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+MODULES = [
+    'swirlfem_tpu_torch',
+    'swirlfem_tpu_torch.interop',
+    'swirlfem_tpu_torch.core.bc',
+    'swirlfem_tpu_torch.core.fespace',
+    'swirlfem_tpu_torch.core.mesh',
+    'swirlfem_tpu_torch.core.premesh',
+    'swirlfem_tpu_torch.core.quadrature',
+    'swirlfem_tpu_torch.core.refine',
+    'swirlfem_tpu_torch.core.structured',
+    'swirlfem_tpu_torch.core.tensor',
+    'swirlfem_tpu_torch.core.topology',
+    'swirlfem_tpu_torch.linalg.cg',
+    'swirlfem_tpu_torch.niles.datagen',
+    'swirlfem_tpu_torch.niles.datagen_config',
+    'swirlfem_tpu_torch.niles.profile_datagen',
+    'swirlfem_tpu_torch.nse.solver',
+    'swirlfem_tpu_torch.ops.cuda_build',
+    'swirlfem_tpu_torch.ops.cuda_exchange',
+    'swirlfem_tpu_torch.ops.cuda_stiffness',
+    'swirlfem_tpu_torch.ops.fdm_pressure',
+    'swirlfem_tpu_torch.ops.kernel_checks',
+    'swirlfem_tpu_torch.ops.sem2d',
+    'swirlfem_tpu_torch.utils.box',
+    'swirlfem_tpu_torch.utils.facets',
+]
+
+CHECK = """
+import importlib, sys
+for name in sys.argv[1:]:
+  importlib.import_module(name)
+banned = ('jax', 'jaxlib', 'flax', 'swirlfem_tpu')
+bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)
+assert not bad, bad
+from swirlfem_tpu_torch.ops import cuda_build
+assert cuda_build._library is None, 'importing built the kernels'
+print('clean', len(sys.argv) - 1)
+"""
+
+
+def test_port_imports_no_jax():
+  env = dict(os.environ, PYTHONPATH=REPO)
+  proc = subprocess.run([sys.executable, '-c', CHECK, *MODULES], cwd=REPO,
+                        env=env, capture_output=True, text=True, timeout=300,
+                        check=False)
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.strip() == f'clean {len(MODULES)}'
+
+
+def test_module_list_covers_the_package():
+  found = set()
+  pkg = os.path.join(REPO, 'swirlfem_tpu_torch')
+  for root, _, files in os.walk(pkg):
+    for f in files:
+      if f.endswith('.py'):
+        rel = os.path.relpath(os.path.join(root, f), REPO)[:-3]
+        name = rel.replace(os.sep, '.').removesuffix('.__init__')
+        found.add(name)
+  packages = {m for m in found if m.count('.') == 1
+              and os.path.isdir(os.path.join(REPO, *m.split('.')))}
+  assert found - packages == set(MODULES), found ^ set(MODULES)

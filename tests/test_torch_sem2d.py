@@ -1,0 +1,200 @@
+"""Parity of the port's E-last element operators with ``swirlfem_tpu.ops.sem2d``.
+
+Factor fields and the affine / congruent detection, every el operator on
+numpy-seeded inputs, and the plain versions of the two Hopper kernels
+against the JAX Pallas kernels run in interpret mode.
+"""
+
+import dataclasses
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from swirlfem_tpu.nse.solver import StokesSEM as JStokesSEM
+from swirlfem_tpu.ops import sem2d as jsem2d
+from swirlfem_tpu.ops.pallas_exchange import exchange2d_pallas
+from swirlfem_tpu.ops.pallas_stiffness import stiffness_el_pallas_uniform
+from swirlfem_tpu.utils.box import unit_cube_mesh as junit_cube_mesh
+from swirlfem_tpu_torch.core.structured import StructuredInfo
+from swirlfem_tpu_torch.nse.solver import StokesSEM
+from swirlfem_tpu_torch.ops import cuda_exchange
+from swirlfem_tpu_torch.ops import cuda_stiffness
+from swirlfem_tpu_torch.ops import sem2d
+from swirlfem_tpu_torch.utils.box import unit_cube_mesh
+
+
+def _graded(pm):
+  """Per-axis graded coordinates: affine elements, not congruent."""
+  c = np.asarray(pm.node_coords, dtype=np.float64)
+  return pm.replace(node_coords=np.stack([c[:, 0] ** 2, c[:, 1]], axis=-1))
+
+
+def _warped(pm):
+  """A smooth interior warp: non-affine elements."""
+  c = np.asarray(pm.node_coords, dtype=np.float64)
+  bump = 0.05 * np.sin(np.pi * c[:, 0]) * np.sin(np.pi * c[:, 1])
+  return pm.replace(node_coords=np.stack([c[:, 0] + bump, c[:, 1]], axis=-1))
+
+
+GEOMETRIES = {'uniform': lambda pm: pm, 'graded': _graded, 'warped': _warped}
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(geometry, n, order):
+  periodic = (0, 1) if geometry == 'uniform' else ()
+  jpm = GEOMETRIES[geometry](junit_cube_mesh(n, ndim=2,
+                                             periodic_dims=periodic))
+  tpm = GEOMETRIES[geometry](unit_cube_mesh(n, ndim=2,
+                                            periodic_dims=periodic))
+  jsem = JStokesSEM.create(jpm, {}, order=order)
+  sem = StokesSEM.create(tpm, {}, order=order, device='cpu',
+                         dtype=torch.float64)
+  return jsem.fast_ops, sem.fast_ops
+
+
+@pytest.fixture(scope='module', params=[(3, 4), (2, 5)],
+                ids=['n3-order4', 'n2-order5'])
+def uniform_ops(request):
+  return _pair('uniform', *request.param)
+
+
+def _rel(got, want):
+  got, want = np.asarray(got), np.asarray(want)
+  return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300))
+
+
+@pytest.mark.parametrize('geometry', ['uniform', 'graded', 'warped'])
+def test_build_sem2d_ops_factors_and_detection(geometry):
+  jops, ops = _pair(geometry, 3, 4)
+  for name in ('g11', 'g12', 'g22', 'wmass', 'kinv', 'wmass_o', 'kinv_o'):
+    np.testing.assert_allclose(getattr(ops, name).numpy(),
+                               np.asarray(getattr(jops, name)),
+                               rtol=0, atol=1e-12, err_msg=name)
+  for name in ('dmat', 'interp_p', 'interp_o', 'interp_o_grad', 'wq2d'):
+    np.testing.assert_array_equal(getattr(ops, name), getattr(jops, name))
+  assert vars(ops.vinfo) == vars(jops.vinfo)
+  assert vars(ops.pinfo) == vars(jops.pinfo)
+  assert (ops.g_affine is None) == (jops.g_affine is None)
+  if jops.g_affine is not None:
+    np.testing.assert_allclose(ops.g_affine.numpy(),
+                               np.asarray(jops.g_affine), rtol=0, atol=1e-12)
+  assert (ops.c_uniform is None) == (jops.c_uniform is None)
+  if jops.c_uniform is not None:
+    np.testing.assert_allclose(ops.c_uniform, jops.c_uniform, atol=1e-12)
+  expect_uniform = geometry == 'uniform'
+  assert (ops.c_uniform is not None) == expect_uniform
+  assert (ops.g_affine is not None) == (geometry != 'warped')
+
+
+def test_el_operators_match(uniform_ops):
+  jops, ops = uniform_ops
+  k = ops.vinfo.order + 1
+  m = ops.pinfo.order + 1
+  num_e = ops.vinfo.num_elements_per_dim ** 2
+  rng = np.random.default_rng(3)
+  ux, uy = (rng.standard_normal((k, k, num_e)) for _ in range(2))
+  p = rng.standard_normal((m, m, num_e))
+  t = lambda a: torch.as_tensor(a)
+  j = jnp.asarray
+
+  def check(got, want, what, tol=1e-12):
+    if isinstance(want, tuple):
+      for g, w in zip(got, want):
+        check(g, w, what, tol)
+      return
+    assert _rel(got.numpy(), want) <= tol, (what, _rel(got.numpy(), want))
+
+  # The congruent-element path (dense operator) and the factored one.
+  check(ops.stiffness_el(t(ux)), jops.stiffness_el(j(ux)), 'stiffness')
+  check(ops.stiffness_el_multi((t(ux), t(uy))),
+        tuple(jops.stiffness_el(j(u)) for u in (ux, uy)), 'stiffness_multi')
+  factored = dataclasses.replace(ops, c_uniform=None)
+  check(factored.stiffness_el_multi((t(ux), t(uy))),
+        tuple(jops.stiffness_el(j(u)) for u in (ux, uy)), 'factored')
+  check(ops.stiffness_diag_el(), jops.stiffness_diag_el(), 'diag')
+  check(ops.phys_grad_el(t(ux)), jops.phys_grad_el(j(ux)), 'phys_grad')
+  check(ops.divergence_el(t(ux), t(uy)), jops.divergence_el(j(ux), j(uy)),
+        'divergence')
+  check(ops.gradient_el(t(p)), jops.gradient_el(j(p)), 'gradient')
+  check(ops.convection_el(t(ux), t(uy)), jops.convection_el(j(ux), j(uy)),
+        'convection')
+  blend = rng.standard_normal((k, k))
+  check(ops.interp_all(t(blend), t(ux)), jops.interp_all(blend, j(ux)),
+        'interp_all')
+
+
+@pytest.mark.parametrize('continuous', [True, False])
+def test_layout_transforms_match(continuous):
+  info = StructuredInfo(num_elements_per_dim=3, order=4, ndim=2,
+                        continuous=continuous)
+  jinfo = jsem2d.StructuredInfo(**vars(info))
+  rng = np.random.default_rng(4)
+  u = rng.standard_normal(info.nodes_per_dim ** 2)
+  w = rng.standard_normal((5, 5, 9))
+  np.testing.assert_array_equal(
+      sem2d.nodal_to_el(torch.as_tensor(u), info).numpy(),
+      np.asarray(jsem2d.nodal_to_el(jnp.asarray(u), jinfo)))
+  np.testing.assert_allclose(
+      sem2d.el_to_nodal(torch.as_tensor(w), info).numpy(),
+      np.asarray(jsem2d.el_to_nodal(jnp.asarray(w), jinfo)),
+      rtol=1e-15, atol=1e-15)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+@pytest.mark.parametrize('shape', [(5, 5, 8, 8), (4, 4, 3, 5), (2, 2, 1, 2)])
+def test_exchange_plain_exactly_equals_pallas(shape, dtype):
+  """Plain exchange vs exchange2d_pallas (interpret) and sem2d.exchange_el."""
+  k, _, n0, n1 = shape
+  rng = np.random.default_rng(sum(shape))
+  w = rng.standard_normal(shape).astype(dtype)
+  got = cuda_exchange.exchange2d_plain(torch.as_tensor(w)).numpy()
+  np.testing.assert_array_equal(
+      got, np.asarray(exchange2d_pallas(jnp.asarray(w), interpret=True)))
+  if n0 == n1:
+    jinfo = jsem2d.StructuredInfo(num_elements_per_dim=n0, order=k - 1,
+                                  ndim=2, continuous=True)
+    np.testing.assert_array_equal(
+        got, np.asarray(jsem2d.exchange_el(jnp.asarray(w), jinfo)))
+  # The dispatching wrapper takes the plain version on CPU, uncounted.
+  before = cuda_exchange.exchange2d.launches
+  np.testing.assert_array_equal(
+      cuda_exchange.exchange2d(torch.as_tensor(w)).numpy(), got)
+  assert cuda_exchange.exchange2d.launches == before
+
+
+def test_stiffness_uniform_plain_matches_pallas(uniform_ops):
+  jops, ops = uniform_ops
+  k = ops.vinfo.order + 1
+  num_e = ops.vinfo.num_elements_per_dim ** 2
+  rng = np.random.default_rng(5)
+  us = tuple(rng.standard_normal((k, k, num_e)) for _ in range(2))
+  want = stiffness_el_pallas_uniform(
+      tuple(jnp.asarray(u) for u in us), jops.c_uniform, jops.wq2d,
+      jops.dmat, interpret=True)
+  amat = ops.mats['amat']
+  np.testing.assert_allclose(
+      amat.numpy(),
+      cuda_stiffness.uniform_amat_np(jops.c_uniform, jops.wq2d, jops.dmat),
+      rtol=0, atol=1e-12)
+  got = cuda_stiffness.stiffness_uniform_plain(
+      tuple(torch.as_tensor(u) for u in us), amat)
+  before = cuda_stiffness.stiffness_uniform.launches
+  got_wrapped = cuda_stiffness.stiffness_uniform(
+      tuple(torch.as_tensor(u) for u in us), amat)
+  assert cuda_stiffness.stiffness_uniform.launches == before
+  for g, gw, w in zip(got, got_wrapped, want):
+    np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-10)
+    np.testing.assert_array_equal(gw.numpy(), g.numpy())
+
+
+def test_kernel_precision_is_validated(uniform_ops):
+  _, ops = uniform_ops
+  with pytest.raises(ValueError, match='kernel_precision'):
+    dataclasses.replace(ops, kernel_precision='tf32')
+  # Knobs without a Hopper kernel still run their plain version on CPU.
+  ops3 = dataclasses.replace(ops, kernel_precision='bf16x3')
+  u = torch.ones_like(ops.wmass)
+  torch.testing.assert_close(ops3.stiffness_el(u), ops.stiffness_el(u))
