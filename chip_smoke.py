@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's main path once on one CUDA card, and checks it.
+"""Drives the PyTorch port's main paths once on one CUDA card, and checks them.
 
-The main path is the Kolmogorov DNS datagen of swirlfem_tpu_torch at the
+The main paths are the Kolmogorov DNS datagen of swirlfem_tpu_torch at the
 reference configuration (64x64 elements, order 8, BDF3, Re 2e4, dt 1e-4)
-in float32.  Phases:
+and the 3D Taylor-Green vortex (Re 1600, 16^3 elements, order 7, BDF2,
+filter 0.05), both in float32.  Phases:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels (csrc/*.cu, nvcc, sm_90a);
@@ -17,7 +18,22 @@ in float32.  Phases:
   6. run 20 steps on the card and the same 20 through the plain path on the
      CPU, from one state, and compare;
   7. time each kernel against its plain version (CUDA events): device
-     time alone ("ms") and per eager call, dispatch included ("call_ms").
+     time alone ("ms") and per eager call, dispatch included ("call_ms");
+  8. the 3D kernels against their plain versions and the float64 operator
+     at 16^3 elements, order 7, 3 components;
+  9. one 250-step TGV chunk through `run_tgv` (stiffness3d_uniform on every
+     step, for the resolved dissipation), checked against the flow's
+     known start (KE 1/8, dissipation 0.75/Re) and monotone decay;
+ 10. 20 more steps twice from that state, the second with the general
+     operator (stiffness3d_general on the path): the dissipation series
+     must agree;
+ 11. 20 TGV steps at 8^3 on the card and through the plain path on the CPU;
+ 12. time the 3D kernels against their plain versions and one library call.
+
+Each kernel's count is set to 0 just before the path that launches it and
+read just after.  Every kernel's bound is the larger of its bytes (each
+input read once, each output written once) over 3.35 TB/s and its
+operations over 67 TFLOP/s (H100 SXM, FP32).
 
 Prints a JSON line of the kernels, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -77,15 +93,184 @@ def to_device(state, device):
   return state.to(device)
 
 
+def time_kernels(timed, times, kernel_checks, device, tag) -> None:
+  """Times each (kernel, plain, library) triple into `times[name]`."""
+  for name, (kernel, plain, library) in timed.items():
+    times[name] = {
+        key: kernel_checks.time_ms(fn, device=device, device_only=dev_only)
+        for key, fn, dev_only in (('ms', kernel, True),
+                                  ('plain_ms', plain, True),
+                                  ('call_ms', kernel, False),
+                                  ('plain_call_ms', plain, False))}
+    times[name]['library_ms'] = (
+        None if library is None
+        else kernel_checks.time_ms(library, device=device))
+    lib = ('' if library is None else
+           f'; library call {times[name]["library_ms"] * 1e3:.2f} us')
+    log(f'{tag} {name}: device {times[name]["ms"] * 1e3:.2f} us (plain '
+        f'{times[name]["plain_ms"] * 1e3:.2f} us{lib}); per eager call '
+        f'{times[name]["call_ms"] * 1e3:.2f} us (plain '
+        f'{times[name]["plain_call_ms"] * 1e3:.2f} us)')
+
+
+def run_tgv_phases(torch, device, dtype, tgv, cuda_stiffness3d,
+                   kernel_checks, times, launches) -> None:
+  """Phases 8-12: the 3D Taylor-Green path and its two kernels.
+
+  Fills `times` and `launches` for stiffness3d_uniform / _general.
+  """
+  import dataclasses
+  import numpy as np
+  re, n_el, order, n_small = 1600.0, 16, 7, 8
+  k = order + 1
+
+  # -- 8. 3D kernels vs plain and the float64 operator ----------------------
+  t0 = time.perf_counter()
+  sem3 = tgv.create_tgv(n_el, order, dtype=dtype, device=device)
+  ops3 = sem3.fast_ops
+  log(f'[8] TGV solver setup {time.perf_counter() - t0:.2f} s: {n_el}^3 '
+      f'elements, order {order}, c_uniform={ops3.c_uniform}, stiffness key '
+      f'{ops3.stiffness_key}')
+  require(ops3.c_uniform is not None, 'the TGV box must be congruent')
+  num_e = n_el ** 3
+  us3 = tuple(kernel_checks.random_field((k,) * 3 + (num_e,), dtype=dtype,
+                                         device=device, seed=s)
+              for s in (1, 2, 3))
+  # Random factor fields make every cross term of the general operator
+  # count (on the box's own fields they vanish).
+  gs_rand = tuple(kernel_checks.random_field((k,) * 3 + (num_e,),
+                                             dtype=dtype, device=device,
+                                             seed=10 + s) for s in range(6))
+  su = kernel_checks.check_stiffness3d_uniform(ops3, us3)
+  sg = kernel_checks.check_stiffness3d_general(ops3, us3)
+  sr = kernel_checks.check_stiffness3d_general(ops3, us3, gs_rand)
+  log(f'[8] stiffness3d_uniform 3 x {tuple(us3[0].shape)} f32: {su}')
+  log(f'[8] stiffness3d_general, the box\'s factor fields: {sg}')
+  log(f'[8] stiffness3d_general, random factor fields: {sr}')
+  for check in (su, sg, sr):
+    require(check['rel_err_f64'] <= kernel_checks.STIFFNESS_REL_TOL, check)
+
+  # -- 9. one TGV chunk (the 3D main path) ----------------------------------
+  cuda_stiffness3d.stiffness3d_uniform.launches = 0
+  cuda_stiffness3d.stiffness3d_general.launches = 0
+  torch.cuda.synchronize(device)
+  t0 = time.perf_counter()
+  r = tgv.run_tgv(re=re, n_el=n_el, order=order, alpha=0.05, time_order=2,
+                  steps_per_chunk=250, num_chunks=1, dtype=dtype,
+                  device=device)
+  torch.cuda.synchronize(device)
+  wall = time.perf_counter() - t0
+  uni = cuda_stiffness3d.stiffness3d_uniform.launches
+  launches['stiffness3d_uniform'] = uni
+  ke, diss = r['ke'], r['dissipation']
+  log(f'[9] TGV chunk of {r["steps"]} steps, dt {r["dt"]:.6f}: '
+      f'{r["wall_s"] / r["steps"] * 1e3:.4f} ms/step (host clock over the '
+      f'chunk, first chunk, synchronized; {wall:.2f} s with setup); '
+      f'KE {ke[0]:.6f} -> {ke[-1]:.6f}, eps(0) {diss[0]:.7e} '
+      f'(0.75/Re = {0.75 / re:.7e}), cg max iters {r["cg_max_iters"]}, '
+      f'stiffness3d_uniform launches {uni}')
+  require(all_finite((r['us'], r['ps'], r['cus'])), 'non-finite TGV state')
+  require(bool(np.all(np.diff(ke) < 0)), 'TGV kinetic energy must decay')
+  require(abs(ke[0] - 0.125) < 2e-3, ke[0])
+  require(abs(diss[0] - 0.75 / re) < 0.02 * 0.75 / re, diss[0])
+  require(r['cg_max_iters'] < 100, r['cg_max_iters'])
+  require(uni >= r['steps'], f'stiffness3d_uniform launched {uni} times '
+          f'in {r["steps"]} steps')
+
+  # -- 10. the general kernel on the path -----------------------------------
+  full = r['sem']
+  general = dataclasses.replace(full, fast_ops=dataclasses.replace(
+      full.fast_ops, use_uniform_kernel=False))
+  state = (r['us'], r['ps'], r['cus'])
+  series = {}
+  for name, sem_v in (('uniform', full), ('general', general)):
+    advance, _ = tgv.make_advance(sem_v, mu=1.0 / re, dt=r['dt'],
+                                  time_order=2, alpha=0.05,
+                                  steps_per_chunk=20)
+    cuda_stiffness3d.stiffness3d_general.launches = 0
+    series[name] = advance(*state)
+    if name == 'general':
+      launches['stiffness3d_general'] = (
+          cuda_stiffness3d.stiffness3d_general.launches)
+  d_u = series['uniform'][1][1].double().cpu()
+  d_g = series['general'][1][1].double().cpu()
+  d_rel = float((d_g - d_u).abs().max() / d_u.abs().max())
+  u_rel = rel_err(series['general'][0][0][-1], series['uniform'][0][0][-1])
+  log(f'[10] 20 steps, general vs congruent stiffness: dissipation rel '
+      f'{d_rel:.3e}, velocity rel {u_rel:.3e}; stiffness3d_general '
+      f'launches {launches["stiffness3d_general"]}')
+  require(launches['stiffness3d_general'] >= 20,
+          'the general-operator steps never launched stiffness3d_general')
+  require(d_rel <= 1e-5, d_rel)
+
+  # -- 11. card vs the CPU plain path, 8^3 ----------------------------------
+  outs = []
+  for dev in (device, torch.device('cpu')):
+    sem_s = tgv.create_tgv(n_small, order, dtype=dtype, device=dev)
+    advance, conv = tgv.make_advance(sem_s, mu=1.0 / re, dt=r['dt'],
+                                     time_order=2, alpha=0.05,
+                                     steps_per_chunk=20)
+    outs.append(advance(*tgv.initial_state(sem_s, conv, 2)))
+  (card_state, card_diag), (cpu_state, cpu_diag) = outs
+  du = rel_err(card_state[0][-1], cpu_state[0][-1])
+  dp = rel_err(card_state[1][-1], cpu_state[1][-1])
+  dd = rel_err(card_diag[1], cpu_diag[1])
+  log(f'[11] 20 TGV steps at {n_small}^3, card vs CPU plain path (f32): '
+      f'u rel {du:.3e}, p rel {dp:.3e}, dissipation rel {dd:.3e}')
+  # Both sides round in float32 in different summation orders.  The
+  # pressure is solved to a 1e-5 relative residual and its second defect
+  # sweep may fire on one side only, which moves p further than u.
+  require(du <= 1e-4, du)
+  require(dp <= 1e-2, dp)
+
+  # -- 12. 3D kernel times ---------------------------------------------------
+  table, dmat = ops3.mats['table'], ops3.mats['dmat']
+  gs = ops3.gs()
+  a_dense = torch.as_tensor(
+      cuda_stiffness3d.uniform_amat3d_np(ops3.c_uniform, ops3.w1, ops3.dmat),
+      dtype=dtype, device=device)
+  ustack = torch.cat([u.reshape(k ** 3, -1) for u in us3], dim=1)
+  timed = {
+      'stiffness3d_uniform': (
+          lambda: cuda_stiffness3d.stiffness3d_uniform(us3, table),
+          lambda: cuda_stiffness3d.stiffness3d_uniform_plain(us3, table),
+          # One GEMM of the dense (k^3, k^3) operator on the (k^3, C E)
+          # stack: the same function, by the library.
+          lambda: torch.matmul(a_dense, ustack)),
+      'stiffness3d_general': (
+          lambda: cuda_stiffness3d.stiffness3d_general(us3, gs, dmat),
+          lambda: cuda_stiffness3d.stiffness3d_general_plain(us3, gs, dmat),
+          None),
+  }
+  time_kernels(timed, times, kernel_checks, device, '[12]')
+  dofs = len(us3) * k ** 3 * num_e  # bench.py:394 counts 3 k^3 E
+  itemsize = us3[0].element_size()
+  for name, uniform, extra in (('stiffness3d_uniform', True, table.numel()),
+                               ('stiffness3d_general', False, dmat.numel())):
+    flops, nbytes = cuda_stiffness3d.stiffness3d_counts(
+        order, num_e, len(us3), uniform=uniform, dtype_bytes=itemsize)
+    times[name].update(kernel_checks.bound(flops, nbytes + extra * itemsize))
+    times[name]['max_abs_err'] = (su if uniform else
+                                  max(sg, sr, key=lambda c: c['max_abs_err'])
+                                  )['max_abs_err']
+    t = times[name]['ms'] * 1e-3
+    log(f'[12] {name}: {dofs / t / 1e9:.3f} GDOF/s ({dofs} dofs), '
+        f'{flops / t / 1e12:.3f} TFLOP/s, {nbytes / t / 1e12:.3f} TB/s; '
+        f'bound {times[name]["bound_ms"] * 1e3:.2f} us '
+        f'({times[name]["bound_by"]})')
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device', file=sys.stderr)
     return 1
+  from swirlfem_tpu_torch.examples import taylor_green_3d as tgv
   from swirlfem_tpu_torch.niles import datagen
   from swirlfem_tpu_torch.ops import cuda_build
   from swirlfem_tpu_torch.ops import cuda_exchange
   from swirlfem_tpu_torch.ops import cuda_stiffness
+  from swirlfem_tpu_torch.ops import cuda_stiffness3d
   from swirlfem_tpu_torch.ops import kernel_checks
 
   device = torch.device('cuda', 0)
@@ -153,13 +338,13 @@ def main() -> int:
   certified = datagen.make_one_step(sem, cfg, exact_solves=False)
   exact = datagen.make_one_step(sem, cfg, exact_solves=True)
   torch.cuda.synchronize(device)
+  cuda_stiffness.stiffness_uniform.launches = 0
   t0 = time.perf_counter()
   cert_state, auxes = steps(certified, state, 20)
   torch.cuda.synchronize(device)
   ms_cert = (time.perf_counter() - t0) / 20 * 1e3
   stiff_launches = cuda_stiffness.stiffness_uniform.launches
-  launches = {'exchange2d': cuda_exchange.exchange2d.launches,
-              'stiffness_uniform': stiff_launches}
+  launches = {'exchange2d': exch_cycle, 'stiffness_uniform': stiff_launches}
   iters = [aux['u_star_info']['num_iterations'] for aux in auxes]
   exact_state, _ = steps(exact, state, 20)
   du = rel_err(cert_state[0][-1], exact_state[0][-1])
@@ -192,33 +377,39 @@ def main() -> int:
 
   # -- 7. kernel times vs plain ---------------------------------------------
   amat = sem.fast_ops.mats['amat']
+  k2 = amat.shape[0]
+  ustack = torch.cat([u.reshape(k2, -1) for u in us], dim=1)
   timed = {
       'exchange2d': (lambda: cuda_exchange.exchange2d(w),
-                     lambda: cuda_exchange.exchange2d_plain(w)),
+                     lambda: cuda_exchange.exchange2d_plain(w), None),
+      # The library yardstick: one GEMM of the dense operator on the
+      # (k^2, C E) stack of the components.
       'stiffness_uniform': (
           lambda: cuda_stiffness.stiffness_uniform(us, amat),
-          lambda: cuda_stiffness.stiffness_uniform_plain(us, amat)),
+          lambda: cuda_stiffness.stiffness_uniform_plain(us, amat),
+          lambda: torch.matmul(amat, ustack)),
   }
   times = {}
-  for name, (kernel, plain) in timed.items():
-    times[name] = {
-        key: kernel_checks.time_ms(fn, device=device, device_only=dev_only)
-        for key, fn, dev_only in (('ms', kernel, True),
-                                  ('plain_ms', plain, True),
-                                  ('call_ms', kernel, False),
-                                  ('plain_call_ms', plain, False))}
-    log(f'[7] {name}: device {times[name]["ms"] * 1e3:.2f} us (plain '
-        f'{times[name]["plain_ms"] * 1e3:.2f} us); per eager call '
-        f'{times[name]["call_ms"] * 1e3:.2f} us (plain '
-        f'{times[name]["plain_call_ms"] * 1e3:.2f} us)')
+  time_kernels(timed, times, kernel_checks, device, '[7]')
+  # Bounds: the exchange moves the field in and out and adds 2k values per
+  # element; the stiffness reads A and the components, writes the outputs,
+  # and does 2 k^4 flops per element and component.
+  num_e = us[0].shape[-1]
+  flops = 2 * k2 ** 2 * num_e * len(us)
+  times['exchange2d'].update(kernel_checks.bound(
+      2 * k * n * n, 2 * w.numel() * w.element_size()))
+  times['stiffness_uniform'].update(kernel_checks.bound(
+      flops, (k2 * k2 + 2 * len(us) * k2 * num_e) * amat.element_size()))
   # GDOF/s as the JAX bench counts them: nodal velocity dofs per apply
   # (bench.py:550); FLOP/s from the dense element operator's 2 k^4 E C.
   dofs = sem.velocity.mesh.num_nodes * sem.velocity.mesh.ndim
-  flops = 2 * amat.shape[0] ** 2 * us[0].shape[-1] * len(us)
   t_st = times['stiffness_uniform']['ms']
   log(f'[7] stiffness_uniform apply, {n}x{n} order {cfg.order}, 2 '
       f'components: {dofs / t_st / 1e6:.3f} GDOF/s ({dofs} nodal dofs), '
-      f'{flops / t_st / 1e9:.1f} GFLOP/s')
+      f'{flops / t_st / 1e9:.2f} TFLOP/s')
+
+  run_tgv_phases(torch, device, dtype, tgv, cuda_stiffness3d, kernel_checks,
+                 times, launches)
 
   kernels = [
       {'name': 'exchange2d', 'route': 'cuda',
@@ -231,11 +422,23 @@ def main() -> int:
        'replaces': 'swirlfem_tpu/ops/pallas_stiffness.py:323',
        'launches': launches['stiffness_uniform'],
        'max_abs_err': st['max_abs_err'], **times['stiffness_uniform']},
+      {'name': 'stiffness3d_uniform', 'route': 'cuda',
+       'source': 'swirlfem_tpu_torch/csrc/stiffness3d_uniform.cu',
+       'replaces': 'swirlfem_tpu/ops/pallas_stiffness3d.py:238',
+       'launches': launches['stiffness3d_uniform'],
+       **times['stiffness3d_uniform']},
+      {'name': 'stiffness3d_general', 'route': 'cuda',
+       'source': 'swirlfem_tpu_torch/csrc/stiffness3d_general.cu',
+       'replaces': 'swirlfem_tpu/ops/pallas_stiffness3d.py:926',
+       'launches': launches['stiffness3d_general'],
+       **times['stiffness3d_general']},
   ]
   for kern in kernels:
     require(kern['launches'] > 0, kern)
     require(all(math.isfinite(kern[key]) for key in
-                ('max_abs_err', 'ms', 'plain_ms', 'call_ms', 'plain_call_ms')),
+                ('max_abs_err', 'ms', 'plain_ms', 'call_ms', 'plain_call_ms',
+                 'bound_ms')), kern)
+    require(kern['library_ms'] is None or math.isfinite(kern['library_ms']),
             kern)
   print(json.dumps({'kernels': kernels}))
   print(smi)

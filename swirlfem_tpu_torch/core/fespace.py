@@ -33,6 +33,25 @@ def _inv_and_det(jacs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         torch.stack([-c, a], dim=-1),
     ], dim=-2) / det[..., None, None]
     return inv, det
+  if d == 3:
+    # Cofactor expansion.
+    m = jacs
+    c00 = m[..., 1, 1] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 1]
+    c01 = m[..., 1, 2] * m[..., 2, 0] - m[..., 1, 0] * m[..., 2, 2]
+    c02 = m[..., 1, 0] * m[..., 2, 1] - m[..., 1, 1] * m[..., 2, 0]
+    c10 = m[..., 0, 2] * m[..., 2, 1] - m[..., 0, 1] * m[..., 2, 2]
+    c11 = m[..., 0, 0] * m[..., 2, 2] - m[..., 0, 2] * m[..., 2, 0]
+    c12 = m[..., 0, 1] * m[..., 2, 0] - m[..., 0, 0] * m[..., 2, 1]
+    c20 = m[..., 0, 1] * m[..., 1, 2] - m[..., 0, 2] * m[..., 1, 1]
+    c21 = m[..., 0, 2] * m[..., 1, 0] - m[..., 0, 0] * m[..., 1, 2]
+    c22 = m[..., 0, 0] * m[..., 1, 1] - m[..., 0, 1] * m[..., 1, 0]
+    det = m[..., 0, 0] * c00 + m[..., 0, 1] * c01 + m[..., 0, 2] * c02
+    adj = torch.stack([
+        torch.stack([c00, c10, c20], dim=-1),
+        torch.stack([c01, c11, c21], dim=-1),
+        torch.stack([c02, c12, c22], dim=-1),
+    ], dim=-2)
+    return adj / det[..., None, None], det
   return torch.linalg.inv(jacs), torch.linalg.det(jacs)
 
 

@@ -1,0 +1,1 @@
+"""examples modules of the PyTorch port (see the package docstring)."""

@@ -2,8 +2,9 @@
 
 There are no learned weights on the datagen path; the state carried across
 is the solver's factor fields and the el-form time history.  These helpers
-take plain numpy arrays (for instance the fields of a JAX ``Sem2DOps``), so
-the port's step can run on exactly the fields another implementation built.
+take plain numpy arrays (for instance the fields of a JAX ``Sem2DOps`` or
+``Sem3DOps``), so the port's step can run on exactly the fields another
+implementation built.
 """
 
 from __future__ import annotations
@@ -15,11 +16,16 @@ import torch
 
 from swirlfem_tpu_torch.core.structured import StructuredInfo
 from swirlfem_tpu_torch.ops.sem2d import Sem2DOps
+from swirlfem_tpu_torch.ops.sem3d import Sem3DOps
 
 # Tensor fields of `Sem2DOps`, moved to the device in the working dtype.
 FIELD_NAMES = ('g11', 'g12', 'g22', 'wmass', 'kinv', 'wmass_o', 'kinv_o')
 # Static float64 host matrices of `Sem2DOps`.
 STATIC_NAMES = ('dmat', 'interp_p', 'interp_o', 'interp_o_grad', 'wq2d')
+# The same for `Sem3DOps`.
+FIELD_NAMES_3D = ('g11', 'g12', 'g13', 'g22', 'g23', 'g33', 'wmass', 'kinv',
+                  'wmass_o', 'kinv_o')
+STATIC_NAMES_3D = ('dmat', 'interp_p', 'interp_o', 'interp_o_grad', 'w1')
 
 
 def sem2d_ops_from_arrays(arrays: Mapping[str, np.ndarray], *,
@@ -45,11 +51,34 @@ def sem2d_ops_from_arrays(arrays: Mapping[str, np.ndarray], *,
       kernel_precision=kernel_precision)
 
 
+def sem3d_ops_from_arrays(arrays: Mapping[str, np.ndarray], *,
+                          vinfo: StructuredInfo, pinfo: StructuredInfo,
+                          c_uniform: tuple | None, device,
+                          dtype) -> Sem3DOps:
+  """A `Sem3DOps` from numpy arrays of `FIELD_NAMES_3D` and `STATIC_NAMES_3D`.
+
+  An optional ``'g_affine'`` entry ((6, E) per-element coefficients) is
+  carried over too.
+  """
+  def dev(a):
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+  g_affine = arrays.get('g_affine')
+  return Sem3DOps(
+      **{name: dev(arrays[name]) for name in FIELD_NAMES_3D},
+      **{name: np.asarray(arrays[name], dtype=np.float64)
+         for name in STATIC_NAMES_3D},
+      vinfo=vinfo, pinfo=pinfo,
+      g_affine=None if g_affine is None else dev(g_affine),
+      c_uniform=None if c_uniform is None else tuple(map(float, c_uniform)))
+
+
 def el_state_from_arrays(us, ps, cus, *, device, dtype):
   """The el-form history ``(us, ps, cus)`` from numpy arrays.
 
   `us` and `cus` are sequences (oldest first) of per-component sequences
-  of ``(k, k, n, n)`` arrays; `ps` a sequence of ``(m, m, n, n)`` arrays.
+  of ``(k,)*d + (n,)*d`` arrays; `ps` a sequence of ``(m,)*d + (n,)*d``
+  arrays.
   """
   def dev(a):
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)

@@ -63,13 +63,13 @@ def kolmogorov_el_forcing(cfg: DatagenConfig, wmass_el, fbody_el, u, cu):
 
 def min_node_spacing(mesh) -> float:
   """Minimum distance between nodes within any element (CFL scale)."""
-  coords = mesh.element_coords().cpu().numpy()
+  coords = mesh.element_coords().cpu()
   dx = np.inf
-  for start in range(0, len(coords), 256):  # bounded pairwise buffers
+  for start in range(0, coords.shape[0], 256):  # bounded pairwise buffers
     x = coords[start:start + 256]
-    pair = np.linalg.norm(x[:, :, None, :] - x[:, None, :, :], axis=-1)
-    idx = np.arange(x.shape[1])
-    pair[:, idx, idx] = np.inf
+    # Direct differences (no |x|^2 + |y|^2 - 2xy expansion): exact distances.
+    pair = torch.cdist(x, x, compute_mode='donot_use_mm_for_euclid_dist')
+    pair.diagonal(dim1=1, dim2=2).fill_(np.inf)
     dx = min(dx, float(pair.min()))
   return dx
 

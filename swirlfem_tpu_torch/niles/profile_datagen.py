@@ -58,21 +58,31 @@ def main(argv=None) -> None:
         f'{start.elapsed_time(end) / steps:.4f} ms/step (CUDA events), '
         f'{host_ms:.4f} ms/step (host clock)')
 
+  profile_steps(lambda: run(steps, state), steps, device, rows=rows)
+
+
+def profile_steps(run, steps: int, device, rows: int = 25) -> dict | None:
+  """Runs `run` (which advances `steps` steps) under `torch.profiler`.
+
+  Prints the device kernels by self time, the kernel launches per step and
+  the device's busy share of the profiled wall time, and returns those
+  numbers (None when the profiler saw no device kernel).
+  """
   activities = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
   with torch.profiler.profile(activities=activities) as prof:
     t0 = time.perf_counter()
-    state = run(steps, state)
+    run()
     torch.cuda.synchronize(device)
     wall_us = (time.perf_counter() - t0) * 1e6
   kernels = [e for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA
              and _self_device_us(e) > 0]
-  busy_us = sum(_self_device_us(e) for e in kernels)
-  launches = sum(e.count for e in kernels)
   if not kernels:
     print('device kernel time: not measured (the profiler saw no kernels)')
-    return
+    return None
+  busy_us = sum(_self_device_us(e) for e in kernels)
+  launches = sum(e.count for e in kernels)
   print(f'profiled {steps} steps: wall {wall_us / 1e3:.3f} ms, device '
         f'busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), '
         f'{launches / steps:.1f} kernel launches/step, '
@@ -83,6 +93,12 @@ def main(argv=None) -> None:
     print(f'{_self_device_us(e) / steps:20.2f} '
           f'{100 * _self_device_us(e) / busy_us:5.1f}% '
           f'{e.count / steps:10.1f}  {e.key[:110]}')
+  return {'wall_ms_per_step': wall_us / 1e3 / steps,
+          'busy_ms_per_step': busy_us / 1e3 / steps,
+          'busy_share': busy_us / wall_us,
+          'launches_per_step': launches / steps,
+          'by_kernel_us_per_step': {e.key: _self_device_us(e) / steps
+                                    for e in kernels[:rows]}}
 
 
 if __name__ == '__main__':

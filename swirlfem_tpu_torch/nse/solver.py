@@ -1,15 +1,16 @@
 """Spectral-element fractional-step Navier-Stokes solver, el-form slice.
 
-Counterpart of ``swirlfem_tpu/nse/solver.py`` for the 2D, single-device,
-structured, fully periodic path: the P_N - P_{N-2} pressure-projection
-scheme (GLL velocity, discontinuous GL pressure, BDF-k with extrapolated
-pressure, modal filter) stepped by `stokes_step_el` on element-local
-(E-last) states, with the exact FDM inverses of ops.fdm_pressure.
+Counterpart of ``swirlfem_tpu/nse/solver.py`` for the 2D and 3D,
+single-device, structured, fully periodic path: the P_N - P_{N-2}
+pressure-projection scheme (GLL velocity, discontinuous GL pressure, BDF-k
+with extrapolated pressure, modal filter) stepped by `stokes_step_el` on
+element-local (E-last) states, with the exact FDM inverses of
+ops.fdm_pressure.
 
 `StokesSEM.create` builds every host table in numpy / float64 on the CPU
-and then moves only the fields the step reads (the `Sem2DOps` factors) to
-`device`, in `dtype`, once.  The step runs eagerly; the linear solves are
-plain function calls (forward only — the differentiable
+and then moves only the fields the step reads (the `Sem2DOps` / `Sem3DOps`
+factors) to `device`, in `dtype`, once.  The step runs eagerly; the linear
+solves are plain function calls (forward only — the differentiable
 ``custom_linear_solve`` of the training path is ROADMAP.md, Queue 1 item 9).
 """
 
@@ -37,6 +38,7 @@ from swirlfem_tpu_torch.linalg.cg import near_exact_solve
 from swirlfem_tpu_torch.linalg.cg import vdot
 from swirlfem_tpu_torch.linalg.cg import tree_map
 from swirlfem_tpu_torch.ops import sem2d
+from swirlfem_tpu_torch.ops import sem3d
 
 # pylint: disable=invalid-name
 
@@ -147,10 +149,10 @@ class StokesSEM:
              kernel_precision: str = 'highest') -> 'StokesSEM':
     if premesh.order != 1:
       raise ValueError(f'expected an order-1 premesh, got {premesh.order}')
-    if premesh.is_partitioned() or premesh.ndim != 2:
+    if premesh.is_partitioned() or premesh.ndim not in (2, 3):
       raise NotImplementedError(
-          'only the single-device 2D path is ported (partitioned meshes: '
-          'ROADMAP.md, Queue 1 item 17; 3D: item 14)')
+          'only the single-device 2D and 3D paths are ported (partitioned '
+          'meshes: ROADMAP.md, Queue 1 item 17)')
     # The FDM transforms and every float32 product must stay float32-exact
     # (the JAX package runs them at HIGHEST precision).
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -168,8 +170,11 @@ class StokesSEM:
       raise NotImplementedError(
           'only structured boxes are ported (unstructured meshes: '
           'ROADMAP.md, Queue 1 item 16)')
-    fast_ops = sem2d.build_sem2d_ops(velocity, pressure,
-                                     kernel_precision=kernel_precision)
+    if premesh.ndim == 2:
+      fast_ops = sem2d.build_sem2d_ops(velocity, pressure,
+                                       kernel_precision=kernel_precision)
+    else:
+      fast_ops = sem3d.build_sem3d_ops(velocity, pressure)
     device = torch.device(device)
     return cls(velocity=velocity, pressure=pressure,
                velocity_mass_diag=velocity_mass_diag,
@@ -180,9 +185,43 @@ class StokesSEM:
     return vdot(a, b)
 
   @property
+  def _elops(self):
+    """The dimension-matched element-operator module (sem2d / sem3d)."""
+    return sem3d if self.fast_ops.vinfo.ndim == 3 else sem2d
+
+  @property
   def _fully_periodic(self) -> bool:
     mask = np.asarray(self.velocity.interior_mask)
     return bool((mask == 1).all()) and not self.velocity.mesh.physical_masks
+
+  def slim_for_el_step(self) -> 'StokesSEM':
+    """Copy whose congruent-box ``kinv`` / ``kinv_o`` are compressed.
+
+    Counterpart of ``swirlfem_tpu/nse/solver.py:slim_for_el_step``.  The
+    port keeps the generic-path tables on the host already, so what is
+    left is the device-side part: on a congruent-elements box the
+    inverse-Jacobian fields are one constant per entry, and they become
+    broadcastable ``(d, d, 1, ..., 1)`` noise-averaged means (every
+    consumer multiplies them pointwise).  A field that is not constant to
+    the congruence tolerance (1e-3 relative in float32, 1e-9 in float64)
+    is kept whole.
+    """
+    ops = self.fast_ops
+    if ops is None or getattr(ops, 'c_uniform', None) is None:
+      return self
+
+    def compress(field):
+      f = field.detach().cpu().numpy().astype(np.float64)
+      mean = f.mean(axis=tuple(range(2, f.ndim)), keepdims=True)
+      scale = float(np.abs(f).max())
+      rel_tol = 1e-3 if field.dtype == torch.float32 else 1e-9
+      if not np.allclose(f, mean, atol=rel_tol * scale, rtol=0):
+        return field
+      return torch.as_tensor(mean, dtype=field.dtype, device=field.device)
+
+    ops = dataclasses.replace(ops, kinv=compress(ops.kinv),
+                              kinv_o=compress(ops.kinv_o))
+    return dataclasses.replace(self, fast_ops=ops)
 
   def stokes_one_step_el(self, us_el, ps_el, f_el, *, mu, dt,
                          time_order: int, alpha: float = 0.05,
@@ -194,8 +233,8 @@ class StokesSEM:
                          exact_solves: bool = False):
     """One fractional step on element-local (E-last) states.
 
-    Velocity states are per-component tuples of ``(k, k, n, n)`` tensors,
-    pressures ``(m, m, n, n)`` tensors, all on `device`.  Returns
+    Velocity states are per-component tuples of ``(k,)*d + (n,)*d``
+    tensors, pressures ``(m,)*d + (n,)*d`` tensors, all on `device`.  Returns
     ``(u_el, p_el, aux)``.
     """
     if not self._fully_periodic:
@@ -207,7 +246,7 @@ class StokesSEM:
     return stokes_step_el(
         self.fast_ops, list(us_el), list(ps_el), f_el, mu=mu, dt=dt,
         time_order=time_order, alpha=alpha,
-        exch=lambda w: sem2d.exchange_el(w, vinfo), dot=self.dot,
+        exch=lambda w: self._elops.exchange_el(w, vinfo), dot=self.dot,
         grid_1d=self.velocity.mesh.gridpoints_1d,
         pressure_preconditioner=pressure_preconditioner_el,
         project_out_nullspace=project_out_nullspace,
@@ -254,7 +293,7 @@ class StokesSEM:
     u = u if isinstance(u, tuple) else tuple(
         torch.as_tensor(u)[..., i] for i in range(u.shape[-1]))
     return tuple(
-        sem2d.nodal_to_el(torch.as_tensor(c), vinfo).reshape(
+        self._elops.nodal_to_el(torch.as_tensor(c), vinfo).reshape(
             (kk,) * d + eshape).to(self.device, self.dtype).contiguous()
         for c in u)
 
@@ -266,9 +305,10 @@ class StokesSEM:
     num_e = vinfo.num_elements_per_dim ** d
     ones = torch.ones((kk,) * d + (num_e,), dtype=u_el[0].dtype,
                       device=u_el[0].device)
-    grid_mult = sem2d.el_to_nodal(ones, vinfo)
+    mod = self._elops
+    grid_mult = mod.el_to_nodal(ones, vinfo)
     return tuple(
-        sem2d.el_to_nodal(w.reshape((kk,) * d + (num_e,)), vinfo) / grid_mult
+        mod.el_to_nodal(w.reshape((kk,) * d + (num_e,)), vinfo) / grid_mult
         for w in u_el)
 
   def pressure_to_el(self, p):
@@ -276,7 +316,7 @@ class StokesSEM:
     d = pinfo.ndim
     mm = pinfo.order + 1
     eshape = (pinfo.num_elements_per_dim,) * d
-    return sem2d.nodal_to_el(torch.as_tensor(p), pinfo).reshape(
+    return self._elops.nodal_to_el(torch.as_tensor(p), pinfo).reshape(
         (mm,) * d + eshape).to(self.device, self.dtype).contiguous()
 
   def pressure_from_el(self, p_el):
@@ -284,7 +324,8 @@ class StokesSEM:
     d = pinfo.ndim
     mm = pinfo.order + 1
     num_e = pinfo.num_elements_per_dim ** d
-    return sem2d.el_to_nodal(p_el.reshape((mm,) * d + (num_e,)), pinfo)
+    return self._elops.el_to_nodal(p_el.reshape((mm,) * d + (num_e,)),
+                                   pinfo)
 
   def forcing_to_el(self, f):
     """Nodal covector tuple -> el covector (values split among copies)."""
@@ -296,9 +337,9 @@ class StokesSEM:
     f = tuple(torch.as_tensor(c) for c in f)
     ones = torch.ones((kk,) * d + (num_e,), dtype=f[0].dtype,
                       device=f[0].device)
-    grid_mult = sem2d.el_to_nodal(ones, vinfo)
+    grid_mult = self._elops.el_to_nodal(ones, vinfo)
     return tuple(
-        sem2d.nodal_to_el(c / grid_mult, vinfo).reshape(
+        self._elops.nodal_to_el(c / grid_mult, vinfo).reshape(
             (kk,) * d + eshape).to(self.device, self.dtype).contiguous()
         for c in f)
 
@@ -359,10 +400,11 @@ def stokes_step_el(ops, us_el, ps_el, f_el, *, mu, dt, time_order,
                *us_el)
   f_el = tree_map(lambda a, b: a - wmass * b, f_el, hist)
 
-  diag_h = exch((beta_k / dt) * wmass
-                + mu * unflat(ops.stiffness_diag_el()))
-
   def M_t(rt):
+    # The Jacobi diagonal is built only when CG runs (the exact step skips
+    # it, as XLA drops it from the JAX step).
+    diag_h = exch((beta_k / dt) * wmass
+                  + mu * unflat(ops.stiffness_diag_el()))
     return tuple(exch(r) / diag_h for r in rt)
 
   # An exact FDM inverse seeds CG: the solve becomes a direct application

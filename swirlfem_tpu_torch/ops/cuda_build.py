@@ -1,8 +1,9 @@
 """Builds and loads the port's hand-written Hopper kernels (csrc/*.cu).
 
-The CUDA sources are compiled by ``nvcc`` for ``sm_90a`` into ONE shared
-library with a plain C interface and loaded with `ctypes` (no PyTorch
-headers, so a build takes seconds).  The build happens at first use, into
+The CUDA sources are compiled by ``nvcc`` for ``sm_90a``, one process per
+source, all started together, and linked into ONE shared library with a
+plain C interface, loaded with `ctypes` (no PyTorch headers, so a build
+takes seconds).  The build happens at first use, into
 ``swirlfem_tpu_torch/_build/<hash>/``, keyed by a hash of the sources and
 flags; a later process with the same sources reuses it.  Importing this
 module builds nothing and needs no CUDA toolkit.
@@ -22,9 +23,10 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _CSRC = _PKG / 'csrc'
 _BUILD = _PKG / '_build'
-_SOURCES = ('exchange2d.cu', 'stiffness_uniform.cu')
+_SOURCES = ('exchange2d.cu', 'stiffness_uniform.cu', 'stiffness3d_uniform.cu',
+            'stiffness3d_general.cu')
 _FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-          '-shared', '-Xcompiler', '-fPIC')
+          '-Xcompiler', '-fPIC')
 
 _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)
@@ -36,6 +38,12 @@ _SIGNATURES = {
     # (amat, us[], outs[], num_c, k2, num_e, stream)
     'stiffness_uniform_f32': (_P, _PP, _PP, _I, _I, _I, _P),
     'stiffness_uniform_f64': (_P, _PP, _PP, _I, _I, _I, _P),
+    # (table, us[], outs[], num_c, k, num_e, stream)
+    'stiffness3d_uniform_f32': (_P, _PP, _PP, _I, _I, _I, _P),
+    'stiffness3d_uniform_f64': (_P, _PP, _PP, _I, _I, _I, _P),
+    # (dmat, us[], gs[6], outs[], num_c, k, num_e, stream)
+    'stiffness3d_general_f32': (_P, _PP, _PP, _PP, _I, _I, _I, _P),
+    'stiffness3d_general_f64': (_P, _PP, _PP, _PP, _I, _I, _I, _P),
 }
 
 _library: ctypes.CDLL | None = None
@@ -64,17 +72,31 @@ def library_path() -> pathlib.Path:
   return _BUILD / _source_hash() / 'libswirlfem_kernels.so'
 
 
+def _run_all(cmds) -> None:
+  """Runs the commands concurrently; raises with the output of any failure."""
+  procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+           for cmd in cmds]
+  failed = []
+  for cmd, proc in zip(cmds, procs):
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+      failed.append(f'nvcc failed ({proc.returncode}):\n{" ".join(cmd)}\n'
+                    f'{out}')
+  if failed:
+    raise RuntimeError('\n'.join(failed))
+
+
 def _compile(so: pathlib.Path) -> None:
+  """One nvcc per source, all started together, then one link."""
   so.parent.mkdir(parents=True, exist_ok=True)
-  fd, tmp = tempfile.mkstemp(suffix='.so', dir=so.parent)
-  os.close(fd)
-  cmd = [_nvcc(), *_FLAGS, '-o', tmp, *(str(_CSRC / s) for s in _SOURCES)]
-  proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-  if proc.returncode != 0:
-    os.unlink(tmp)
-    raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{" ".join(cmd)}\n'
-                       f'{proc.stdout}\n{proc.stderr}')
-  os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
+  with tempfile.TemporaryDirectory(dir=so.parent) as tmpdir:
+    objs = [os.path.join(tmpdir, s.replace('.cu', '.o')) for s in _SOURCES]
+    _run_all([[_nvcc(), *_FLAGS, '-c', '-o', obj, str(_CSRC / s)]
+              for s, obj in zip(_SOURCES, objs)])
+    tmp = os.path.join(tmpdir, so.name)
+    _run_all([[_nvcc(), *_FLAGS, '-shared', '-o', tmp, *objs]])
+    os.replace(tmp, so)  # atomic: a concurrent build never sees a partial file
 
 
 def library() -> ctypes.CDLL:

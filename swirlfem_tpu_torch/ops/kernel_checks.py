@@ -15,10 +15,25 @@ import torch
 
 from swirlfem_tpu_torch.ops import cuda_exchange
 from swirlfem_tpu_torch.ops import cuda_stiffness
+from swirlfem_tpu_torch.ops import cuda_stiffness3d
 
 # Gate of the stiffness kernel against the float64 operator, relative to
 # the largest output entry (the JAX bench's gate, bench.py:602-611).
 STIFFNESS_REL_TOL = 1e-5
+
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# HBM3 bandwidth and FP32 (non-tensor-core) rate.  A kernel's bound is the
+# larger of its bytes over the first and its operations over the second.
+H100_BYTES_PER_S = 3.35e12
+H100_FP32_FLOP_PER_S = 67e12
+
+
+def bound(flops: float, nbytes: float) -> dict:
+  """The least time the card could take: ``bound_ms`` and ``bound_by``."""
+  t_bytes = nbytes / H100_BYTES_PER_S
+  t_ops = flops / H100_FP32_FLOP_PER_S
+  return {'bound_ms': max(t_bytes, t_ops) * 1e3,
+          'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
 
 
 def random_field(shape, *, dtype, device, seed=0) -> torch.Tensor:
@@ -51,6 +66,12 @@ def check_stiffness_uniform(ops, us) -> dict:
   ref = cuda_stiffness.stiffness_uniform_plain(
       tuple(u.double() for u in us), a64)
   torch.cuda.synchronize(amat.device)
+  return _errors(got, plain, ref)
+
+
+def _errors(got, plain, ref) -> dict:
+  """Kernel vs plain (max abs) and both vs a float64 reference, relative
+  to the reference's largest entry."""
   scale = max(float(r.abs().max()) for r in ref)
   return {
       'max_abs_err': max(float((g - p).abs().max())
@@ -60,6 +81,39 @@ def check_stiffness_uniform(ops, us) -> dict:
       'plain_rel_err_f64': max(float((p.double() - r).abs().max())
                                for p, r in zip(plain, ref)) / scale,
   }
+
+
+def check_stiffness3d_uniform(ops, us) -> dict:
+  """stiffness3d_uniform kernel vs its plain version and the float64
+  operator (the dense ``(k^3, k^3)`` matrix from `ops.c_uniform`).
+
+  `ops` is a congruent-element `Sem3DOps` on the device; `us` a tuple of
+  ``(k, k, k, E)`` fields in its dtype.
+  """
+  table = ops.mats['table']
+  got = cuda_stiffness3d.stiffness3d_uniform(us, table)
+  plain = cuda_stiffness3d.stiffness3d_uniform_plain(us, table)
+  a64 = torch.as_tensor(
+      cuda_stiffness3d.uniform_amat3d_np(ops.c_uniform, ops.w1, ops.dmat),
+      dtype=torch.float64, device=table.device)
+  k3 = a64.shape[0]
+  ref = tuple((a64 @ u.double().reshape(k3, -1)).reshape(u.shape) for u in us)
+  torch.cuda.synchronize(table.device)
+  return _errors(got, plain, ref)
+
+
+def check_stiffness3d_general(ops, us, gs=None) -> dict:
+  """stiffness3d_general kernel vs its plain version and the float64
+  operator on the same factor fields (`gs`, default the box's own)."""
+  gs = ops.gs() if gs is None else tuple(gs)
+  dmat = ops.mats['dmat']
+  got = cuda_stiffness3d.stiffness3d_general(us, gs, dmat)
+  plain = cuda_stiffness3d.stiffness3d_general_plain(us, gs, dmat)
+  ref = cuda_stiffness3d.stiffness3d_general_plain(
+      tuple(u.double() for u in us), tuple(g.double() for g in gs),
+      torch.as_tensor(ops.dmat, dtype=torch.float64, device=dmat.device))
+  torch.cuda.synchronize(dmat.device)
+  return _errors(got, plain, ref)
 
 
 def time_ms(fn, *, device, calls: int = 20, runs: int = 7, warmup: int = 10,

@@ -15,13 +15,14 @@ from swirlfem_tpu_torch.utils.box import unit_cube_mesh
 MU, DT, TIME_ORDER = 1e-3, 2e-3, 3
 
 
-@pytest.fixture(scope='module', params=[(4, 4), (3, 5)],
-                ids=['n4-order4', 'n3-order5'])
+@pytest.fixture(scope='module', params=[(4, 4, 2), (3, 5, 2), (2, 4, 3)],
+                ids=['n4-order4', 'n3-order5', '3d-n2-order4'])
 def sems(request):
-  n, order = request.param
-  jsem = JStokesSEM.create(junit_cube_mesh(n, ndim=2, periodic_dims=(0, 1)),
-                           {}, order=order)
-  sem = StokesSEM.create(unit_cube_mesh(n, ndim=2, periodic_dims=(0, 1)),
+  n, order, ndim = request.param
+  periodic = tuple(range(ndim))
+  jsem = JStokesSEM.create(
+      junit_cube_mesh(n, ndim=ndim, periodic_dims=periodic), {}, order=order)
+  sem = StokesSEM.create(unit_cube_mesh(n, ndim=ndim, periodic_dims=periodic),
                          {}, order=order, device='cpu', dtype=torch.float64)
   return jsem, sem
 
@@ -55,9 +56,10 @@ def test_el_solvers_match(sems):
   jvp, jpp = jsem.fdm_el_preconditioners(MU, DT, TIME_ORDER)
   vinfo, pinfo = sem.fast_ops.vinfo, sem.fast_ops.pinfo
   k, m, n = vinfo.order + 1, pinfo.order + 1, vinfo.num_elements_per_dim
+  d = vinfo.ndim
   rng = np.random.default_rng(0)
-  rt = tuple(rng.standard_normal((k, k, n, n)) for _ in range(2))
-  rp = rng.standard_normal((m, m, n, n))
+  rt = tuple(rng.standard_normal((k,) * d + (n,) * d) for _ in range(d))
+  rp = rng.standard_normal((m,) * d + (n,) * d)
   got = vp(tuple(torch.as_tensor(r) for r in rt))
   want = jvp(tuple(jnp.asarray(r) for r in rt))
   for g, w in zip(got, want):
@@ -70,17 +72,18 @@ def test_viscous_solver_inverts_helmholtz(sems):
   _, sem = sems
   vp, _ = sem.fdm_el_preconditioners(MU, DT, TIME_ORDER)
   ops, vinfo = sem.fast_ops, sem.fast_ops.vinfo
-  k, n = vinfo.order + 1, vinfo.num_elements_per_dim
+  k, n, d = vinfo.order + 1, vinfo.num_elements_per_dim, vinfo.ndim
   from swirlfem_tpu_torch.nse.solver import bdfk_coeffs
-  from swirlfem_tpu_torch.ops import sem2d
+  mod = sem._elops  # pylint: disable=protected-access
   beta_k = float(bdfk_coeffs(TIME_ORDER)[-1])
   rng = np.random.default_rng(1)
-  u = torch.as_tensor(rng.standard_normal(vinfo.nodes_per_dim ** 2))
+  u = torch.as_tensor(rng.standard_normal(vinfo.nodes_per_dim ** d))
   u_el = sem.velocity_to_el((u,))[0]
-  u_el = sem2d.exchange_el(u_el, vinfo) / sem2d.exchange_el(
+  u_el = mod.exchange_el(u_el, vinfo) / mod.exchange_el(
       torch.ones_like(u_el), vinfo)  # continuous (periodic) field
-  wmass = ops.wmass.reshape(k, k, n, n)
-  a = ops.stiffness_el(u_el.reshape(k, k, n * n)).reshape(k, k, n, n)
+  el_shape = (k,) * d + (n,) * d
+  wmass = ops.wmass.reshape(el_shape)
+  a = ops.stiffness_el(u_el.reshape((k,) * d + (n ** d,))).reshape(el_shape)
   r = (beta_k / DT) * wmass * u_el + MU * a
   x = vp((r,))[0]
   assert _rel(x.numpy(), u_el.numpy()) <= 1e-10

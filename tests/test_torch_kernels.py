@@ -1,21 +1,24 @@
 """The port's Hopper kernels against their plain PyTorch versions, on a card.
 
 The same checks as ``chip_smoke.py`` (``swirlfem_tpu_torch.ops
-.kernel_checks``) plus wrapper validation and a short datagen cycle on the
-card against the CPU.  Every test is marked ``cuda`` and skips without a
+.kernel_checks``) plus wrapper validation and short datagen and
+Taylor-Green runs on the card against the CPU.  Every test is marked ``cuda`` and skips without a
 CUDA device.  On a GPU host (no JAX needed):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
 
 import dataclasses
+import functools
 
 import pytest
 import torch
 
+from swirlfem_tpu_torch.examples import taylor_green_3d as tgv
 from swirlfem_tpu_torch.niles import datagen
 from swirlfem_tpu_torch.ops import cuda_exchange
 from swirlfem_tpu_torch.ops import cuda_stiffness
+from swirlfem_tpu_torch.ops import cuda_stiffness3d
 from swirlfem_tpu_torch.ops import kernel_checks
 
 pytestmark = pytest.mark.cuda
@@ -96,5 +99,81 @@ def test_datagen_cycle_on_card_matches_cpu(device, exact_solves):
     out.append((us[-1], ps[-1]))
   (gu, gp), (cu, cp) = out
   for g, c in zip(gu + (gp,), cu + (cp,)):
+    err = float((g.cpu() - c).abs().max() / c.abs().max())
+    assert err <= 1e-10, err
+
+
+@functools.lru_cache(maxsize=None)
+def _tgv_ops(n_el, order, dtype):
+  return tgv.create_tgv(n_el, order, dtype=dtype, device='cuda').fast_ops
+
+
+def _fields3d(ops, count, seed):
+  k = ops.vinfo.order + 1
+  num_e = ops.vinfo.num_elements_per_dim ** 3
+  return tuple(kernel_checks.random_field(
+      (k, k, k, num_e), dtype=ops.wmass.dtype, device=ops.wmass.device,
+      seed=seed + s) for s in range(count))
+
+
+_CASES_3D = [(3, 3), (16, 7)]  # (n_el, order): E = 27 (ragged) and 4096
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n_el,order', _CASES_3D)
+def test_stiffness3d_uniform_matches_f64_operator(device, n_el, order, dtype):
+  del device
+  ops = _tgv_ops(n_el, order, dtype)
+  result = kernel_checks.check_stiffness3d_uniform(ops, _fields3d(ops, 3, 1))
+  tol = kernel_checks.STIFFNESS_REL_TOL if dtype == torch.float32 else 1e-13
+  assert result['rel_err_f64'] <= tol, result
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n_el,order', _CASES_3D)
+def test_stiffness3d_general_matches_f64_operator(device, n_el, order, dtype):
+  del device
+  ops = _tgv_ops(n_el, order, dtype)
+  us = _fields3d(ops, 3, 1)
+  tol = kernel_checks.STIFFNESS_REL_TOL if dtype == torch.float32 else 1e-13
+  for gs in (None, _fields3d(ops, 6, 10)):  # the box's fields, random ones
+    result = kernel_checks.check_stiffness3d_general(ops, us, gs)
+    assert result['rel_err_f64'] <= tol, result
+
+
+def test_stiffness3d_launches_and_dispatch(device):
+  del device
+  ops = _tgv_ops(3, 3, torch.float32)
+  us = _fields3d(ops, 2, 1)
+  before = (cuda_stiffness3d.stiffness3d_uniform.launches,
+            cuda_stiffness3d.stiffness3d_general.launches)
+  ops.stiffness_el_multi(us)
+  dataclasses.replace(ops, use_uniform_kernel=False).stiffness_el_multi(us)
+  assert (cuda_stiffness3d.stiffness3d_uniform.launches,
+          cuda_stiffness3d.stiffness3d_general.launches) == (before[0] + 1,
+                                                             before[1] + 1)
+  for knobs in (dict(uniform_kernel_impl='dense'),
+                dict(use_uniform_kernel=False, general_kernel_impl='pair')):
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+      dataclasses.replace(ops, **knobs).stiffness_el_multi(us)
+  with pytest.raises(ValueError, match='components'):
+    cuda_stiffness3d.stiffness3d_uniform(us * 3, ops.mats['table'])
+  with pytest.raises(ValueError, match='contiguous'):
+    cuda_stiffness3d.stiffness3d_general(
+        tuple(u.transpose(0, 1) for u in us), ops.gs(), ops.mats['dmat'])
+
+
+def test_tgv_steps_on_card_match_cpu(device):
+  """float64 on both sides: the kernels change only rounding."""
+  out = []
+  for dev in (device, torch.device('cpu')):
+    r = tgv.run_tgv(re=400.0, n_el=3, order=4, dt=2e-3, steps_per_chunk=5,
+                    num_chunks=1, dtype=torch.float64, device=dev)
+    out.append(r)
+  (gpu, cpu) = out
+  for key in ('ke', 'dissipation'):
+    err = abs(gpu[key] - cpu[key]).max() / abs(cpu[key]).max()
+    assert err <= 1e-10, (key, err)
+  for g, c in zip(gpu['us'][-1], cpu['us'][-1]):
     err = float((g.cpu() - c).abs().max() / c.abs().max())
     assert err <= 1e-10, err

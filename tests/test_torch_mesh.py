@@ -149,3 +149,33 @@ def test_geometric_factors_and_mass_match(order):
                              rtol=1e-12, atol=1e-15)
   assert isinstance(sem.velocity.vspace, fespace.FiniteElementSpace)
   assert isinstance(jsem.velocity.vspace, jfespace.FiniteElementSpace)
+
+
+@pytest.mark.parametrize('order', [3, 7])
+@pytest.mark.parametrize('n', [2, 3])
+def test_periodic_cube_mesh_and_factors_match(n, order):
+  """The 3D setup of the Taylor-Green path: tables identical, geometric
+  factors to 1e-13 of their largest entry in float64."""
+  jpm = junit_cube_mesh(n, ndim=3, periodic_dims=(0, 1, 2))
+  tpm = unit_cube_mesh(n, ndim=3, periodic_dims=(0, 1, 2))
+  for node_type, npts, quad_points in (
+      ('GAUSS_LOBATTO_LEGENDRE', order + 1, (order + 1, order + 3)),
+      ('GAUSS_LEGENDRE', order - 1, (order + 1,))):
+    jmesh = jrefine(jpm, jquad.Nodes1D.create(
+        npts, getattr(jquad.NodeType, node_type))).finalize()
+    tmesh = refine_premesh(tpm, quad.Nodes1D.create(
+        npts, getattr(quad.NodeType, node_type))).finalize()
+    _assert_mesh_equal(tmesh, jmesh)
+    for q in quad_points:
+      jspace = jfespace.FiniteElementSpace.create(
+          jmesh, jquad.Quadrature1D.create(
+              num_points=q,
+              quadrature_type=jquad.NodeType.GAUSS_LOBATTO_LEGENDRE))
+      tspace = fespace.FiniteElementSpace.create(
+          tmesh, quad.Quadrature1D.create(
+              num_points=q,
+              quadrature_type=quad.NodeType.GAUSS_LOBATTO_LEGENDRE))
+      for name in ('jacdets', 'invjacs', 'quad_coords'):
+        got = getattr(tspace, name).numpy()
+        want = np.asarray(getattr(jspace, name))
+        assert np.abs(got - want).max() <= 1e-13 * np.abs(want).max(), name

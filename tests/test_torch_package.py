@@ -18,6 +18,7 @@ MODULES = [
     'swirlfem_tpu_torch.core.structured',
     'swirlfem_tpu_torch.core.tensor',
     'swirlfem_tpu_torch.core.topology',
+    'swirlfem_tpu_torch.examples.taylor_green_3d',
     'swirlfem_tpu_torch.linalg.cg',
     'swirlfem_tpu_torch.niles.datagen',
     'swirlfem_tpu_torch.niles.datagen_config',
@@ -26,9 +27,11 @@ MODULES = [
     'swirlfem_tpu_torch.ops.cuda_build',
     'swirlfem_tpu_torch.ops.cuda_exchange',
     'swirlfem_tpu_torch.ops.cuda_stiffness',
+    'swirlfem_tpu_torch.ops.cuda_stiffness3d',
     'swirlfem_tpu_torch.ops.fdm_pressure',
     'swirlfem_tpu_torch.ops.kernel_checks',
     'swirlfem_tpu_torch.ops.sem2d',
+    'swirlfem_tpu_torch.ops.sem3d',
     'swirlfem_tpu_torch.utils.box',
     'swirlfem_tpu_torch.utils.facets',
 ]
