@@ -2,9 +2,11 @@
 """Drives the PyTorch port's main paths once on one CUDA card, and checks them.
 
 The main paths are the Kolmogorov DNS datagen of swirlfem_tpu_torch at the
-reference configuration (64x64 elements, order 8, BDF3, Re 2e4, dt 1e-4)
-and the 3D Taylor-Green vortex (Re 1600, 16^3 elements, order 7, BDF2,
-filter 0.05), both in float32.  Phases:
+reference configuration (64x64 elements, order 8, BDF3, Re 2e4, dt 1e-4),
+the 3D Taylor-Green vortex (Re 1600, 16^3 elements, order 7, BDF2, filter
+0.05), the wall-graded heated cavity (the campaign's Ra 1e6 rung: 12x12
+elements, order 7, grading 0.5, Pr 0.71, tol 3e-6) and the lid-driven
+cavity (16x16, order 7, Re 100, dt 1e-3), all in float32.  Phases:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels (csrc/*.cu, nvcc, sm_90a);
@@ -28,7 +30,20 @@ filter 0.05), both in float32.  Phases:
      operator (stiffness3d_general on the path): the dissipation series
      must agree;
  11. 20 TGV steps at 8^3 on the card and through the plain path on the CPU;
- 12. time the 3D kernels against their plain versions and one library call.
+ 12. time the 3D kernels against their plain versions and one library call;
+ 13. the 2D general and affine kernels against their plain versions and the
+     float64 operator: general at n = 8, E = 144, C = 1 and 2 on the Ra 1e6
+     box's own and on random factor fields, affine at n = 8, E = 256, C = 2
+     on the vertex-graded box, both at the datagen shape (64^2, n = 9);
+ 14. the heated cavity at the Ra 1e6 rung through `run_cavity` (launch
+     counters reset just before): every viscous CG matvec launches
+     stiffness2d_general, every solve certifies in <= 2 iterations;
+ 15. the lid-driven cavity on the vertex-graded box (stiffness2d_affine on
+     every step) and 20 steps on the uniform box (stiffness_uniform);
+ 16. 20 steps of a 4x4, order-5 heated and lid-driven cavity on the card
+     (float32) and through the plain path on the CPU (float64);
+ 17. time the 2D general and affine kernels against their plain versions
+     and one library call.
 
 Each kernel's count is set to 0 just before the path that launches it and
 read just after.  Every kernel's bound is the larger of its bytes (each
@@ -260,6 +275,192 @@ def run_tgv_phases(torch, device, dtype, tgv, cuda_stiffness3d,
         f'({times[name]["bound_by"]})')
 
 
+def run_walled_phases(torch, device, dtype, kernel_checks, times,
+                      launches) -> None:
+  """Phases 13-17: the walled 2D path (heated and lid-driven cavities) and
+  its two kernels.  Fills `times` and `launches` for stiffness2d_general /
+  _affine."""
+  import numpy as np
+  from swirlfem_tpu_torch.core.bc import BCType
+  from swirlfem_tpu_torch.examples import cavity as cav
+  from swirlfem_tpu_torch.examples import natural_convection as nc
+  from swirlfem_tpu_torch.nse.solver import StokesSEM
+  from swirlfem_tpu_torch.ops import cuda_stiffness
+  from swirlfem_tpu_torch.ops import cuda_stiffness2d
+  from swirlfem_tpu_torch.utils.box import unit_cube_mesh
+  ra, rung = 1e6, nc.RUNGS[1e6]
+  tol = 3e-6  # the campaign's float32 setting
+
+  def fields(ops, count, seed):
+    k = ops.vinfo.order + 1
+    num_e = ops.vinfo.num_elements_per_dim ** 2
+    return tuple(kernel_checks.random_field((k, k, num_e), dtype=dtype,
+                                            device=device, seed=seed + s)
+                 for s in range(count))
+
+  def sine_graded_box(n_el, order):
+    pm = unit_cube_mesh(n_el, ndim=2)
+    return StokesSEM.create(
+        pm, {'boundary': (BCType.DIRICHLET, 0.0)}, order=order,
+        coord_transform=lambda rp: nc.sine_grading(
+            np.asarray(rp.node_coords), 0.5), device=device, dtype=dtype)
+
+  # -- 13. 2D general / affine kernels vs plain and the float64 operator ----
+  t0 = time.perf_counter()
+  general = sine_graded_box(rung['n_el'], rung['order']).fast_ops
+  affine = cav.make_cavity(16, 7, grading=0.5, device=device,
+                           dtype=dtype).fast_ops
+  general64 = sine_graded_box(64, 8).fast_ops
+  affine64 = cav.make_cavity(64, 8, grading=0.5, device=device,
+                             dtype=dtype).fast_ops
+  log(f'[13] setup {time.perf_counter() - t0:.2f} s: stiffness keys '
+      f'{general.stiffness_key}, {affine.stiffness_key} (64^2: '
+      f'{general64.stiffness_key}, {affine64.stiffness_key})')
+  require(general.stiffness_key[0] == 'general' == general64.stiffness_key[0],
+          'the sine-graded boxes must take the general class')
+  require(affine.stiffness_key[0] == 'affine' == affine64.stiffness_key[0],
+          'the vertex-graded boxes must take the affine class')
+  checks = {}
+  for c in (1, 2):
+    us = fields(general, c, 1)
+    checks[f'general C={c}'] = kernel_checks.check_stiffness2d_general(
+        general, us)
+    checks[f'general C={c} random'] = kernel_checks.check_stiffness2d_general(
+        general, us, fields(general, 3, 10))
+  checks['affine C=2'] = kernel_checks.check_stiffness2d_affine(
+      affine, fields(affine, 2, 1))
+  checks['general 64^2 C=2'] = kernel_checks.check_stiffness2d_general(
+      general64, fields(general64, 2, 1))
+  checks['affine 64^2 C=2'] = kernel_checks.check_stiffness2d_affine(
+      affine64, fields(affine64, 2, 1))
+  for name, check in checks.items():
+    log(f'[13] stiffness2d {name}: {check}')
+    require(check['rel_err_f64'] <= kernel_checks.STIFFNESS_REL_TOL,
+            (name, check))
+
+  # -- 14. the heated cavity, Ra 1e6 rung (the walled main path) ------------
+  steps = 200
+  cuda_stiffness2d.stiffness2d_general.launches = 0
+  torch.cuda.synchronize(device)
+  t0 = time.perf_counter()
+  r = nc.run_cavity(ra, dtype=dtype, tol=tol, max_steps=steps,
+                    steps_per_dispatch=steps // 2, device=device, **rung)
+  torch.cuda.synchronize(device)
+  wall = time.perf_counter() - t0
+  gen = cuda_stiffness2d.stiffness2d_general.launches
+  launches['stiffness2d_general'] = gen
+  log(f'[14] heated cavity Ra {ra:.0e} {rung}, float32, dt {r["dt"]:.4e}: '
+      f'{r["steps"]} steps, {r["ms_per_step_steady"]:.4f} ms/step (host '
+      f'clock, second chunk; {wall:.2f} s with setup); Nu volume '
+      f'{r["nu_volume"]:.6f}, hot {r["nu_hot"]:.6f}, cold {r["nu_cold"]:.6f}'
+      f', u_max {r["u_max"]:.4f}; cg max iterations {r["cg_max_iters"]}; '
+      f'stiffness2d_general launches {gen} ({gen / r["steps"]:.2f}/step)')
+  require(all_finite((r['u'], r['p'], r['theta'])),
+          'non-finite heated-cavity state')
+  require(all(math.isfinite(r[k]) for k in ('nu_volume', 'nu_hot',
+                                            'nu_cold')), r)
+  require(gen >= r['steps'], f'stiffness2d_general launched {gen} times in '
+          f'{r["steps"]} steps')
+  require(max(r['cg_max_iters'].values()) <= 2, r['cg_max_iters'])
+
+  # -- 15. the lid-driven cavity: vertex-graded (affine), then uniform ------
+  for grading, name, count, kernel in (
+      (0.5, 'stiffness2d_affine', 200, cuda_stiffness2d.stiffness2d_affine),
+      (0.0, 'stiffness_uniform', 20, cuda_stiffness.stiffness_uniform)):
+    sem = cav.make_cavity(16, 7, grading=grading, device=device, dtype=dtype)
+    step = cav.make_step(sem, reynolds=100.0, dt=1e-3)
+    state = cav.initial_state(sem, step.u_boundary)
+    kernel.launches = 0
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(count):
+      state, aux = step(*state)
+    torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) / count * 1e3
+    n_launch = kernel.launches
+    if grading:
+      launches[name] = n_launch
+    u = state[0][-1] + step.u_boundary
+    log(f'[15] lid-driven cavity 16x16 order 7 Re 100, grading {grading} '
+        f'({sem.fast_ops.stiffness_key[0]}): {count} steps, {ms:.4f} '
+        f'ms/step, u_max {float(u.abs().max()):.6f}, last step iterations '
+        f'{aux["u_star_info"]["num_iterations"]}/'
+        f'{aux["dp_info"]["num_iterations"]}, {name} launches {n_launch}')
+    require(all_finite(state), 'non-finite lid-driven state')
+    require(abs(float(u.abs().max()) - 1.0) < 1e-3, 'the lid moves at 1')
+    require(n_launch >= count, f'{name} launched {n_launch} times in '
+            f'{count} steps')
+
+  # -- 16. card (float32) vs the CPU plain path (float64), small boxes ------
+  cpu = torch.device('cpu')
+  outs = []
+  for dev, dt_, tol_ in ((device, dtype, tol), (cpu, torch.float64, 1e-9)):
+    rr = nc.run_cavity(1e5, n_el=4, order=5, grading=0.5, dtype=dt_,
+                       tol=tol_, max_steps=20, steps_per_dispatch=20,
+                       device=dev)
+    sem = cav.make_cavity(4, 5, grading=0.5, device=dev, dtype=dt_)
+    u, p, _ = cav.run_cavity(sem, reynolds=100.0, dt=1e-3, num_steps=20)
+    outs.append({'nc u': rr['u'], 'nc p': rr['p'], 'nc theta': rr['theta'],
+                 'lid u': u, 'lid p': p})
+  errs = {key: rel_err(outs[0][key], outs[1][key]) for key in outs[0]}
+  log('[16] 20 steps, 4x4 order 5, card (f32) vs CPU plain path (f64): '
+      + ', '.join(f'{k} {v:.3e}' for k, v in errs.items()))
+  for key, err in errs.items():
+    require(err <= 1e-4, (key, err))
+
+  # -- 17. 2D kernel times ---------------------------------------------------
+  us_g = fields(general, 2, 1)
+  us_a = fields(affine, 2, 1)
+  gs = (general.g11, general.g12, general.g22)
+  dmat = general.mats['dmat']
+  mstack = affine.mats['mstack']
+  k2 = mstack.shape[1]
+  ustack = torch.cat([u.reshape(k2, -1) for u in us_a], dim=1)
+  timed = {
+      'stiffness2d_general': (
+          lambda: cuda_stiffness2d.stiffness2d_general(us_g, gs, dmat),
+          lambda: cuda_stiffness2d.stiffness2d_general_plain(us_g, gs, dmat),
+          None),
+      # Library yardstick: one GEMM of the stacked operator on the stacked
+      # components, WITHOUT the per-element combination.
+      'stiffness2d_affine': (
+          lambda: cuda_stiffness2d.stiffness2d_affine(us_a, affine.g_affine,
+                                                      mstack),
+          lambda: cuda_stiffness2d.stiffness2d_affine_plain(
+              us_a, affine.g_affine, mstack),
+          lambda: torch.matmul(mstack, ustack)),
+  }
+  time_kernels(timed, times, kernel_checks, device, '[17]')
+  itemsize = us_g[0].element_size()
+  for name, ops, us, is_affine, check in (
+      ('stiffness2d_general', general, us_g, False, checks['general C=2']),
+      ('stiffness2d_affine', affine, us_a, True, checks['affine C=2'])):
+    flops, nbytes = cuda_stiffness2d.stiffness2d_counts(
+        ops.vinfo.order, us[0].shape[-1], len(us), affine=is_affine,
+        dtype_bytes=itemsize)
+    times[name].update(kernel_checks.bound(flops, nbytes))
+    times[name]['max_abs_err'] = check['max_abs_err']
+    rate = flops / (times[name]['ms'] * 1e-3) / 1e12
+    log(f'[17] {name} at the path shape {tuple(us[0].shape)} x {len(us)}: '
+        f'bound {times[name]["bound_ms"] * 1e3:.3f} us '
+        f'({times[name]["bound_by"]}), {rate:.4f} TFLOP/s')
+  # The datagen shape (64^2, n = 9, C = 2), beside the congruent kernel.
+  us64 = fields(general64, 2, 1)
+  gs64 = (general64.g11, general64.g12, general64.g22)
+  at_datagen = {
+      'general': lambda: cuda_stiffness2d.stiffness2d_general(
+          us64, gs64, general64.mats['dmat']),
+      'affine': lambda: cuda_stiffness2d.stiffness2d_affine(
+          us64, affine64.g_affine, affine64.mats['mstack'])}
+  for name, fn in at_datagen.items():
+    flops, nbytes = cuda_stiffness2d.stiffness2d_counts(
+        8, 4096, 2, affine=name == 'affine', dtype_bytes=itemsize)
+    b = kernel_checks.bound(flops, nbytes)
+    log(f'[17] stiffness2d_{name} at the datagen shape (9, 9, 4096) x 2: '
+        f'{kernel_checks.time_ms(fn, device=device) * 1e3:.2f} us, bound '
+        f'{b["bound_ms"] * 1e3:.3f} us ({b["bound_by"]})')
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -410,6 +611,7 @@ def main() -> int:
 
   run_tgv_phases(torch, device, dtype, tgv, cuda_stiffness3d, kernel_checks,
                  times, launches)
+  run_walled_phases(torch, device, dtype, kernel_checks, times, launches)
 
   kernels = [
       {'name': 'exchange2d', 'route': 'cuda',
@@ -422,6 +624,16 @@ def main() -> int:
        'replaces': 'swirlfem_tpu/ops/pallas_stiffness.py:323',
        'launches': launches['stiffness_uniform'],
        'max_abs_err': st['max_abs_err'], **times['stiffness_uniform']},
+      {'name': 'stiffness2d_general', 'route': 'cuda',
+       'source': 'swirlfem_tpu_torch/csrc/stiffness2d_general.cu',
+       'replaces': 'swirlfem_tpu/ops/pallas_stiffness.py:165',
+       'launches': launches['stiffness2d_general'],
+       **times['stiffness2d_general']},
+      {'name': 'stiffness2d_affine', 'route': 'cuda',
+       'source': 'swirlfem_tpu_torch/csrc/stiffness2d_affine.cu',
+       'replaces': 'swirlfem_tpu/ops/pallas_stiffness.py:409',
+       'launches': launches['stiffness2d_affine'],
+       **times['stiffness2d_affine']},
       {'name': 'stiffness3d_uniform', 'route': 'cuda',
        'source': 'swirlfem_tpu_torch/csrc/stiffness3d_uniform.cu',
        'replaces': 'swirlfem_tpu/ops/pallas_stiffness3d.py:238',

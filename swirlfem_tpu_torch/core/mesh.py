@@ -40,6 +40,8 @@ class Mesh:
     exchange_gather_indices: positions of shared nodes (see
       `topology.exchange`), or None.
     exchange_unique_indices: gathered position -> shared-dof slot, or None.
+    exchange_num_unique: number of shared-dof slots (kept on the host, so
+      that an exchange on a CUDA device reads nothing back).
     structured: `StructuredInfo` of a structured box, or None.
   """
 
@@ -52,6 +54,7 @@ class Mesh:
       default_factory=dict)
   exchange_gather_indices: torch.Tensor | None = None
   exchange_unique_indices: torch.Tensor | None = None
+  exchange_num_unique: int = 0
   structured: object | None = None
 
   @classmethod
@@ -87,7 +90,21 @@ class Mesh:
                         for k, v in (physical_masks or {}).items()},
         exchange_gather_indices=index(exchange_gather_indices),
         exchange_unique_indices=index(exchange_unique_indices),
+        exchange_num_unique=(
+            0 if exchange_unique_indices is None
+            or np.size(exchange_unique_indices) == 0
+            else int(np.max(exchange_unique_indices)) + 1),
         structured=structured)
+
+  def to(self, device, dtype: torch.dtype) -> 'Mesh':
+    """Copy on `device`: coordinates in `dtype`, index tables as int64."""
+    move = lambda t: None if t is None else t.to(device)
+    return dataclasses.replace(
+        self, node_coords=self.node_coords.to(device=device, dtype=dtype),
+        elements=move(self.elements), node_indices=move(self.node_indices),
+        physical_masks={k: move(v) for k, v in self.physical_masks.items()},
+        exchange_gather_indices=move(self.exchange_gather_indices),
+        exchange_unique_indices=move(self.exchange_unique_indices))
 
   @property
   def ndim(self) -> int:
@@ -130,4 +147,5 @@ class Mesh:
   def exchange(self, u: torch.Tensor) -> torch.Tensor:
     """Applies Q Q^T: sums all copies of each shared degree of freedom."""
     return topology.exchange(u, self.exchange_gather_indices,
-                             self.exchange_unique_indices)
+                             self.exchange_unique_indices,
+                             self.exchange_num_unique)

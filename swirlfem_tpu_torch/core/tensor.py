@@ -57,6 +57,9 @@ class BarycentricInterpolator:
     self.interp_1d = interpolation_matrix_1d(gridpoints_1d, evalpoints_1d)
     self.interp_grad_1d = interpolation_grad_matrix_1d(
         gridpoints_1d, evalpoints_1d)
+    # Their copies per (table, dtype, device), made once: a copy from the
+    # host on every call would stall a CUDA stream.
+    self._copies = {}
 
   def __eq__(self, other):
     if not isinstance(other, BarycentricInterpolator):
@@ -74,13 +77,20 @@ class BarycentricInterpolator:
 
   # ---- sum-factorized paths ------------------------------------------------
 
+  def _copy_array(self, name, make, like: torch.Tensor) -> torch.Tensor:
+    """The host array ``make()`` as a tensor like `like`, copied once."""
+    key = (name, like.dtype, like.device)
+    if key not in self._copies:
+      self._copies[key] = torch.as_tensor(make(), dtype=like.dtype,
+                                          device=like.device)
+    return self._copies[key]
+
   def _factors(self, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(self.interp_1d, dtype=like.dtype,
-                           device=like.device)
+    return self._copy_array('interp_1d', lambda: self.interp_1d, like)
 
   def _grad_factors(self, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(self.interp_grad_1d, dtype=like.dtype,
-                           device=like.device)
+    return self._copy_array('interp_grad_1d', lambda: self.interp_grad_1d,
+                            like)
 
   def interpolate(self, u: torch.Tensor) -> torch.Tensor:
     """``(..., n^d)`` nodal values -> ``(..., q^d)`` at the evaluation points."""

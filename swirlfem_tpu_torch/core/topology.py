@@ -44,13 +44,16 @@ def scatter(u: torch.Tensor, indices: torch.Tensor,
 
 
 def exchange(u: torch.Tensor, gather_indices: torch.Tensor | None,
-             unique_indices: torch.Tensor | None = None) -> torch.Tensor:
+             unique_indices: torch.Tensor | None = None,
+             num_unique: int | None = None) -> torch.Tensor:
   """Applies Q Q^T to the nodal values `u` (unpartitioned mesh).
 
   Args:
     u: nodal values, shape ``(num_nodes,)``.
     gather_indices: positions of the shared nodes, ``(num_shared_copies,)``.
     unique_indices: map from each gathered position to its shared-dof slot.
+    num_unique: the number of slots, ``max(unique_indices) + 1`` (computed
+      from the indices when not given, which reads the device once).
 
   Returns:
     `u` with every shared dof replaced by the sum over all of its copies.
@@ -63,7 +66,8 @@ def exchange(u: torch.Tensor, gather_indices: torch.Tensor | None,
     return u
   own = u[gather_indices]
   if unique_indices is not None:
-    num_unique = int(unique_indices.max()) + 1
+    if not num_unique:
+      num_unique = int(unique_indices.max()) + 1
     summed = torch.zeros(num_unique, dtype=u.dtype, device=u.device)
     summed = summed.index_add_(0, unique_indices, own)[unique_indices]
   else:

@@ -1,10 +1,11 @@
 """Builds the port's solver state from numpy arrays.
 
-There are no learned weights on the datagen path; the state carried across
-is the solver's factor fields and the el-form time history.  These helpers
-take plain numpy arrays (for instance the fields of a JAX ``Sem2DOps`` or
-``Sem3DOps``), so the port's step can run on exactly the fields another
-implementation built.
+There are no learned weights on the solver paths; the state carried across
+is the solver's factor fields and the time history, el-form (periodic
+boxes) or nodal (walled boxes).  These helpers take plain numpy arrays (for
+instance the fields of a JAX ``Sem2DOps`` or ``Sem3DOps`` and a JAX
+solver's nodal histories), so the port's step can run on exactly the state
+another implementation built.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ def sem2d_ops_from_arrays(arrays: Mapping[str, np.ndarray], *,
   """A `Sem2DOps` from numpy arrays of `FIELD_NAMES` and `STATIC_NAMES`.
 
   An optional ``'g_affine'`` entry ((3, E) per-element metric scalars) is
-  carried over too.
+  carried over too; with it and ``c_uniform=None`` the stiffness takes the
+  affine class, without both the general one.
   """
   def dev(a):
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
@@ -86,3 +88,18 @@ def el_state_from_arrays(us, ps, cus, *, device, dtype):
   return (tuple(tuple(dev(c) for c in u) for u in us),
           tuple(dev(p) for p in ps),
           tuple(tuple(dev(c) for c in cu) for cu in cus))
+
+
+def nodal_state_from_arrays(us, ps, thetas=(), cus=(), *, device, dtype):
+  """The nodal history of the walled step from numpy arrays.
+
+  `us` and `cus` are sequences (oldest first) of ``(N, d)`` velocity and
+  convection arrays, `ps` of ``(P,)`` pressures and `thetas` of ``(N,)``
+  scalar fields, as a JAX ``StokesSEM.stokes_one_step`` / ``ScalarTransport
+  .one_step`` loop holds them.  Returns ``(us, ps, thetas, cus)`` as tuples
+  of tensors on `device` in `dtype`.
+  """
+  def dev(a):
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+  return tuple(tuple(dev(a) for a in seq) for seq in (us, ps, thetas, cus))

@@ -23,7 +23,8 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _CSRC = _PKG / 'csrc'
 _BUILD = _PKG / '_build'
-_SOURCES = ('exchange2d.cu', 'stiffness_uniform.cu', 'stiffness3d_uniform.cu',
+_SOURCES = ('exchange2d.cu', 'stiffness_uniform.cu', 'stiffness2d_general.cu',
+            'stiffness2d_affine.cu', 'stiffness3d_uniform.cu',
             'stiffness3d_general.cu')
 _FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
           '-Xcompiler', '-fPIC')
@@ -38,6 +39,12 @@ _SIGNATURES = {
     # (amat, us[], outs[], num_c, k2, num_e, stream)
     'stiffness_uniform_f32': (_P, _PP, _PP, _I, _I, _I, _P),
     'stiffness_uniform_f64': (_P, _PP, _PP, _I, _I, _I, _P),
+    # (dmat, us[], gs[3], outs[], num_c, k, num_e, stream)
+    'stiffness2d_general_f32': (_P, _PP, _PP, _PP, _I, _I, _I, _P),
+    'stiffness2d_general_f64': (_P, _PP, _PP, _PP, _I, _I, _I, _P),
+    # (mstack, c_aff, us[], outs[], num_c, k2, num_e, stream)
+    'stiffness2d_affine_f32': (_P, _P, _PP, _PP, _I, _I, _I, _P),
+    'stiffness2d_affine_f64': (_P, _P, _PP, _PP, _I, _I, _I, _P),
     # (table, us[], outs[], num_c, k, num_e, stream)
     'stiffness3d_uniform_f32': (_P, _PP, _PP, _I, _I, _I, _P),
     'stiffness3d_uniform_f64': (_P, _PP, _PP, _I, _I, _I, _P),

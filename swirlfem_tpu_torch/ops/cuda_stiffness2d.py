@@ -1,0 +1,221 @@
+"""General and affine 2D stiffness: two Hopper kernels and their plain versions.
+
+Replaces two Pallas kernels of ``swirlfem_tpu/ops/pallas_stiffness.py``:
+
+* `stiffness2d_general` (``stiffness_el_pallas_batched`` and its C = 1 case
+  ``stiffness_el_pallas``): the sum-factorized
+  ``A u = D_xi^T (G11 u_xi + G12 u_eta) + D_eta^T (G12 u_xi + G22 u_eta)`` on
+  the three factor fields, which are read once for all components of a call.
+* `stiffness2d_affine` (``stiffness_el_pallas_affine``, precision
+  'highest'): on affine elements ``A_e = c11 M11 + c12 M12 + c22 M22`` with
+  per-element scalars c (3, E) and the stacked static operator
+  ``mstack = [M11; M12; M22]`` (`cuda_stiffness.affine_mstack_np`, float64,
+  cast once to the working dtype).
+
+Fields are E-last ``(k, k, E)``.  The kernels (``csrc/stiffness2d_general.cu``,
+``csrc/stiffness2d_affine.cu``) run in FP32 (or FP64) FFMA, no TF32; their
+source notes give the bound on the card.  Each wrapper takes the plain
+version only for CPU tensors; for CUDA tensors it launches its kernel or
+raises, and counts the launch in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from swirlfem_tpu_torch.ops import cuda_build
+
+MAX_COMPONENTS = 4
+# The general kernel is instantiated for k = order + 1 in [2, MAX_K].
+MAX_K = 10
+# The affine kernel takes k^2 <= MAX_K2 and stages mstack in shared memory.
+MAX_K2 = 100
+_SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
+NUM_FACTORS = 3
+
+
+def stiffness2d_general_plain(us, gs, dmat: torch.Tensor):
+  """The sum-factorized einsum chain of ``Sem2DOps`` on stacked components
+  (``swirlfem_tpu/ops/sem2d.py:229-234``)."""
+  g11, g12, g22 = gs
+  u = torch.stack(tuple(us))  # (C, k, k, E)
+  ax0 = lambda m, w: torch.einsum('qn,cnje->cqje', m, w)
+  ax1 = lambda m, w: torch.einsum('qn,cjne->cjqe', m, w)
+  ur, uss = ax0(dmat, u), ax1(dmat, u)
+  a = g11 * ur + g12 * uss
+  b = g12 * ur + g22 * uss
+  out = ax0(dmat.T, a) + ax1(dmat.T, b)
+  return tuple(out[i] for i in range(len(us)))
+
+
+def stiffness2d_affine_plain(us, c_aff: torch.Tensor, mstack: torch.Tensor):
+  """``y = mstack @ u``, then ``c11 y1 + c12 y2 + c22 y3`` per element."""
+  k2 = mstack.shape[1]
+  outs = []
+  for u in us:
+    y = mstack @ u.reshape(k2, -1)
+    outs.append((c_aff[0] * y[:k2] + c_aff[1] * y[k2:2 * k2]
+                 + c_aff[2] * y[2 * k2:]).reshape(u.shape))
+  return tuple(outs)
+
+
+def _check_fields(what, us, like: torch.Tensor, k2: int):
+  us = tuple(us)
+  if not us:
+    raise ValueError(f'{what}: no components')
+  shape = tuple(us[0].shape)
+  if len(shape) not in (2, 3) or int(np.prod(shape[:-1])) != k2:
+    raise ValueError(f'{what}: components must be (k, k, E) or (k^2, E) with '
+                     f'k^2 = {k2}, got {shape}')
+  for u in us:
+    if tuple(u.shape) != shape:
+      raise ValueError(f'{what}: components must have the same shape')
+    if u.device != like.device or u.dtype != like.dtype:
+      raise ValueError(f'{what}: fields and coefficients must share device '
+                       'and dtype')
+  return us
+
+
+def _check_launchable(what, tensors, num_c, dtype):
+  if dtype not in (torch.float32, torch.float64):
+    raise TypeError(f'{what} kernel takes float32/float64, got {dtype}')
+  if not 1 <= num_c <= MAX_COMPONENTS:
+    raise ValueError(f'{what} kernel takes 1..{MAX_COMPONENTS} components, '
+                     f'got {num_c}')
+  if not all(t.is_contiguous() for t in tensors):
+    raise ValueError(f'{what} kernel needs contiguous tensors')
+
+
+def _ptrs(tensors):
+  return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+_SUFFIX = {torch.float32: 'f32', torch.float64: 'f64'}
+
+
+def stiffness2d_general(us, gs, dmat: torch.Tensor):
+  """General 2D stiffness of C components on three factor fields.
+
+  Args:
+    us: tuple of C component fields, each ``(k, k, E)``.
+    gs: ``(g11, g12, g22)``, each ``(k, k, E)``.
+    dmat: the ``(k, k)`` 1D differentiation matrix in the working dtype.
+
+  CPU tensors: `stiffness2d_general_plain`.  CUDA tensors: one launch of the
+  hand-written kernel for all components (the factor fields are read once),
+  counted in ``stiffness2d_general.launches``.
+  """
+  k = dmat.shape[0]
+  if dmat.ndim != 2 or dmat.shape[1] != k:
+    raise ValueError(f'dmat must be square, got {tuple(dmat.shape)}')
+  us = _check_fields('stiffness2d_general', us, dmat, k * k)
+  if us[0].ndim != 3:
+    raise ValueError('stiffness2d_general: components must be (k, k, E)')
+  gs = tuple(gs)
+  if len(gs) != NUM_FACTORS:
+    raise ValueError(f'expected {NUM_FACTORS} factor fields, got {len(gs)}')
+  for g in gs:
+    if (tuple(g.shape) != tuple(us[0].shape) or g.device != dmat.device
+        or g.dtype != dmat.dtype):
+      raise ValueError('factor fields must match the components in shape, '
+                       'device and dtype')
+  if dmat.device.type == 'cpu':
+    return stiffness2d_general_plain(us, gs, dmat)
+  if dmat.device.type != 'cuda':
+    raise ValueError(f'stiffness2d_general: unsupported device {dmat.device}')
+  _check_launchable('stiffness2d_general', us + gs + (dmat,), len(us),
+                    dmat.dtype)
+  if not 2 <= k <= MAX_K:
+    raise ValueError(f'stiffness2d_general kernel takes 2 <= k <= {MAX_K}, '
+                     f'got {k}')
+  num_e = us[0].shape[-1]
+  outs = tuple(torch.empty_like(u) for u in us)
+  fn = getattr(cuda_build.library(),
+               f'stiffness2d_general_{_SUFFIX[dmat.dtype]}')
+  stream = torch.cuda.current_stream(dmat.device).cuda_stream
+  cuda_build.check(fn(dmat.data_ptr(), _ptrs(us), _ptrs(gs), _ptrs(outs),
+                      len(us), k, num_e, stream), 'stiffness2d_general')
+  stiffness2d_general.launches += 1
+  return outs
+
+
+stiffness2d_general.launches = 0
+
+
+def affine_smem_bytes(k2: int, itemsize: int) -> int:
+  """Shared memory of one block of the affine kernel (``smem_bytes``): two
+  (k^2, 32) u tiles and the three operators at an odd row stride."""
+  return (2 * k2 * 32 + 3 * k2 * (k2 | 1)) * itemsize
+
+
+def stiffness2d_affine(us, c_aff: torch.Tensor, mstack: torch.Tensor):
+  """Affine-element 2D stiffness of C components.
+
+  Args:
+    us: tuple of C component fields, each ``(k, k, E)`` or ``(k^2, E)``.
+    c_aff: per-element metric scalars ``[c11; c12; c22]``, shape (3, E).
+    mstack: ``[M11; M12; M22]``, shape ``(3 k^2, k^2)``, in the working dtype.
+
+  CPU tensors: `stiffness2d_affine_plain`.  CUDA tensors: one launch of the
+  hand-written kernel for all components, counted in
+  ``stiffness2d_affine.launches``.
+  """
+  k2 = mstack.shape[1]
+  if mstack.ndim != 2 or mstack.shape[0] != 3 * k2:
+    raise ValueError(f'mstack must be (3 k^2, k^2), got '
+                     f'{tuple(mstack.shape)}')
+  us = _check_fields('stiffness2d_affine', us, mstack, k2)
+  num_e = us[0].shape[-1]
+  if (tuple(c_aff.shape) != (3, num_e) or c_aff.device != mstack.device
+      or c_aff.dtype != mstack.dtype):
+    raise ValueError(f'c_aff must be (3, {num_e}) on the fields\' device and '
+                     f'dtype, got {tuple(c_aff.shape)}')
+  if mstack.device.type == 'cpu':
+    return stiffness2d_affine_plain(us, c_aff, mstack)
+  if mstack.device.type != 'cuda':
+    raise ValueError(f'stiffness2d_affine: unsupported device '
+                     f'{mstack.device}')
+  _check_launchable('stiffness2d_affine', us + (c_aff, mstack), len(us),
+                    mstack.dtype)
+  if (k2 > MAX_K2
+      or affine_smem_bytes(k2, mstack.element_size()) > _SMEM_LIMIT):
+    raise ValueError(f'stiffness2d_affine kernel takes k^2 <= {MAX_K2} with '
+                     f'its operators in shared memory; got k^2 = {k2} in '
+                     f'{mstack.dtype}')
+  outs = tuple(torch.empty_like(u) for u in us)
+  fn = getattr(cuda_build.library(),
+               f'stiffness2d_affine_{_SUFFIX[mstack.dtype]}')
+  stream = torch.cuda.current_stream(mstack.device).cuda_stream
+  cuda_build.check(fn(mstack.data_ptr(), c_aff.data_ptr(), _ptrs(us),
+                      _ptrs(outs), len(us), k2, num_e, stream),
+                   'stiffness2d_affine')
+  stiffness2d_affine.launches += 1
+  return outs
+
+
+stiffness2d_affine.launches = 0
+
+
+def stiffness2d_counts(order, num_elems, num_components, *, affine,
+                       dtype_bytes=4):
+  """Analytic ``(flops, bytes)`` of one 2D stiffness apply.
+
+  General: per element and component four k-term contractions over the k^2
+  nodes (``8 k^3``) and the two fluxes (``6 k^2``); bytes read each
+  component and the three factor fields once and write each output once.
+  Affine: the three ``(k^2, k^2)`` products (``6 k^4``) and the combination
+  (``5 k^2``); bytes read each component, the (3, E) scalars and the stacked
+  operator once and write each output once.
+  """
+  k = order + 1
+  k2 = k * k
+  if affine:
+    return (num_components * (6 * k2 * k2 + 5 * k2) * num_elems,
+            (2 * num_components * k2 * num_elems + 3 * num_elems
+             + 3 * k2 * k2) * dtype_bytes)
+  return (num_components * (8 * k ** 3 + 6 * k2) * num_elems,
+          ((2 * num_components + NUM_FACTORS) * k2 * num_elems + k2)
+          * dtype_bytes)

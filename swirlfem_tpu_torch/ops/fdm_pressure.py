@@ -1,9 +1,10 @@
-"""Fast-diagonalization (FDM) solvers in el form, on separable boxes.
+"""Fast-diagonalization (FDM) solvers on separable boxes, nodal and el form.
 
-Counterpart of the el-form solvers of ``swirlfem_tpu/ops/fdm_pressure.py``
-(`is_separable_box`, `helmholtz_eig_el`, `build_fdm_helmholtz_solver_el`,
-`pressure_eig_el`, `build_fdm_pressure_solver_el`).  On an axis-aligned
-box whose node coordinates are a per-axis tensor product, the viscous
+Counterpart of ``swirlfem_tpu/ops/fdm_pressure.py`` (`is_separable_box`,
+`is_uniform_box`, `build_fdm_pressure_solver`, `build_fdm_helmholtz_solver`,
+`helmholtz_eig_el`, `build_fdm_helmholtz_solver_el`, `pressure_eig_el`,
+`build_fdm_pressure_solver_el`).  On an axis-aligned box whose node
+coordinates are a per-axis tensor product (uniform or graded), the viscous
 Helmholtz operator H = (beta_k/dt) B + mu A and the pressure Schur operator
 E = D Q D^T are exactly separable, and per-axis generalized
 eigendecompositions give their inverses as
@@ -11,11 +12,13 @@ eigendecompositions give their inverses as
     H^{-1} = (Z1 (x) Z2) diag(1 / (beta_k/dt + mu sum_a lam_a)) (Z1 (x) Z2)^T
     E^{-1} = (Z1 (x) Z2) diag(1 / sum_a lam_a) (Z1 (x) Z2)^T / s
 
-with the duplicate-node fold (and any Dirichlet mask) baked into the el-row
-transform matrices.  The setup is host-side float64 numpy/scipy; the solves
-are dense transform contractions (`torch.tensordot`; the JAX package leaves
-them to XLA outside any Pallas kernel).  The solver that builds them turns
-TF32 off, so the float32 transforms stay float32-accurate.
+The nodal solvers act on flat nodal arrays (periodic seam copies folded and
+spread, Dirichlet rows sliced out and padded back); the el solvers bake the
+duplicate-node fold (and any Dirichlet mask) into the el-row transform
+matrices.  The setup is host-side float64 numpy/scipy; the solves are dense
+transform contractions (`torch.tensordot`; the JAX package leaves them to
+XLA outside any Pallas kernel).  The solver that builds them turns TF32 off,
+so the float32 transforms stay float32-accurate.
 """
 
 from __future__ import annotations
@@ -29,12 +32,21 @@ from swirlfem_tpu_torch.core.quadrature import interpolation_matrix_1d
 from swirlfem_tpu_torch.core.quadrature import Quadrature1D
 
 
-def _axis_masks(sem):
-  """Per-axis interior masks of the velocity grid, or None if inseparable."""
+def _axis_masks(sem, interior_mask=None):
+  """Per-axis interior masks of the velocity grid, or None if inseparable.
+
+  ``interior_mask`` (nodal, host) overrides the velocity's own mask: the
+  scalar transport's thermal Dirichlet walls are independent of the flow's
+  (heated cavity: x-walls only).
+  """
   info = sem.fast_ops.vinfo
   d = info.ndim
   nv = info.nodes_per_dim
-  mask = np.asarray(sem.velocity.interior_mask)[..., 0].reshape((nv,) * d)
+  if interior_mask is None:
+    mask = np.asarray(sem.velocity.interior_mask)[..., 0]
+  else:
+    mask = np.asarray(interior_mask).reshape(-1)
+  mask = mask.reshape((nv,) * d)
   axis_masks = []
   for a in range(d):
     # Profile along axis a through the most-interior line.
@@ -114,6 +126,31 @@ def is_separable_box(sem) -> bool:
   return _axis_masks(sem) is not None
 
 
+def is_uniform_box(sem) -> bool:
+  """True for an axis-aligned uniform structured box with separable BCs."""
+  ops = sem.fast_ops
+  if ops is None or ops.vinfo is None:
+    return False
+  d = ops.vinfo.ndim
+  # All elements identical and axis-aligned: geometric factor fields must
+  # be constant along the element axis and the off-diagonal G_ab zero.
+  names = (('g11', 'g22'), ('g11', 'g22', 'g33'))[d - 2]
+  off = (('g12',), ('g12', 'g13', 'g23'))[d - 2]
+  host = lambda name: getattr(ops, name).detach().cpu().double().numpy()
+  gscale = max(float(np.abs(host(nm)).max()) for nm in names)
+  for nm in names:
+    g = host(nm)
+    if float(np.abs(g - g[..., :1]).max()) > 1e-3 * gscale:
+      return False
+  for nm in off:
+    if float(np.abs(host(nm)).max()) > 1e-3 * gscale:
+      return False
+  wmass = host('wmass')
+  if float(np.abs(wmass - wmass[..., :1]).max()) > 1e-3 * np.abs(wmass).max():
+    return False
+  return _axis_masks(sem) is not None
+
+
 def _assemble_1d(blocks: np.ndarray, n: int, periodic: bool) -> np.ndarray:
   """Assembles per-element (rows_e, k) 1D factors into a global matrix."""
   if blocks.ndim == 2:
@@ -160,12 +197,12 @@ def _lumped_mass_1d(w1, jac, n, p, nv):
   return mass
 
 
-def helmholtz_eig_el(sem, time_order: int):
-  """Per-axis el-row eigenbases of the separable Helmholtz operator.
+def _helmholtz_eig(sem, time_order: int, interior_mask=None):
+  """Per-axis eigenbases of the separable Helmholtz operator, float64.
 
-  Returns ``(zels, lam_sum, beta_k)`` as float64 numpy: el-row transform
-  matrices ``(n*(p+1), n_interior)`` per axis (duplicate fold + Dirichlet
-  mask baked in) and the eigenvalue-sum grid.
+  Returns ``(zs, lams, interiors, periodic_axes, beta_k)``: per axis the
+  ``(n_int, n_int)`` basis with ``Z^T M Z = I`` on the interior unique
+  nodes, its eigenvalues, and ``(interior node ids, unique line length)``.
   """
   from swirlfem_tpu_torch.nse.solver import bdfk_coeffs
 
@@ -173,9 +210,8 @@ def helmholtz_eig_el(sem, time_order: int):
   d = vinfo.ndim
   n = vinfo.num_elements_per_dim
   p = vinfo.order
-  k = p + 1
 
-  axis_masks = _axis_masks(sem)
+  axis_masks = _axis_masks(sem, interior_mask=interior_mask)
   assert axis_masks is not None, 'BC mask is not separable per axis'
   geom = _axis_geometry(sem)
   assert geom is not None, 'node coordinates are not a per-axis product'
@@ -187,7 +223,7 @@ def helmholtz_eig_el(sem, time_order: int):
   w1 = Quadrature1D.create_from_nodes_1d(vgrid).weights
   dmat = differentiation_matrix_1d(vgrid)
 
-  zels, lams = [], []
+  zs, lams, interiors = [], [], []
   for a in range(d):
     periodic = periodic_axes[a]
     nv = n * p if periodic else n * p + 1
@@ -198,14 +234,31 @@ def helmholtz_eig_el(sem, time_order: int):
     s_int = s_glob[np.ix_(interior, interior)]
     sq = np.sqrt(mass[interior])
     lam, y = scipy.linalg.eigh(s_int / sq[:, None] / sq[None, :])
-    z = y / sq[:, None]                      # (n_int, n_int), Z^T M Z = I
+    zs.append(y / sq[:, None])               # (n_int, n_int), Z^T M Z = I
+    lams.append(lam)
+    interiors.append((interior, nv))
+  return zs, lams, interiors, periodic_axes, beta_k
+
+
+def helmholtz_eig_el(sem, time_order: int):
+  """Per-axis el-row eigenbases of the separable Helmholtz operator.
+
+  Returns ``(zels, lam_sum, beta_k)`` as float64 numpy: el-row transform
+  matrices ``(n*(p+1), n_interior)`` per axis (duplicate fold + Dirichlet
+  mask baked in) and the eigenvalue-sum grid.
+  """
+  vinfo = sem.fast_ops.vinfo
+  n = vinfo.num_elements_per_dim
+  p = vinfo.order
+  zs, lams, interiors, periodic_axes, beta_k = _helmholtz_eig(sem,
+                                                             time_order)
+  zels = []
+  for z, (interior, _), periodic in zip(zs, interiors, periodic_axes):
     rows, col_of = _el_row_map(n, p, periodic, interior)
-    zel = np.zeros((n * k, len(interior)))
+    zel = np.zeros((n * (p + 1), len(interior)))
     live = col_of[rows] >= 0
     zel[live] = z[col_of[rows[live]]]        # fold P and the mask into Z
     zels.append(zel)
-    lams.append(lam)
-
   grids = np.meshgrid(*lams, indexing='ij')
   return zels, sum(grids), beta_k
 
@@ -252,12 +305,64 @@ def build_fdm_helmholtz_solver_el(sem, time_order: int):
   return solve
 
 
-def pressure_eig_el(sem, dt: float, time_order: int):
-  """Per-axis el-row eigenbases of the separable Schur operator.
+def build_fdm_helmholtz_solver(sem, time_order: int, interior_mask=None):
+  """Exact nodal FDM solver for H = (beta_k/dt) B + mu A, per component.
 
-  Returns ``(zs, inv_lam, has_nullspace)`` as float64 numpy: el-row
-  transform matrices ``(m*n, m*n)`` per axis (rows in (i, e) order) and the
-  scaled inverted eigenvalue grid (near-null modes zeroed).
+  ``solve(r, mu, dt)`` applies H^{-1} to a nodal covector ``(N,)`` on the
+  (possibly redundant) velocity grid: periodic seam copies are folded
+  before and spread after the solve, and Dirichlet rows (of the velocity's
+  mask, or of ``interior_mask`` — the scalar transport passes its own) are
+  sliced out and padded back with zeros, matching the row-elided system CG
+  solves.  The eigenbasis does not depend on mu and dt.
+  """
+  vinfo = sem.fast_ops.vinfo
+  d = vinfo.ndim
+  nv_grid = vinfo.nodes_per_dim
+  zs_np, lams, interiors, periodic_axes, beta_k = _helmholtz_eig(
+      sem, time_order, interior_mask=interior_mask)
+  zs = [_device(sem, z) for z in zs_np]
+  zts = [_device(sem, z.T) for z in zs_np]
+  lam_sum = _device(sem, sum(np.meshgrid(*lams, indexing='ij')))
+  for interior, nv in interiors:
+    # Dirichlet masks zero a contiguous prefix/suffix of each line.
+    assert len(interior) == interior[-1] - interior[0] + 1, (
+        'non-contiguous interior')
+
+  def solve(r, mu, dt):
+    x = r.reshape((nv_grid,) * d)
+    for a, (interior, nv) in enumerate(interiors):
+      if periodic_axes[a]:   # fold the seam copy onto node 0
+        first = x.narrow(a, 0, 1) + x.narrow(a, nv_grid - 1, 1)
+        x = torch.cat([first, x.narrow(a, 1, nv - 1)], dim=a)
+      x = x.narrow(a, int(interior[0]), len(interior))
+    h = _contract(x, zts)
+    h = h / (beta_k / dt + mu * lam_sum)
+    h = _contract(h, zs)
+    for a, (interior, nv) in enumerate(interiors):
+      lead, trail = int(interior[0]), nv - 1 - int(interior[-1])
+      if lead or trail:   # pad the Dirichlet rows back with zeros
+        shape = list(h.shape)
+        parts = []
+        for width in (lead, None, trail):
+          if width is None:
+            parts.append(h)
+          elif width:
+            shape[a] = width
+            parts.append(h.new_zeros(shape))
+        h = torch.cat(parts, dim=a)
+      if periodic_axes[a]:   # duplicate node 0 onto the seam slot
+        h = torch.cat([h, h.narrow(a, 0, 1)], dim=a)
+    return h.reshape(-1).to(r.dtype)
+
+  return solve
+
+
+def _pressure_eig(sem, dt: float, time_order: int):
+  """Per-axis eigenbases of the separable Schur operator, float64.
+
+  Returns ``(zs, inv_lam, has_nullspace)``: per axis the ``(n*m, n*m)``
+  basis with rows in nodal (e*m + i) order, and the scaled inverted
+  eigenvalue grid (near-null modes zeroed).
   """
   from swirlfem_tpu_torch.nse.solver import bdfk_coeffs
 
@@ -293,10 +398,8 @@ def pressure_eig_el(sem, dt: float, time_order: int):
     b = mask_a / _lumped_mass_1d(w1, jacs[a], n, p, nv)
     A = dg @ np.diag(b) @ dg.T
     B = mg @ np.diag(b) @ mg.T
-    lam, z = scipy.linalg.eigh(A, B)
-    # Permute rows from nodal (e*m + i) to el (i, e) order.
-    rows = (np.arange(n)[:, None] * m + np.arange(m)[None, :]).T.reshape(-1)
-    zs.append(z[rows])  # (m*n el order, n*m)
+    lam, z = scipy.linalg.eigh(A, B)         # z^T B z = I
+    zs.append(z)
     lams.append(lam)
 
   grids = np.meshgrid(*lams, indexing='ij')
@@ -305,6 +408,45 @@ def pressure_eig_el(sem, dt: float, time_order: int):
   null = np.abs(lam_sum) <= 1e-10 * lmax
   inv_lam = np.where(~null, 1.0 / np.where(null, 1.0, lam_sum), 0.0)
   return zs, inv_lam / scale, bool(null.any())
+
+
+def pressure_eig_el(sem, dt: float, time_order: int):
+  """Per-axis el-row eigenbases of the separable Schur operator.
+
+  Returns ``(zs, inv_lam, has_nullspace)`` as float64 numpy: el-row
+  transform matrices ``(m*n, m*n)`` per axis (rows in (i, e) order) and the
+  scaled inverted eigenvalue grid (near-null modes zeroed).
+  """
+  n = sem.fast_ops.vinfo.num_elements_per_dim
+  m = sem.fast_ops.pinfo.order + 1
+  zs, inv_lam, has_null = _pressure_eig(sem, dt, time_order)
+  # Permute rows from nodal (e*m + i) to el (i, e) order.
+  rows = (np.arange(n)[:, None] * m + np.arange(m)[None, :]).T.reshape(-1)
+  return [z[rows] for z in zs], inv_lam, has_null
+
+
+def build_fdm_pressure_solver(sem, dt: float, time_order: int):
+  """Exact nodal FDM solve ``rhs -> E^{-1} rhs`` on separable boxes.
+
+  `rhs` and the result are nodal pressure arrays (DG grid numbering).
+  ``solve.has_nullspace`` says whether E has a (pseudo-inverted) constant
+  nullspace (enclosed flow, fully periodic boxes): callers project iff so.
+  """
+  d = sem.fast_ops.vinfo.ndim
+  npd = sem.fast_ops.vinfo.num_elements_per_dim * (sem.fast_ops.pinfo.order
+                                                   + 1)
+  zs_np, inv_lam_np, has_null = _pressure_eig(sem, dt, time_order)
+  zs = [_device(sem, z) for z in zs_np]
+  zts = [_device(sem, z.T) for z in zs_np]
+  inv_lam = _device(sem, inv_lam_np)
+
+  def solve(rhs):
+    x = _contract(rhs.reshape((npd,) * d), zts)   # Z^T x
+    x = _contract(x * inv_lam, zs)                # Z diag(1/lam) Z^T x
+    return x.reshape(-1).to(rhs.dtype)
+
+  solve.has_nullspace = has_null
+  return solve
 
 
 def build_fdm_pressure_solver_el(sem, dt: float, time_order: int):

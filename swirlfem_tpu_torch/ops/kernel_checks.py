@@ -15,6 +15,7 @@ import torch
 
 from swirlfem_tpu_torch.ops import cuda_exchange
 from swirlfem_tpu_torch.ops import cuda_stiffness
+from swirlfem_tpu_torch.ops import cuda_stiffness2d
 from swirlfem_tpu_torch.ops import cuda_stiffness3d
 
 # Gate of the stiffness kernel against the float64 operator, relative to
@@ -66,6 +67,34 @@ def check_stiffness_uniform(ops, us) -> dict:
   ref = cuda_stiffness.stiffness_uniform_plain(
       tuple(u.double() for u in us), a64)
   torch.cuda.synchronize(amat.device)
+  return _errors(got, plain, ref)
+
+
+def check_stiffness2d_general(ops, us, gs=None) -> dict:
+  """stiffness2d_general kernel vs its plain version and the float64
+  operator on the same factor fields (`gs`, default the box's own)."""
+  gs = (ops.g11, ops.g12, ops.g22) if gs is None else tuple(gs)
+  dmat = ops.mats['dmat']
+  got = cuda_stiffness2d.stiffness2d_general(us, gs, dmat)
+  plain = cuda_stiffness2d.stiffness2d_general_plain(us, gs, dmat)
+  ref = cuda_stiffness2d.stiffness2d_general_plain(
+      tuple(u.double() for u in us), tuple(g.double() for g in gs),
+      torch.as_tensor(ops.dmat, dtype=torch.float64, device=dmat.device))
+  torch.cuda.synchronize(dmat.device)
+  return _errors(got, plain, ref)
+
+
+def check_stiffness2d_affine(ops, us) -> dict:
+  """stiffness2d_affine kernel vs its plain version and the float64
+  operator (the stacked operator built in float64 on the same scalars)."""
+  mstack = ops.mats['mstack']
+  got = cuda_stiffness2d.stiffness2d_affine(us, ops.g_affine, mstack)
+  plain = cuda_stiffness2d.stiffness2d_affine_plain(us, ops.g_affine, mstack)
+  m64 = torch.as_tensor(cuda_stiffness.affine_mstack_np(ops.wq2d, ops.dmat),
+                        dtype=torch.float64, device=mstack.device)
+  ref = cuda_stiffness2d.stiffness2d_affine_plain(
+      tuple(u.double() for u in us), ops.g_affine.double(), m64)
+  torch.cuda.synchronize(mstack.device)
   return _errors(got, plain, ref)
 
 

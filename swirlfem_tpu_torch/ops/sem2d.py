@@ -11,10 +11,16 @@ divergence/gradient coupling to the discontinuous Gauss-Legendre pressure
 space and the overintegrated convection form.  Every contraction is a
 small-matrix product whose output keeps E last.
 
-Two operators have hand-written Hopper kernels (ops.cuda_exchange,
-ops.cuda_stiffness): the periodic el exchange and, on congruent-element
-boxes, the stiffness.  Their wrappers run the plain torch versions on CPU
-tensors only.
+The periodic el exchange has a hand-written Hopper kernel
+(ops.cuda_exchange).  The stiffness apply dispatches through ONE table keyed
+by (operator class, implementation), `STIFFNESS_DISPATCH`: the class is
+congruent (one dense element operator, ops.cuda_stiffness), affine
+(per-element scalars on a stacked operator) or general (three factor
+fields, both in ops.cuda_stiffness2d); the implementation is the kernel's
+arithmetic class, `kernel_precision`.  CPU tensors run the class's plain
+version for every key; CUDA tensors run the hand-written kernel where the
+key has one and raise `NotImplementedError`, naming the ROADMAP.md item,
+where it has none.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 from swirlfem_tpu_torch.core.structured import StructuredInfo
 from swirlfem_tpu_torch.ops import cuda_exchange
 from swirlfem_tpu_torch.ops import cuda_stiffness
+from swirlfem_tpu_torch.ops import cuda_stiffness2d
 
 KERNEL_PRECISIONS = ('highest', 'bf16x3', 'default')
 
@@ -90,6 +97,68 @@ def el_to_nodal(w: torch.Tensor, info: StructuredInfo) -> torch.Tensor:
   return out.T.reshape(-1)
 
 
+# -- stiffness dispatch ------------------------------------------------------
+
+CONGRUENT, AFFINE, GENERAL = 'congruent', 'affine', 'general'
+
+
+@dataclasses.dataclass(frozen=True)
+class _Entry:
+  """One (operator class, implementation) key of the stiffness dispatch.
+
+  `plain` is the CPU version; `kernel` the CUDA one, or None with `todo`
+  naming the ROADMAP.md item that ports it.
+  """
+  plain: object
+  kernel: object = None
+  todo: str = ''
+
+
+def _uniform_plain(ops, us):
+  return cuda_stiffness.stiffness_uniform_plain(us, ops.mats['amat'])
+
+
+def _uniform_kernel(ops, us):
+  return cuda_stiffness.stiffness_uniform(us, ops.mats['amat'])
+
+
+def _affine_plain(ops, us):
+  return cuda_stiffness2d.stiffness2d_affine_plain(us, ops.g_affine,
+                                                   ops.mats['mstack'])
+
+
+def _affine_kernel(ops, us):
+  return cuda_stiffness2d.stiffness2d_affine(us, ops.g_affine,
+                                             ops.mats['mstack'])
+
+
+def _general_plain(ops, us):
+  return cuda_stiffness2d.stiffness2d_general_plain(
+      us, (ops.g11, ops.g12, ops.g22), ops.mats['dmat'])
+
+
+def _general_kernel(ops, us):
+  return cuda_stiffness2d.stiffness2d_general(
+      us, (ops.g11, ops.g12, ops.g22), ops.mats['dmat'])
+
+
+_PRECISION_TODO = ("has no Hopper kernel yet; only 'highest' is ported "
+                   '(ROADMAP.md, Queue 2 item 2)')
+
+STIFFNESS_DISPATCH = {
+    (CONGRUENT, 'highest'): _Entry(_uniform_plain, _uniform_kernel),
+    (AFFINE, 'highest'): _Entry(_affine_plain, _affine_kernel),
+    **{(cls, p): _Entry(plain, todo=_PRECISION_TODO)
+       for cls, plain in ((CONGRUENT, _uniform_plain),
+                          (AFFINE, _affine_plain))
+       for p in KERNEL_PRECISIONS[1:]},
+    # The TPU's general kernel has one arithmetic class (HIGHEST) whatever
+    # the knob says, and so does its port.
+    **{(GENERAL, p): _Entry(_general_plain, _general_kernel)
+       for p in KERNEL_PRECISIONS},
+}
+
+
 # -- factor container --------------------------------------------------------
 
 
@@ -128,7 +197,8 @@ class Sem2DOps:
   # TF32) has a Hopper kernel; see ROADMAP.md, Queue 2 item 2.
   kernel_precision: str = 'highest'
   # Device copies of the 1D matrices (and of the congruent-element operator
-  # 'amat'), in the working dtype; filled in __post_init__.
+  # 'amat' and the affine operator stack 'mstack'), in the working dtype;
+  # filled in __post_init__.
   mats: dict = dataclasses.field(default_factory=dict, repr=False,
                                  compare=False)
 
@@ -143,6 +213,9 @@ class Sem2DOps:
       mats['amat'] = torch.as_tensor(
           cuda_stiffness.uniform_amat_np(self.c_uniform, self.wq2d,
                                          self.dmat), **dev)
+    if self.g_affine is not None:
+      mats['mstack'] = torch.as_tensor(
+          cuda_stiffness.affine_mstack_np(self.wq2d, self.dmat), **dev)
     # A fresh dict: `dataclasses.replace` would otherwise share the old one.
     object.__setattr__(self, 'mats', mats)
 
@@ -181,37 +254,30 @@ class Sem2DOps:
 
   # -- scalar element operators -------------------------------------------
 
-  def _stiffness_factored(self, u: torch.Tensor) -> torch.Tensor:
-    """Sum-factorized stiffness on the general geometric factor fields."""
-    if u.is_cuda:
-      raise NotImplementedError(
-          'the general (non-congruent) 2D stiffness has no Hopper kernel yet '
-          '(ROADMAP.md, Queue 2 items 3-4)')
-    d = self.mats['dmat']
-    ur = self._ax0(d, u)
-    us = self._ax1(d, u)
-    a = self.g11 * ur + self.g12 * us
-    b = self.g12 * ur + self.g22 * us
-    return self._ax0(d.T, a) + self._ax1(d.T, b)
+  @property
+  def stiffness_key(self) -> tuple[str, str]:
+    """The (operator class, implementation) key of `STIFFNESS_DISPATCH`."""
+    if self.c_uniform is not None:
+      return CONGRUENT, self.kernel_precision
+    if self.g_affine is not None:
+      return AFFINE, self.kernel_precision
+    return GENERAL, self.kernel_precision
 
   def stiffness_el(self, u: torch.Tensor) -> torch.Tensor:
     """A_local on one component, (n, n, E) -> (n, n, E)."""
     return self.stiffness_el_multi((u,))[0]
 
   def stiffness_el_multi(self, us):
-    """A_local on a tuple of components.
-
-    Congruent-element boxes apply the dense element operator to all
-    components in one call of `cuda_stiffness.stiffness_uniform` (one
-    kernel launch on CUDA); other meshes use the factor fields.
-    """
-    if self.c_uniform is None:
-      return tuple(self._stiffness_factored(u) for u in us)
-    if us[0].is_cuda and self.kernel_precision != 'highest':
-      raise NotImplementedError(
-          f'kernel_precision={self.kernel_precision!r} has no Hopper kernel '
-          "yet; only 'highest' is ported (ROADMAP.md, Queue 2 item 2)")
-    return cuda_stiffness.stiffness_uniform(tuple(us), self.mats['amat'])
+    """A_local on a tuple of components, in one call of the dispatched
+    implementation (one kernel launch on CUDA)."""
+    us = tuple(us)
+    key = self.stiffness_key
+    entry = STIFFNESS_DISPATCH[key]
+    if not us[0].is_cuda:
+      return entry.plain(self, us)
+    if entry.kernel is None:
+      raise NotImplementedError(f'2D stiffness {key} {entry.todo}')
+    return entry.kernel(self, us)
 
   def stiffness_diag_el(self) -> torch.Tensor:
     """Element-local diagonal of the stiffness operator, (n, n, E).

@@ -1,9 +1,9 @@
 """The port's Hopper kernels against their plain PyTorch versions, on a card.
 
 The same checks as ``chip_smoke.py`` (``swirlfem_tpu_torch.ops
-.kernel_checks``) plus wrapper validation and short datagen and
-Taylor-Green runs on the card against the CPU.  Every test is marked ``cuda`` and skips without a
-CUDA device.  On a GPU host (no JAX needed):
+.kernel_checks``) plus wrapper validation and short datagen, Taylor-Green
+and walled-cavity runs on the card against the CPU.  Every test is marked
+``cuda`` and skips without a CUDA device.  On a GPU host (no JAX needed):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -14,10 +14,13 @@ import functools
 import pytest
 import torch
 
+from swirlfem_tpu_torch.examples import cavity as cav
+from swirlfem_tpu_torch.examples import natural_convection as nc
 from swirlfem_tpu_torch.examples import taylor_green_3d as tgv
 from swirlfem_tpu_torch.niles import datagen
 from swirlfem_tpu_torch.ops import cuda_exchange
 from swirlfem_tpu_torch.ops import cuda_stiffness
+from swirlfem_tpu_torch.ops import cuda_stiffness2d
 from swirlfem_tpu_torch.ops import cuda_stiffness3d
 from swirlfem_tpu_torch.ops import kernel_checks
 
@@ -175,5 +178,98 @@ def test_tgv_steps_on_card_match_cpu(device):
     err = abs(gpu[key] - cpu[key]).max() / abs(cpu[key]).max()
     assert err <= 1e-10, (key, err)
   for g, c in zip(gpu['us'][-1], cpu['us'][-1]):
+    err = float((g.cpu() - c).abs().max() / c.abs().max())
+    assert err <= 1e-10, err
+
+
+@functools.lru_cache(maxsize=None)
+def _walled_ops(kind, n_el, order, dtype):
+  """Factor fields of the sine-graded heated cavity ('general') or the
+  vertex-graded lid-driven cavity ('affine') on the card."""
+  if kind == 'general':
+    sem, _, _ = nc.create_cavity(n_el, order, dtype, grading=0.5,
+                                 device='cuda')
+  else:
+    sem = cav.make_cavity(n_el, order, grading=0.5, device='cuda',
+                          dtype=dtype)
+  assert sem.fast_ops.stiffness_key == (kind, 'highest')
+  return sem.fast_ops
+
+
+def _fields2d(ops, count, seed):
+  k = ops.vinfo.order + 1
+  num_e = ops.vinfo.num_elements_per_dim ** 2
+  return tuple(kernel_checks.random_field(
+      (k, k, num_e), dtype=ops.wmass.dtype, device=ops.wmass.device,
+      seed=seed + s) for s in range(count))
+
+
+# (n_el, order): the heated cavity's 12^2 / 8^2 order 7, the lid-driven
+# 16^2 order 7, the datagen 64^2 order 8, and a ragged small case.
+_CASES_2D = [(12, 7), (16, 7), (64, 8), (3, 4)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n_el,order', _CASES_2D)
+@pytest.mark.parametrize('num_c', [1, 2])
+def test_stiffness2d_general_matches_f64_operator(device, n_el, order,
+                                                  num_c, dtype):
+  del device
+  ops = _walled_ops('general', n_el, order, dtype)
+  us = _fields2d(ops, num_c, 1)
+  tol = kernel_checks.STIFFNESS_REL_TOL if dtype == torch.float32 else 1e-13
+  for gs in (None, _fields2d(ops, 3, 10)):  # the box's fields, random ones
+    result = kernel_checks.check_stiffness2d_general(ops, us, gs)
+    assert result['rel_err_f64'] <= tol, result
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n_el,order', _CASES_2D)
+@pytest.mark.parametrize('num_c', [1, 2])
+def test_stiffness2d_affine_matches_f64_operator(device, n_el, order, num_c,
+                                                 dtype):
+  del device
+  ops = _walled_ops('affine', n_el, order, dtype)
+  result = kernel_checks.check_stiffness2d_affine(ops, _fields2d(ops, num_c,
+                                                                 1))
+  tol = kernel_checks.STIFFNESS_REL_TOL if dtype == torch.float32 else 1e-13
+  assert result['rel_err_f64'] <= tol, result
+
+
+def test_stiffness2d_launches_and_dispatch(device):
+  del device
+  general = _walled_ops('general', 3, 4, torch.float32)
+  affine = _walled_ops('affine', 3, 4, torch.float32)
+  us = _fields2d(general, 2, 1)
+  before = (cuda_stiffness2d.stiffness2d_general.launches,
+            cuda_stiffness2d.stiffness2d_affine.launches)
+  general.stiffness_el_multi(us)
+  affine.stiffness_el_multi(us)
+  assert (cuda_stiffness2d.stiffness2d_general.launches,
+          cuda_stiffness2d.stiffness2d_affine.launches) == (before[0] + 1,
+                                                            before[1] + 1)
+  bf16x3 = dataclasses.replace(affine, kernel_precision='bf16x3')
+  with pytest.raises(NotImplementedError, match='ROADMAP'):
+    bf16x3.stiffness_el_multi(us)
+  with pytest.raises(ValueError, match='components'):
+    cuda_stiffness2d.stiffness2d_general(us * 3, (general.g11, general.g12,
+                                                  general.g22),
+                                         general.mats['dmat'])
+  with pytest.raises(ValueError, match='contiguous'):
+    cuda_stiffness2d.stiffness2d_affine(tuple(u.transpose(0, 1) for u in us),
+                                        affine.g_affine,
+                                        affine.mats['mstack'])
+
+
+def test_walled_cavities_on_card_match_cpu(device):
+  """float64 on both sides: the kernels change only rounding."""
+  out = []
+  for dev in (device, torch.device('cpu')):
+    r = nc.run_cavity(1e4, n_el=3, order=4, grading=0.5, max_steps=5,
+                      steps_per_dispatch=5, device=dev)
+    sem = cav.make_cavity(3, 4, grading=0.5, device=dev)
+    u, p, _ = cav.run_cavity(sem, reynolds=100.0, dt=5e-3, num_steps=5)
+    out.append((r['u'], r['p'], r['theta'], u, p))
+  for g, c in zip(*out):
     err = float((g.cpu() - c).abs().max() / c.abs().max())
     assert err <= 1e-10, err

@@ -18,15 +18,19 @@ MODULES = [
     'swirlfem_tpu_torch.core.structured',
     'swirlfem_tpu_torch.core.tensor',
     'swirlfem_tpu_torch.core.topology',
+    'swirlfem_tpu_torch.examples.cavity',
+    'swirlfem_tpu_torch.examples.natural_convection',
     'swirlfem_tpu_torch.examples.taylor_green_3d',
     'swirlfem_tpu_torch.linalg.cg',
     'swirlfem_tpu_torch.niles.datagen',
     'swirlfem_tpu_torch.niles.datagen_config',
     'swirlfem_tpu_torch.niles.profile_datagen',
+    'swirlfem_tpu_torch.nse.scalar',
     'swirlfem_tpu_torch.nse.solver',
     'swirlfem_tpu_torch.ops.cuda_build',
     'swirlfem_tpu_torch.ops.cuda_exchange',
     'swirlfem_tpu_torch.ops.cuda_stiffness',
+    'swirlfem_tpu_torch.ops.cuda_stiffness2d',
     'swirlfem_tpu_torch.ops.cuda_stiffness3d',
     'swirlfem_tpu_torch.ops.fdm_pressure',
     'swirlfem_tpu_torch.ops.kernel_checks',

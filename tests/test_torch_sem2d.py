@@ -1,8 +1,8 @@
 """Parity of the port's E-last element operators with ``swirlfem_tpu.ops.sem2d``.
 
 Factor fields and the affine / congruent detection, every el operator on
-numpy-seeded inputs, and the plain versions of the two Hopper kernels
-against the JAX Pallas kernels run in interpret mode.
+numpy-seeded inputs, the stiffness dispatch table, and the plain versions
+of the Hopper kernels against the JAX Pallas kernels run in interpret mode.
 """
 
 import dataclasses
@@ -16,12 +16,17 @@ import torch
 from swirlfem_tpu.nse.solver import StokesSEM as JStokesSEM
 from swirlfem_tpu.ops import sem2d as jsem2d
 from swirlfem_tpu.ops.pallas_exchange import exchange2d_pallas
+from swirlfem_tpu.ops.pallas_stiffness import stiffness_el_pallas
+from swirlfem_tpu.ops.pallas_stiffness import stiffness_el_pallas_affine
+from swirlfem_tpu.ops.pallas_stiffness import stiffness_el_pallas_batched
 from swirlfem_tpu.ops.pallas_stiffness import stiffness_el_pallas_uniform
 from swirlfem_tpu.utils.box import unit_cube_mesh as junit_cube_mesh
+from swirlfem_tpu_torch import interop
 from swirlfem_tpu_torch.core.structured import StructuredInfo
 from swirlfem_tpu_torch.nse.solver import StokesSEM
 from swirlfem_tpu_torch.ops import cuda_exchange
 from swirlfem_tpu_torch.ops import cuda_stiffness
+from swirlfem_tpu_torch.ops import cuda_stiffness2d
 from swirlfem_tpu_torch.ops import sem2d
 from swirlfem_tpu_torch.utils.box import unit_cube_mesh
 
@@ -198,3 +203,114 @@ def test_kernel_precision_is_validated(uniform_ops):
   ops3 = dataclasses.replace(ops, kernel_precision='bf16x3')
   u = torch.ones_like(ops.wmass)
   torch.testing.assert_close(ops3.stiffness_el(u), ops.stiffness_el(u))
+
+
+@pytest.mark.parametrize('geometry,cls', [('uniform', 'congruent'),
+                                          ('graded', 'affine'),
+                                          ('warped', 'general')])
+def test_stiffness_dispatch_by_operator_class(geometry, cls):
+  """Each class's plain version on CPU tensors matches the JAX einsum
+  operator; the wrappers count no launch for CPU tensors."""
+  jops, ops = _pair(geometry, 3, 4)
+  assert ops.stiffness_key == (cls, 'highest')
+  k = ops.vinfo.order + 1
+  rng = np.random.default_rng(12)
+  us = tuple(rng.standard_normal((k, k, 9)) for _ in range(2))
+  before = (cuda_stiffness.stiffness_uniform.launches,
+            cuda_stiffness2d.stiffness2d_general.launches,
+            cuda_stiffness2d.stiffness2d_affine.launches)
+  got = ops.stiffness_el_multi(tuple(torch.as_tensor(u) for u in us))
+  for g, u in zip(got, us):
+    assert _rel(g.numpy(), jops.stiffness_el(jnp.asarray(u))) <= 1e-12
+  assert before == (cuda_stiffness.stiffness_uniform.launches,
+                    cuda_stiffness2d.stiffness2d_general.launches,
+                    cuda_stiffness2d.stiffness2d_affine.launches)
+  # Every key has a plain version; on CUDA only 'highest' (and the general
+  # class, which has one arithmetic class) has a kernel.
+  for key, entry in sem2d.STIFFNESS_DISPATCH.items():
+    assert entry.plain is not None
+    assert (entry.kernel is not None) == (
+        key[1] == 'highest' or key[0] == sem2d.GENERAL), key
+    assert entry.kernel is not None or 'ROADMAP.md, Queue 2 item 2' in entry.todo
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_case(geometry):
+  """Order 3, E = 16 factor fields and two numpy-seeded components."""
+  jops, ops = _pair(geometry, 4, 3)
+  rng = np.random.default_rng(13)
+  us = tuple(rng.standard_normal((4, 4, 16)) for _ in range(2))
+  return jops, ops, us
+
+
+@pytest.mark.parametrize('num_components', [1, 2])
+def test_stiffness2d_general_plain_matches_pallas(num_components):
+  jops, ops, us = _kernel_case('warped')
+  us = us[:num_components]
+  gs = (ops.g11, ops.g12, ops.g22)
+  jus = tuple(jnp.asarray(u) for u in us)
+  if num_components == 1:
+    want = (stiffness_el_pallas(jus[0], jops.g11, jops.g12, jops.g22,
+                                jops.dmat, interpret=True),)
+  else:
+    want = stiffness_el_pallas_batched(jus, jops.g11, jops.g12, jops.g22,
+                                       jops.dmat, interpret=True)
+  tus = tuple(torch.as_tensor(u) for u in us)
+  got = cuda_stiffness2d.stiffness2d_general_plain(tus, gs, ops.mats['dmat'])
+  wrapped = cuda_stiffness2d.stiffness2d_general(tus, gs, ops.mats['dmat'])
+  for g, gw, w in zip(got, wrapped, want):
+    assert _rel(g.numpy(), w) <= 1e-12
+    np.testing.assert_array_equal(gw.numpy(), g.numpy())
+
+
+def test_stiffness2d_affine_plain_matches_pallas():
+  jops, ops, us = _kernel_case('graded')
+  assert ops.stiffness_key == ('affine', 'highest')
+  want = stiffness_el_pallas_affine(
+      tuple(jnp.asarray(u) for u in us), jops.g_affine, jops.wq2d,
+      jops.dmat, interpret=True)
+  np.testing.assert_allclose(
+      ops.mats['mstack'].numpy(),
+      cuda_stiffness.affine_mstack_np(jops.wq2d, jops.dmat), rtol=0,
+      atol=1e-12)
+  tus = tuple(torch.as_tensor(u) for u in us)
+  got = cuda_stiffness2d.stiffness2d_affine_plain(tus, ops.g_affine,
+                                                  ops.mats['mstack'])
+  wrapped = cuda_stiffness2d.stiffness2d_affine(tus, ops.g_affine,
+                                                ops.mats['mstack'])
+  for g, gw, w in zip(got, wrapped, want):
+    assert _rel(g.numpy(), w) <= 1e-12
+    np.testing.assert_array_equal(gw.numpy(), g.numpy())
+
+
+def test_wrappers_validate_their_inputs():
+  _, ops, us = _kernel_case('graded')
+  tus = tuple(torch.as_tensor(u) for u in us)
+  gs = (ops.g11, ops.g12, ops.g22)
+  with pytest.raises(ValueError, match='factor fields'):
+    cuda_stiffness2d.stiffness2d_general(tus, gs[:2], ops.mats['dmat'])
+  with pytest.raises(ValueError, match='c_aff'):
+    cuda_stiffness2d.stiffness2d_affine(tus, ops.g_affine[:, :3],
+                                        ops.mats['mstack'])
+  with pytest.raises(ValueError, match='mstack'):
+    cuda_stiffness2d.stiffness2d_affine(tus, ops.g_affine,
+                                        ops.mats['mstack'][:5])
+
+
+@pytest.mark.parametrize('geometry', ['graded', 'warped'])
+def test_interop_carries_the_operator_class(geometry):
+  """A Sem2DOps built from the JAX fields keeps g_affine / c_uniform None,
+  and with them the stiffness class."""
+  jops, ops = _pair(geometry, 3, 4)
+  arrays = {name: np.asarray(getattr(jops, name))
+            for name in interop.FIELD_NAMES + interop.STATIC_NAMES}
+  if jops.g_affine is not None:
+    arrays['g_affine'] = np.asarray(jops.g_affine)
+  moved = interop.sem2d_ops_from_arrays(
+      arrays, vinfo=ops.vinfo, pinfo=ops.pinfo, c_uniform=jops.c_uniform,
+      device='cpu', dtype=torch.float64)
+  assert moved.stiffness_key == ops.stiffness_key
+  u = torch.as_tensor(np.random.default_rng(14).standard_normal(
+      tuple(ops.wmass.shape)))
+  assert _rel(moved.stiffness_el(u).numpy(),
+              jops.stiffness_el(jnp.asarray(u.numpy()))) <= 1e-12
