@@ -5,8 +5,10 @@ The main paths are the Kolmogorov DNS datagen of swirlfem_tpu_torch at the
 reference configuration (64x64 elements, order 8, BDF3, Re 2e4, dt 1e-4),
 the 3D Taylor-Green vortex (Re 1600, 16^3 elements, order 7, BDF2, filter
 0.05), the wall-graded heated cavity (the campaign's Ra 1e6 rung: 12x12
-elements, order 7, grading 0.5, Pr 0.71, tol 3e-6) and the lid-driven
-cavity (16x16, order 7, Re 100, dt 1e-3), all in float32.  Phases:
+elements, order 7, grading 0.5, Pr 0.71, tol 3e-6), the lid-driven cavity
+(16x16, order 7, Re 100, dt 1e-3) and the CG-solved 3D el step (16^3
+elements, order 7, BDF2, filter 0.05) on the Taylor-Green box and on a
+graded and sheared periodic box, all in float32.  Phases:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels (csrc/*.cu, nvcc, sm_90a);
@@ -43,7 +45,24 @@ cavity (16x16, order 7, Re 100, dt 1e-3), all in float32.  Phases:
  16. 20 steps of a 4x4, order-5 heated and lid-driven cavity on the card
      (float32) and through the plain path on the CPU (float64);
  17. time the 2D general and affine kernels against their plain versions
-     and one library call.
+     and one library call;
+ 18. the four opt-in 3D stiffness kernels (dense, pair, pair-general,
+     pair-affine) against their plain versions and the float64 operator at
+     16^3 elements, order 7, 3 components: on the Taylor-Green box, on the
+     graded and sheared (affine) periodic box, and on random factor fields
+     and coefficients;
+ 19. the Taylor-Green box: certified steps (`exact_solves=False`, the FDM
+     inverses as CG seeds) under the dense, the pair and the general-pair
+     key, held against the same steps under the fused congruent key;
+ 20. the affine box, which is not separable: CG-solved steps (Jacobi-CG
+     with the stiffness at every iteration, projected pressure CG) under
+     the affine-pair and the general-pair key against the fused general
+     key, with the iteration counts and the launches per step;
+ 21. 3 CG-solved steps of a 4^3, order-7 affine box on the card (float32)
+     and through the plain path on the CPU (float64), under the affine-pair
+     and under the general-pair key;
+ 22. time the four kernels against their plain versions (the dense and the
+     pair one also against one library GEMM of the same operator).
 
 Each kernel's count is set to 0 just before the path that launches it and
 read just after.  Every kernel's bound is the larger of its bytes (each
@@ -108,15 +127,22 @@ def to_device(state, device):
   return state.to(device)
 
 
+# Back-to-back calls of a plain version in one timed run: few, because a
+# plain version of many launches would overflow the launch queue while the
+# device is held back.
+PLAIN_CALLS = 4
+
+
 def time_kernels(timed, times, kernel_checks, device, tag) -> None:
   """Times each (kernel, plain, library) triple into `times[name]`."""
   for name, (kernel, plain, library) in timed.items():
     times[name] = {
-        key: kernel_checks.time_ms(fn, device=device, device_only=dev_only)
-        for key, fn, dev_only in (('ms', kernel, True),
-                                  ('plain_ms', plain, True),
-                                  ('call_ms', kernel, False),
-                                  ('plain_call_ms', plain, False))}
+        key: kernel_checks.time_ms(fn, device=device, device_only=dev_only,
+                                   calls=calls)
+        for key, fn, dev_only, calls in (
+            ('ms', kernel, True, 20), ('plain_ms', plain, True, PLAIN_CALLS),
+            ('call_ms', kernel, False, 20),
+            ('plain_call_ms', plain, False, PLAIN_CALLS))}
     times[name]['library_ms'] = (
         None if library is None
         else kernel_checks.time_ms(library, device=device))
@@ -132,7 +158,9 @@ def run_tgv_phases(torch, device, dtype, tgv, cuda_stiffness3d,
                    kernel_checks, times, launches) -> None:
   """Phases 8-12: the 3D Taylor-Green path and its two kernels.
 
-  Fills `times` and `launches` for stiffness3d_uniform / _general.
+  Fills `times` and `launches` for stiffness3d_uniform / _general; returns
+  the solver, the random fields of the kernel checks and the run's result
+  for the later 3D phases.
   """
   import dataclasses
   import numpy as np
@@ -263,7 +291,8 @@ def run_tgv_phases(torch, device, dtype, tgv, cuda_stiffness3d,
   for name, uniform, extra in (('stiffness3d_uniform', True, table.numel()),
                                ('stiffness3d_general', False, dmat.numel())):
     flops, nbytes = cuda_stiffness3d.stiffness3d_counts(
-        order, num_e, len(us3), uniform=uniform, dtype_bytes=itemsize)
+        order, num_e, len(us3), variant='uniform' if uniform else 'general',
+        dtype_bytes=itemsize)
     times[name].update(kernel_checks.bound(flops, nbytes + extra * itemsize))
     times[name]['max_abs_err'] = (su if uniform else
                                   max(sg, sr, key=lambda c: c['max_abs_err'])
@@ -273,6 +302,326 @@ def run_tgv_phases(torch, device, dtype, tgv, cuda_stiffness3d,
         f'{flops / t / 1e12:.3f} TFLOP/s, {nbytes / t / 1e12:.3f} TB/s; '
         f'bound {times[name]["bound_ms"] * 1e3:.2f} us '
         f'({times[name]["bound_by"]})')
+  return sem3, us3, r
+
+
+def affine_box(premesh):
+  """The periodic unit cube graded per axis and sheared (the box of
+  tests/test_pallas.py:384-392 and experiments/bench_dense3d.py:133-139):
+  every element stays a parallelepiped, the box is not separable."""
+  import numpy as np
+  c = np.asarray(premesh.node_coords, dtype=np.float64).copy()
+  c[:, 0] = c[:, 0] + 0.15 * c[:, 0] ** 2
+  c[:, 1] = c[:, 1] + 0.10 * c[:, 1] ** 2
+  c[:, 0] += 0.3 * c[:, 1] + 0.1 * c[:, 2]
+  c[:, 1] += 0.2 * c[:, 2]
+  return premesh.replace(node_coords=c)
+
+
+def cg_solved_steps(torch, tgv, sem, state, count, *, mu, dt, tol, atol,
+                    maxiter, seeded, alpha=0.05):
+  """`count` BDF2 steps of `stokes_one_step_el(exact_solves=False)` from the
+  el history `state` = (us, ps, cus).
+
+  `seeded` takes the FDM el inverses as CG seeds (separable boxes); without
+  them the viscous solve is Jacobi-CG and the pressure solve projected CG.
+  Returns the history, the time per step (host clock over the loop, solver
+  setup excluded, synchronized), the per-step (viscous, pressure) CG
+  iterations and the kinetic-energy and dissipation series (read once, at
+  the end).
+  """
+  from swirlfem_tpu_torch.nse.solver import extk_coeffs
+  vp, pp = sem.fdm_el_preconditioners(mu, dt, 2) if seeded else (None, None)
+  vol = float(sem.fast_ops.wmass.double().sum())
+  sem = sem.slim_for_el_step()
+  ke_fn, diss_fn = tgv.make_diagnostics(sem, mu, vol=vol)
+  ext = [float(c) for c in extk_coeffs(k=1)]
+  us, ps, cus = state
+  iters, kes, disses = [], [], []
+  sync = torch.cuda.synchronize if us[-1][0].is_cuda else lambda: None
+  sync()
+  t0 = time.perf_counter()
+  for _ in range(count):
+    f_el = tuple(-(ext[0] * a + ext[1] * b) for a, b in zip(*cus))
+    u, p, aux = sem.stokes_one_step_el(
+        list(us), list(ps), f_el, mu=mu, dt=dt, time_order=2, alpha=alpha,
+        tol=tol, atol=atol, maxiter=maxiter, pressure_preconditioner_el=pp,
+        viscous_preconditioner_el=vp, exact_solves=False)
+    us, ps = us[1:] + (u,), ps[1:] + (p,)
+    cus = cus[1:] + (convection_el(sem, u),)
+    iters.append((aux['u_star_info']['num_iterations'],
+                  aux['dp_info']['num_iterations']))
+    kes.append(ke_fn(u))
+    disses.append(diss_fn(u))
+  sync()
+  return {'state': (us, ps, cus),
+          'ms_per_step': (time.perf_counter() - t0) / count * 1e3,
+          'iters': [(int(v), int(p)) for v, p in iters],
+          'ke': torch.stack(kes).double().cpu().numpy(),
+          'dissipation': torch.stack(disses).double().cpu().numpy()}
+
+
+def convection_el(sem, u_el):
+  """The dealiased convection covector of an el-form velocity tuple."""
+  shape = u_el[0].shape
+  info = sem.fast_ops.vinfo
+  flat = (info.order + 1,) * 3 + (info.num_elements_per_dim ** 3,)
+  outs = sem.fast_ops.convection_el(*[c.reshape(flat) for c in u_el])
+  return tuple(o.reshape(shape) for o in outs)
+
+
+def with_knobs(sem, **knobs):
+  """`sem` with the stiffness kernel knobs of its `fast_ops` replaced."""
+  import dataclasses
+  return dataclasses.replace(sem, fast_ops=dataclasses.replace(
+      sem.fast_ops, **knobs))
+
+
+def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
+                       kernel_checks, times, launches, sem3, us3,
+                       tgv_run) -> None:
+  """Phases 18-22: the opt-in 3D stiffness kernels (dense, pair,
+  pair-general, pair-affine) and the CG-solved 3D el step that runs them.
+
+  `sem3`, `us3` and `tgv_run` are the Taylor-Green solver, the random fields
+  and the run of phases 8-9.  Fills `times` and `launches` for the four
+  kernels.
+  """
+  import numpy as np
+  from swirlfem_tpu_torch.nse.solver import StokesSEM
+  from swirlfem_tpu_torch.ops.fdm_pressure import is_separable_box
+  from swirlfem_tpu_torch.utils.box import unit_cube_mesh
+  re, n_el, order = 1600.0, 16, 7
+  mu = 1.0 / re
+  k = order + 1
+  num_e = n_el ** 3
+  wrappers = {name: getattr(cuda_stiffness3d, name) for name in (
+      'stiffness3d_dense', 'stiffness3d_pair', 'stiffness3d_pair_general',
+      'stiffness3d_pair_affine')}
+
+  def reset():
+    for wrapper in wrappers.values():
+      wrapper.launches = 0
+
+  def periodic_affine(n, dev, dt_):
+    return StokesSEM.create(
+        affine_box(unit_cube_mesh(n, ndim=3, periodic_dims=(0, 1, 2))), {},
+        order=order, device=dev, dtype=dt_)
+
+  # -- 18. the four kernels vs plain and the float64 operator ---------------
+  t0 = time.perf_counter()
+  sem_a = periodic_affine(n_el, device, dtype)
+  ops3, ops_a = sem3.fast_ops, sem_a.fast_ops
+  log(f'[18] affine box setup {time.perf_counter() - t0:.2f} s: {n_el}^3 '
+      f'elements, order {order}, c_uniform={ops_a.c_uniform}, g_affine '
+      f'{None if ops_a.g_affine is None else tuple(ops_a.g_affine.shape)}, '
+      f'separable {is_separable_box(sem_a)}')
+  require(ops_a.c_uniform is None and ops_a.g_affine is not None,
+          'the graded and sheared box must be detected affine')
+  require(not is_separable_box(sem_a), 'the affine box must not be separable')
+  require(sem_a.fdm_el_preconditioners(mu, 1e-3, 2) == (None, None),
+          'a box that is not separable has no FDM inverse')
+  field = lambda seed, shape: kernel_checks.random_field(
+      shape, dtype=dtype, device=device, seed=seed)
+  gs_rand = tuple(field(10 + s, (k,) * 3 + (num_e,)) for s in range(6))
+  c_rand = field(20, (6, num_e))
+  checks = {
+      'stiffness3d_dense': [
+          kernel_checks.check_stiffness3d_dense(ops3, us3)],
+      'stiffness3d_pair': [kernel_checks.check_stiffness3d_pair(ops3, us3)],
+      # The Taylor-Green box's, the affine box's and random factor fields.
+      'stiffness3d_pair_general': [
+          kernel_checks.check_stiffness3d_pair_general(ops3, us3),
+          kernel_checks.check_stiffness3d_pair_general(ops_a, us3),
+          kernel_checks.check_stiffness3d_pair_general(ops3, us3, gs_rand)],
+      # The affine box's and random coefficients.
+      'stiffness3d_pair_affine': [
+          kernel_checks.check_stiffness3d_pair_affine(ops_a, us3),
+          kernel_checks.check_stiffness3d_pair_affine(ops_a, us3, c_rand)],
+  }
+  for name, results in checks.items():
+    for result in results:
+      log(f'[18] {name} 3 x {tuple(us3[0].shape)} f32: {result}')
+      # FP32 FFMA kernels: all four meet the gate of the exact class (the
+      # JAX tests give the three-pass pair variants 5e-5).
+      require(result['rel_err_f64'] <= kernel_checks.STIFFNESS_REL_TOL,
+              (name, result))
+
+  # -- 19. the Taylor-Green box: certified steps under each key -------------
+  count = 10
+  dt = tgv_run['dt']
+  full = tgv_run['sem']
+  state = (tgv_run['us'], tgv_run['ps'], tgv_run['cus'])
+  solve = dict(mu=mu, dt=dt, tol=1e-5, atol=1e-6, maxiter=100)
+  runs = {}
+  for label, knobs, name in (
+      ('fused', {}, None),
+      ('dense', dict(uniform_kernel_impl='dense'), 'stiffness3d_dense'),
+      ('pair', dict(uniform_kernel_impl='pair'), 'stiffness3d_pair'),
+      ('general pair', dict(use_uniform_kernel=False,
+                            general_kernel_impl='pair'),
+       'stiffness3d_pair_general')):
+    sem_v = with_knobs(full, **knobs)
+    reset()
+    runs[label] = cg_solved_steps(torch, tgv, sem_v, state, count,
+                                  seeded=True, **solve)
+    n_launch = wrappers[name].launches if name else 0
+    if name in ('stiffness3d_dense', 'stiffness3d_pair'):
+      launches[name] = n_launch
+    r, base = runs[label], runs['fused']
+    u_rel = rel_err(r['state'][0][-1], base['state'][0][-1])
+    d_rel = float(np.abs(r['dissipation'] - base['dissipation']).max()
+                  / np.abs(base['dissipation']).max())
+    log(f'[19] TGV box, {count} certified steps under '
+        f'{sem_v.fast_ops.stiffness_key}: {r["ms_per_step"]:.4f} ms/step, CG '
+        f'iterations (viscous, pressure) {r["iters"]}, vs fused: velocity rel '
+        f'{u_rel:.3e}, dissipation rel {d_rel:.3e}'
+        + (f', {name} launches {n_launch}' if name else ''))
+    require(all_finite(r['state']), f'non-finite state under {label}')
+    require(max(v for v, _ in r['iters']) <= 2, r['iters'])
+    require(u_rel <= 1e-4 and d_rel <= 1e-4, (label, u_rel, d_rel))
+    if name:
+      require(n_launch >= count, f'{name} launched {n_launch} times in '
+              f'{count} steps')
+
+  # -- 20. the affine box: CG-solved steps ----------------------------------
+  # The Taylor-Green field at the UNWARPED coordinates is single-valued
+  # under the periodic identification; both boxes share the el layout.
+  count = 3
+  dt_a = tgv.default_dt(sem_a)
+  u0 = tgv.tgv_initial(sem3)
+  m = ops_a.pinfo.order + 1
+  p0 = torch.zeros((m,) * 3 + (n_el,) * 3, dtype=dtype, device=device)
+  cu0 = convection_el(sem_a.slim_for_el_step(), u0)
+  state_a = ((u0, u0), (p0, p0), (cu0, cu0))
+  ke_fn, _ = tgv.make_diagnostics(sem_a, mu)
+  ke0 = float(ke_fn(u0))
+  solve = dict(mu=mu, dt=dt_a, tol=1e-5, atol=1e-6, maxiter=300)
+  runs = {}
+  for label, knobs, name in (
+      ('general fused', {}, None),
+      ('affine pair', dict(use_affine_kernel=True),
+       'stiffness3d_pair_affine'),
+      ('general pair', dict(general_kernel_impl='pair'),
+       'stiffness3d_pair_general')):
+    sem_v = with_knobs(sem_a, **knobs)
+    reset()
+    cuda_stiffness3d.stiffness3d_general.launches = 0
+    runs[label] = cg_solved_steps(torch, tgv, sem_v, state_a, count,
+                                  seeded=False, **solve)
+    wrapper = (wrappers[name] if name
+               else cuda_stiffness3d.stiffness3d_general)
+    n_launch = wrapper.launches
+    if name:
+      launches[name] = n_launch
+    r, base = runs[label], runs['general fused']
+    u_rel = rel_err(r['state'][0][-1], base['state'][0][-1])
+    p_rel = rel_err(r['state'][1][-1], base['state'][1][-1])
+    log(f'[20] affine box, dt {dt_a:.6f}, {count} CG-solved steps under '
+        f'{sem_v.fast_ops.stiffness_key}: {r["ms_per_step"]:.2f} ms/step, CG '
+        f'iterations (viscous, pressure) {r["iters"]} (maxiter '
+        f'{solve["maxiter"]}), '
+        f'{wrapper.__name__} launches {n_launch} '
+        f'({n_launch / count:.1f}/step), KE {ke0:.6f} -> '
+        f'{[round(float(v), 6) for v in r["ke"]]}; vs general fused: '
+        f'velocity rel {u_rel:.3e}, pressure rel {p_rel:.3e}')
+    require(all_finite(r['state']), f'non-finite state under {label}')
+    require(bool(np.all(np.diff(np.concatenate([[ke0], r['ke']])) < 0)),
+            'the kinetic energy must decay')
+    # One launch for CG's initial residual, one per iteration, one for the
+    # dissipation.
+    require(n_launch >= sum(v for v, _ in r['iters']) + 2 * count,
+            f'{wrapper.__name__} launched {n_launch} times')
+    require(min(v for v, _ in r['iters']) >= 1,
+            'Jacobi-CG must iterate on a box without an FDM inverse')
+    require(all(abs(v - bv) <= 1 for (v, _), (bv, _) in
+                zip(r['iters'], base['iters'])), (r['iters'], base['iters']))
+    # The unpreconditioned pressure CG is cut at its cap long before it
+    # converges, and a truncated float32 Krylov iterate is sensitive to
+    # rounding: kernels whose operators agree to 2e-7 (phase 18) give
+    # states that differ at the 1e-3 to 1e-2 level after three steps, as
+    # any two rounding orders do.  Phases 19 and 21 hold the converged
+    # step tightly.
+    require(u_rel <= 5e-2, (label, u_rel))
+
+  # One more step under the affine-pair key, under the profiler: where the
+  # CG-solved step's time goes.
+  from swirlfem_tpu_torch.niles.profile_datagen import profile_steps
+  sem_p = with_knobs(sem_a, use_affine_kernel=True)
+  prof = profile_steps(
+      lambda: cg_solved_steps(torch, tgv, sem_p, runs['affine pair']['state'],
+                              1, seeded=False, **solve), 1, device, rows=12)
+  require(prof is not None, 'the profiler saw no device kernel')
+  log(f'[20] profiled CG-solved step: {prof["launches_per_step"]:.0f} kernel '
+      f'launches, device busy {prof["busy_ms_per_step"]:.3f} ms of '
+      f'{prof["wall_ms_per_step"]:.3f} ms ({100 * prof["busy_share"]:.1f} %)')
+
+  # -- 21. card (float32) vs the CPU plain path (float64), 4^3 --------------
+  n_small = 4
+  for knobs in (dict(use_affine_kernel=True),
+                dict(general_kernel_impl='pair')):
+    outs = []
+    for dev, dt_, tol_ in ((device, dtype, 1e-6),
+                           (torch.device('cpu'), torch.float64, 1e-9)):
+      sem_s = with_knobs(periodic_affine(n_small, dev, dt_), **knobs)
+      u_s = tgv.tgv_initial(tgv.create_tgv(n_small, order, dtype=dt_,
+                                           device=dev))
+      p_s = torch.zeros((m,) * 3 + (n_small,) * 3, dtype=dt_, device=dev)
+      cu_s = convection_el(sem_s.slim_for_el_step(), u_s)
+      outs.append(cg_solved_steps(
+          torch, tgv, sem_s, ((u_s, u_s), (p_s, p_s), (cu_s, cu_s)), 3,
+          mu=mu, dt=dt_a * n_el / n_small, tol=tol_, atol=0.0, maxiter=1000,
+          seeded=False))
+    card, cpu = outs
+    du = rel_err(card['state'][0][-1], cpu['state'][0][-1])
+    dp = rel_err(card['state'][1][-1], cpu['state'][1][-1])
+    log(f'[21] 3 CG-solved steps at {n_small}^3 under '
+        f'{sem_s.fast_ops.stiffness_key}, card (f32, tol 1e-6) vs CPU plain '
+        f'path (f64, tol 1e-9): u rel {du:.3e}, p rel {dp:.3e}; CG '
+        f'iterations card {card["iters"]}, CPU {cpu["iters"]}')
+    # The card's solves stop at a 1e-6 relative residual in float32, the
+    # pressure one unpreconditioned after ~200 iterations.
+    require(du <= 5e-4, du)
+    require(dp <= 1e-2, dp)
+
+  # -- 22. times of the four kernels ----------------------------------------
+  amat_t, ptab = ops3.dense_operator_t(), ops3.pair_table()
+  atab, dmat = ops_a.pair_affine_table(), ops_a.mats['dmat']
+  gs_a = ops_a.gs()
+  a_dense = amat_t.T.contiguous()
+  ustack = torch.cat([u.reshape(k ** 3, -1) for u in us3], dim=1)
+  cs3 = cuda_stiffness3d
+  # The congruent operator by the library: one GEMM of the dense (k^3, k^3)
+  # matrix on the (k^3, C E) stack of the components.  The dense and the
+  # pair kernel both compute this function.
+  library_gemm = lambda: torch.matmul(a_dense, ustack)
+  timed = {
+      'stiffness3d_dense': (
+          lambda: cs3.stiffness3d_dense(us3, amat_t),
+          lambda: cs3.stiffness3d_dense_plain(us3, amat_t), library_gemm),
+      'stiffness3d_pair': (
+          lambda: cs3.stiffness3d_pair(us3, ptab),
+          lambda: cs3.stiffness3d_pair_plain(us3, ptab), library_gemm),
+      'stiffness3d_pair_general': (
+          lambda: cs3.stiffness3d_pair_general(us3, gs_a, dmat),
+          lambda: cs3.stiffness3d_pair_general_plain(us3, gs_a, dmat), None),
+      'stiffness3d_pair_affine': (
+          lambda: cs3.stiffness3d_pair_affine(us3, ops_a.g_affine, atab),
+          lambda: cs3.stiffness3d_pair_affine_plain(us3, ops_a.g_affine,
+                                                    atab), None),
+  }
+  time_kernels(timed, times, kernel_checks, device, '[22]')
+  itemsize = us3[0].element_size()
+  for name in timed:
+    flops, nbytes = cs3.stiffness3d_counts(
+        order, num_e, len(us3), variant=name[len('stiffness3d_'):],
+        dtype_bytes=itemsize)
+    times[name].update(kernel_checks.bound(flops, nbytes))
+    times[name]['max_abs_err'] = max(c['max_abs_err'] for c in checks[name])
+    t = times[name]['ms'] * 1e-3
+    log(f'[22] {name}: {flops / t / 1e12:.3f} TFLOP/s, '
+        f'{nbytes / t / 1e12:.3f} TB/s; bound '
+        f'{times[name]["bound_ms"] * 1e3:.2f} us ({times[name]["bound_by"]})')
 
 
 def run_walled_phases(torch, device, dtype, kernel_checks, times,
@@ -609,9 +958,12 @@ def main() -> int:
       f'components: {dofs / t_st / 1e6:.3f} GDOF/s ({dofs} nodal dofs), '
       f'{flops / t_st / 1e9:.2f} TFLOP/s')
 
-  run_tgv_phases(torch, device, dtype, tgv, cuda_stiffness3d, kernel_checks,
-                 times, launches)
+  sem3, us3, tgv_run = run_tgv_phases(torch, device, dtype, tgv,
+                                      cuda_stiffness3d, kernel_checks, times,
+                                      launches)
   run_walled_phases(torch, device, dtype, kernel_checks, times, launches)
+  run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
+                     kernel_checks, times, launches, sem3, us3, tgv_run)
 
   kernels = [
       {'name': 'exchange2d', 'route': 'cuda',
@@ -644,6 +996,26 @@ def main() -> int:
        'replaces': 'swirlfem_tpu/ops/pallas_stiffness3d.py:926',
        'launches': launches['stiffness3d_general'],
        **times['stiffness3d_general']},
+      {'name': 'stiffness3d_pair_affine', 'route': 'cuda',
+       'source': 'swirlfem_tpu_torch/csrc/stiffness3d_pair_affine.cu',
+       'replaces': 'swirlfem_tpu/ops/pallas_stiffness3d.py:707',
+       'launches': launches['stiffness3d_pair_affine'],
+       **times['stiffness3d_pair_affine']},
+      {'name': 'stiffness3d_dense', 'route': 'cuda',
+       'source': 'swirlfem_tpu_torch/csrc/stiffness3d_dense.cu',
+       'replaces': 'swirlfem_tpu/ops/pallas_stiffness3d.py:65',
+       'launches': launches['stiffness3d_dense'],
+       **times['stiffness3d_dense']},
+      {'name': 'stiffness3d_pair', 'route': 'cuda',
+       'source': 'swirlfem_tpu_torch/csrc/stiffness3d_pair.cu',
+       'replaces': 'swirlfem_tpu/ops/pallas_stiffness3d.py:328',
+       'launches': launches['stiffness3d_pair'],
+       **times['stiffness3d_pair']},
+      {'name': 'stiffness3d_pair_general', 'route': 'cuda',
+       'source': 'swirlfem_tpu_torch/csrc/stiffness3d_pair_general.cu',
+       'replaces': 'swirlfem_tpu/ops/pallas_stiffness3d.py:449',
+       'launches': launches['stiffness3d_pair_general'],
+       **times['stiffness3d_pair_general']},
   ]
   for kern in kernels:
     require(kern['launches'] > 0, kern)

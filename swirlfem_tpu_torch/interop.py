@@ -27,6 +27,10 @@ STATIC_NAMES = ('dmat', 'interp_p', 'interp_o', 'interp_o_grad', 'wq2d')
 FIELD_NAMES_3D = ('g11', 'g12', 'g13', 'g22', 'g23', 'g33', 'wmass', 'kinv',
                   'wmass_o', 'kinv_o')
 STATIC_NAMES_3D = ('dmat', 'interp_p', 'interp_o', 'interp_o_grad', 'w1')
+# The kernel knobs of `Sem3DOps` (the JAX package's field names).
+KERNEL_KNOBS_3D = ('use_uniform_kernel', 'use_affine_kernel',
+                   'uniform_kernel_impl', 'general_kernel_impl',
+                   'kernel_precision')
 
 
 def sem2d_ops_from_arrays(arrays: Mapping[str, np.ndarray], *,
@@ -55,13 +59,21 @@ def sem2d_ops_from_arrays(arrays: Mapping[str, np.ndarray], *,
 
 def sem3d_ops_from_arrays(arrays: Mapping[str, np.ndarray], *,
                           vinfo: StructuredInfo, pinfo: StructuredInfo,
-                          c_uniform: tuple | None, device,
-                          dtype) -> Sem3DOps:
+                          c_uniform: tuple | None, device, dtype,
+                          **knobs) -> Sem3DOps:
   """A `Sem3DOps` from numpy arrays of `FIELD_NAMES_3D` and `STATIC_NAMES_3D`.
 
   An optional ``'g_affine'`` entry ((6, E) per-element coefficients) is
-  carried over too.
+  carried over too.  `knobs` are the kernel knobs of `Sem3DOps`
+  (`use_uniform_kernel`, `use_affine_kernel`, `uniform_kernel_impl`,
+  `general_kernel_impl`, `kernel_precision`), as another implementation
+  set them.
   """
+  unknown = set(knobs) - set(KERNEL_KNOBS_3D)
+  if unknown:
+    raise TypeError(f'unknown kernel knobs {sorted(unknown)}; expected some '
+                    f'of {KERNEL_KNOBS_3D}')
+
   def dev(a):
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
@@ -72,7 +84,8 @@ def sem3d_ops_from_arrays(arrays: Mapping[str, np.ndarray], *,
          for name in STATIC_NAMES_3D},
       vinfo=vinfo, pinfo=pinfo,
       g_affine=None if g_affine is None else dev(g_affine),
-      c_uniform=None if c_uniform is None else tuple(map(float, c_uniform)))
+      c_uniform=None if c_uniform is None else tuple(map(float, c_uniform)),
+      **knobs)
 
 
 def el_state_from_arrays(us, ps, cus, *, device, dtype):

@@ -820,12 +820,15 @@ def stokes_step_el(ops, us_el, ps_el, f_el, *, mu, dt, time_order,
                *us_el)
   f_el = tree_map(lambda a, b: a - wmass * b, f_el, hist)
 
+  diag_h = []
+
   def M_t(rt):
-    # The Jacobi diagonal is built only when CG runs (the exact step skips
-    # it, as XLA drops it from the JAX step).
-    diag_h = exch((beta_k / dt) * wmass
-                  + mu * unflat(ops.stiffness_diag_el()))
-    return tuple(exch(r) / diag_h for r in rt)
+    # The Jacobi diagonal is built once, at CG's first preconditioner apply
+    # (the exact step skips it, as XLA drops it from the JAX step).
+    if not diag_h:
+      diag_h.append(exch((beta_k / dt) * wmass
+                         + mu * unflat(ops.stiffness_diag_el())))
+    return tuple(exch(r) / diag_h[0] for r in rt)
 
   # An exact FDM inverse seeds CG: the solve becomes a direct application
   # plus a convergence certificate (0-2 polish iterations in float32).

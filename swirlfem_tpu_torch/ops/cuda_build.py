@@ -25,7 +25,11 @@ _CSRC = _PKG / 'csrc'
 _BUILD = _PKG / '_build'
 _SOURCES = ('exchange2d.cu', 'stiffness_uniform.cu', 'stiffness2d_general.cu',
             'stiffness2d_affine.cu', 'stiffness3d_uniform.cu',
-            'stiffness3d_general.cu')
+            'stiffness3d_general.cu', 'stiffness3d_dense.cu',
+            'stiffness3d_pair.cu', 'stiffness3d_pair_general.cu',
+            'stiffness3d_pair_affine.cu')
+# Headers the sources include; part of the build's hash.
+_HEADERS = ('stiffness3d_pair_slab.cuh',)
 _FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
           '-Xcompiler', '-fPIC')
 
@@ -51,6 +55,18 @@ _SIGNATURES = {
     # (dmat, us[], gs[6], outs[], num_c, k, num_e, stream)
     'stiffness3d_general_f32': (_P, _PP, _PP, _PP, _I, _I, _I, _P),
     'stiffness3d_general_f64': (_P, _PP, _PP, _PP, _I, _I, _I, _P),
+    # (amat_t, us[], outs[], num_c, k3, num_e, stream)
+    'stiffness3d_dense_f32': (_P, _PP, _PP, _I, _I, _I, _P),
+    'stiffness3d_dense_f64': (_P, _PP, _PP, _I, _I, _I, _P),
+    # (table, us[], outs[], num_c, k, num_e, stream)
+    'stiffness3d_pair_f32': (_P, _PP, _PP, _I, _I, _I, _P),
+    'stiffness3d_pair_f64': (_P, _PP, _PP, _I, _I, _I, _P),
+    # (dmat, us[], gs[6], outs[], num_c, k, num_e, stream)
+    'stiffness3d_pair_general_f32': (_P, _PP, _PP, _PP, _I, _I, _I, _P),
+    'stiffness3d_pair_general_f64': (_P, _PP, _PP, _PP, _I, _I, _I, _P),
+    # (table, c_affine, us[], outs[], num_c, k, num_e, stream)
+    'stiffness3d_pair_affine_f32': (_P, _P, _PP, _PP, _I, _I, _I, _P),
+    'stiffness3d_pair_affine_f64': (_P, _P, _PP, _PP, _I, _I, _I, _P),
 }
 
 _library: ctypes.CDLL | None = None
@@ -68,7 +84,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
   h = hashlib.sha256(' '.join(_FLAGS).encode())
-  for name in _SOURCES:
+  for name in _SOURCES + _HEADERS:
     h.update(name.encode())
     h.update((_CSRC / name).read_bytes())
   return h.hexdigest()[:16]

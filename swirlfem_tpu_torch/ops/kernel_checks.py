@@ -112,6 +112,22 @@ def _errors(got, plain, ref) -> dict:
   }
 
 
+def _uniform_ref64(ops, us):
+  """The float64 dense ``(k^3, k^3)`` operator of a congruent box on `us`."""
+  a64 = torch.as_tensor(
+      cuda_stiffness3d.uniform_amat3d_np(ops.c_uniform, ops.w1, ops.dmat),
+      dtype=torch.float64, device=us[0].device)
+  k3 = a64.shape[0]
+  return tuple((a64 @ u.double().reshape(k3, -1)).reshape(u.shape) for u in us)
+
+
+def _general_ref64(ops, us, gs):
+  """The float64 sum-factorized operator on the factor fields `gs`."""
+  return cuda_stiffness3d.stiffness3d_general_plain(
+      tuple(u.double() for u in us), tuple(g.double() for g in gs),
+      torch.as_tensor(ops.dmat, dtype=torch.float64, device=us[0].device))
+
+
 def check_stiffness3d_uniform(ops, us) -> dict:
   """stiffness3d_uniform kernel vs its plain version and the float64
   operator (the dense ``(k^3, k^3)`` matrix from `ops.c_uniform`).
@@ -122,11 +138,57 @@ def check_stiffness3d_uniform(ops, us) -> dict:
   table = ops.mats['table']
   got = cuda_stiffness3d.stiffness3d_uniform(us, table)
   plain = cuda_stiffness3d.stiffness3d_uniform_plain(us, table)
-  a64 = torch.as_tensor(
-      cuda_stiffness3d.uniform_amat3d_np(ops.c_uniform, ops.w1, ops.dmat),
-      dtype=torch.float64, device=table.device)
-  k3 = a64.shape[0]
-  ref = tuple((a64 @ u.double().reshape(k3, -1)).reshape(u.shape) for u in us)
+  ref = _uniform_ref64(ops, us)
+  torch.cuda.synchronize(table.device)
+  return _errors(got, plain, ref)
+
+
+def check_stiffness3d_dense(ops, us) -> dict:
+  """stiffness3d_dense kernel vs its plain version and the float64 dense
+  operator of the congruent box."""
+  amat_t = ops.dense_operator_t()
+  got = cuda_stiffness3d.stiffness3d_dense(us, amat_t)
+  plain = cuda_stiffness3d.stiffness3d_dense_plain(us, amat_t)
+  ref = _uniform_ref64(ops, us)
+  torch.cuda.synchronize(amat_t.device)
+  return _errors(got, plain, ref)
+
+
+def check_stiffness3d_pair(ops, us) -> dict:
+  """stiffness3d_pair kernel vs its plain version and the float64 dense
+  operator of the congruent box."""
+  table = ops.pair_table()
+  got = cuda_stiffness3d.stiffness3d_pair(us, table)
+  plain = cuda_stiffness3d.stiffness3d_pair_plain(us, table)
+  ref = _uniform_ref64(ops, us)
+  torch.cuda.synchronize(table.device)
+  return _errors(got, plain, ref)
+
+
+def check_stiffness3d_pair_general(ops, us, gs=None) -> dict:
+  """stiffness3d_pair_general kernel vs its plain version and the float64
+  sum-factorized operator on the same factor fields (`gs`, default the
+  box's own)."""
+  gs = ops.gs() if gs is None else tuple(gs)
+  dmat = ops.mats['dmat']
+  got = cuda_stiffness3d.stiffness3d_pair_general(us, gs, dmat)
+  plain = cuda_stiffness3d.stiffness3d_pair_general_plain(us, gs, dmat)
+  ref = _general_ref64(ops, us, gs)
+  torch.cuda.synchronize(dmat.device)
+  return _errors(got, plain, ref)
+
+
+def check_stiffness3d_pair_affine(ops, us, c_affine=None) -> dict:
+  """stiffness3d_pair_affine kernel vs its plain version and the float64
+  sum-factorized operator on ``G_ab = w(q) C_ab(e)`` (`c_affine`, default
+  the box's own ``ops.g_affine``, weights in float64)."""
+  c_affine = ops.g_affine if c_affine is None else c_affine
+  table = ops.pair_affine_table()
+  got = cuda_stiffness3d.stiffness3d_pair_affine(us, c_affine, table)
+  plain = cuda_stiffness3d.stiffness3d_pair_affine_plain(us, c_affine, table)
+  w1 = torch.as_tensor(ops.w1, dtype=torch.float64, device=table.device)
+  w3 = torch.einsum('i,j,k->ijk', w1, w1, w1)[..., None]
+  ref = _general_ref64(ops, us, tuple(w3 * c.double() for c in c_affine))
   torch.cuda.synchronize(table.device)
   return _errors(got, plain, ref)
 
@@ -138,9 +200,7 @@ def check_stiffness3d_general(ops, us, gs=None) -> dict:
   dmat = ops.mats['dmat']
   got = cuda_stiffness3d.stiffness3d_general(us, gs, dmat)
   plain = cuda_stiffness3d.stiffness3d_general_plain(us, gs, dmat)
-  ref = cuda_stiffness3d.stiffness3d_general_plain(
-      tuple(u.double() for u in us), tuple(g.double() for g in gs),
-      torch.as_tensor(ops.dmat, dtype=torch.float64, device=dmat.device))
+  ref = _general_ref64(ops, us, gs)
   torch.cuda.synchronize(dmat.device)
   return _errors(got, plain, ref)
 

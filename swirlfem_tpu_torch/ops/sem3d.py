@@ -106,6 +106,8 @@ def multiplicity_el(info: StructuredInfo, *, dtype=torch.float32,
 CONGRUENT, AFFINE, GENERAL = 'congruent', 'affine', 'general'
 UNIFORM_IMPLS = ('fused', 'dense', 'pair')
 GENERAL_IMPLS = ('fused', 'pair', 'pairz', 'pairs2', 'pairs4')
+# Arithmetic classes of the dense congruent kernel (None = 'highest').
+KERNEL_PRECISIONS = (None, 'highest', 'bf16x3')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +120,9 @@ class _Entry:
   plain: object
   kernel: object = None
   todo: str = ''
+
+
+_QUEUE2 = 'has no Hopper kernel yet (ROADMAP.md, Queue 2 item {})'
 
 
 def _uniform_plain(ops, us):
@@ -137,18 +142,57 @@ def _general_kernel(ops, us):
   return cuda_stiffness3d.stiffness3d_general(us, ops.gs(), ops.mats['dmat'])
 
 
-_QUEUE2 = 'has no Hopper kernel yet (ROADMAP.md, Queue 2 item {})'
+def _dense_plain(ops, us):
+  return cuda_stiffness3d.stiffness3d_dense_plain(us, ops.dense_operator_t())
+
+
+def _dense_kernel(ops, us):
+  if ops.kernel_precision not in (None, 'highest'):
+    raise NotImplementedError(
+        f'3D dense stiffness at kernel_precision {ops.kernel_precision!r} '
+        + _QUEUE2.format(8))
+  return cuda_stiffness3d.stiffness3d_dense(us, ops.dense_operator_t())
+
+
+def _pair_plain(ops, us):
+  return cuda_stiffness3d.stiffness3d_pair_plain(us, ops.pair_table())
+
+
+def _pair_kernel(ops, us):
+  return cuda_stiffness3d.stiffness3d_pair(us, ops.pair_table())
+
+
+def _pair_general_plain(ops, us):
+  return cuda_stiffness3d.stiffness3d_pair_general_plain(us, ops.gs(),
+                                                         ops.mats['dmat'])
+
+
+def _pair_general_kernel(ops, us):
+  return cuda_stiffness3d.stiffness3d_pair_general(us, ops.gs(),
+                                                   ops.mats['dmat'])
+
+
+def _pair_affine_plain(ops, us):
+  return cuda_stiffness3d.stiffness3d_pair_affine_plain(
+      us, ops.g_affine, ops.pair_affine_table())
+
+
+def _pair_affine_kernel(ops, us):
+  return cuda_stiffness3d.stiffness3d_pair_affine(us, ops.g_affine,
+                                                  ops.pair_affine_table())
+
 
 STIFFNESS_DISPATCH = {
     (CONGRUENT, 'fused'): _Entry(_uniform_plain, _uniform_kernel),
-    (CONGRUENT, 'dense'): _Entry(_uniform_plain, todo=_QUEUE2.format(8)),
-    (CONGRUENT, 'pair'): _Entry(_uniform_plain, todo=_QUEUE2.format(9)),
-    # The affine kernel is the 'pair' layout of the affine operator; its
-    # plain version is the general one on the (affine) factor fields.
-    (AFFINE, 'pair'): _Entry(_general_plain, todo=_QUEUE2.format(7)),
+    # Class 'highest' only; 'bf16x3' raises on CUDA (Queue 2 item 8).
+    (CONGRUENT, 'dense'): _Entry(_dense_plain, _dense_kernel),
+    (CONGRUENT, 'pair'): _Entry(_pair_plain, _pair_kernel),
+    # The affine kernel is the 'pair' layout of the affine operator.
+    (AFFINE, 'pair'): _Entry(_pair_affine_plain, _pair_affine_kernel),
     (GENERAL, 'fused'): _Entry(_general_plain, _general_kernel),
+    (GENERAL, 'pair'): _Entry(_pair_general_plain, _pair_general_kernel),
     **{(GENERAL, impl): _Entry(_general_plain, todo=_QUEUE2.format(10))
-       for impl in GENERAL_IMPLS[1:]},
+       for impl in GENERAL_IMPLS[2:]},
 }
 
 
@@ -163,8 +207,8 @@ class Sem3DOps:
   matrices are float64 numpy (host setup, tests), with device copies in
   `mats` (the step reads only those).  The kernel knobs mirror the JAX
   package's (`use_uniform_kernel`, `use_affine_kernel`,
-  `uniform_kernel_impl`, `general_kernel_impl`) and select the key of
-  `STIFFNESS_DISPATCH`.
+  `uniform_kernel_impl`, `general_kernel_impl`, `kernel_precision`) and
+  select the key of `STIFFNESS_DISPATCH`.
   """
 
   # geometric factors at velocity GLL points, (k, k, k, E)
@@ -198,6 +242,10 @@ class Sem3DOps:
   use_uniform_kernel: bool = True
   uniform_kernel_impl: str = 'fused'
   general_kernel_impl: str = 'fused'
+  # Arithmetic class of the dense congruent kernel: None / 'highest' = full
+  # working precision; 'bf16x3' = the three-pass split class (plain version
+  # on the CPU; no Hopper kernel yet).
+  kernel_precision: str | None = None
   # Device copies of the 1D matrices (and of the congruent coefficient
   # table 'table'), in the working dtype; filled in __post_init__.
   mats: dict = dataclasses.field(default_factory=dict, repr=False,
@@ -212,6 +260,9 @@ class Sem3DOps:
       raise ValueError(f'unknown general_kernel_impl '
                        f'{self.general_kernel_impl!r}; expected one of '
                        f'{GENERAL_IMPLS}')
+    if self.kernel_precision not in KERNEL_PRECISIONS:
+      raise ValueError(f'unknown kernel_precision {self.kernel_precision!r}; '
+                       f'expected one of {KERNEL_PRECISIONS}')
     dev = dict(dtype=self.wmass.dtype, device=self.wmass.device)
     mats = {name: torch.as_tensor(getattr(self, name), **dev)
             for name in ('dmat', 'interp_p', 'interp_o', 'interp_o_grad')}
@@ -231,16 +282,39 @@ class Sem3DOps:
         moved[f.name] = val.to(device=device, dtype=dtype).contiguous()
     return dataclasses.replace(self, **moved)
 
-  def const(self, key: str, value: np.ndarray) -> torch.Tensor:
-    """Device copy of a static host matrix, made once and cached."""
+  def const(self, key: str, value) -> torch.Tensor:
+    """Device copy of a static host matrix, made once and cached.
+
+    `value` is the float64 matrix, or a callable that builds it (called
+    only when `key` is not cached yet).
+    """
     if key not in self.mats:
-      self.mats[key] = torch.as_tensor(value, dtype=self.wmass.dtype,
-                                       device=self.wmass.device)
+      if callable(value):
+        value = value()
+      self.mats[key] = torch.as_tensor(
+          np.ascontiguousarray(value), dtype=self.wmass.dtype,
+          device=self.wmass.device)
     return self.mats[key]
 
   def gs(self):
     """The six factor fields (g11, g12, g13, g22, g23, g33)."""
     return (self.g11, self.g12, self.g13, self.g22, self.g23, self.g33)
+
+  def dense_operator_t(self) -> torch.Tensor:
+    """The transposed dense ``(k^3, k^3)`` operator of a congruent box."""
+    return self.const('amat3d_t', lambda: cuda_stiffness3d.uniform_amat3d_np(
+        self.c_uniform, self.w1, self.dmat).T)
+
+  def pair_table(self) -> torch.Tensor:
+    """`cuda_stiffness3d.pair_table_np` of a congruent box, on the device."""
+    return self.const('pair_table', lambda: cuda_stiffness3d.pair_table_np(
+        self.c_uniform, self.w1, self.dmat))
+
+  def pair_affine_table(self) -> torch.Tensor:
+    """`cuda_stiffness3d.pair_affine_table_np`, on the device."""
+    return self.const(
+        'pair_affine_table',
+        lambda: cuda_stiffness3d.pair_affine_table_np(self.w1, self.dmat))
 
   # -- 1D contractions (axes 0..2 = xi, eta, zeta; E last) -----------------
 

@@ -1,8 +1,8 @@
 """The port's Hopper kernels against their plain PyTorch versions, on a card.
 
 The same checks as ``chip_smoke.py`` (``swirlfem_tpu_torch.ops
-.kernel_checks``) plus wrapper validation and short datagen, Taylor-Green
-and walled-cavity runs on the card against the CPU.  Every test is marked
+.kernel_checks``) plus wrapper validation and short datagen, Taylor-Green,
+CG-solved affine-box and walled-cavity runs on the card against the CPU.  Every test is marked
 ``cuda`` and skips without a CUDA device.  On a GPU host (no JAX needed):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
@@ -11,6 +11,7 @@ and walled-cavity runs on the card against the CPU.  Every test is marked
 import dataclasses
 import functools
 
+import numpy as np
 import pytest
 import torch
 
@@ -18,11 +19,14 @@ from swirlfem_tpu_torch.examples import cavity as cav
 from swirlfem_tpu_torch.examples import natural_convection as nc
 from swirlfem_tpu_torch.examples import taylor_green_3d as tgv
 from swirlfem_tpu_torch.niles import datagen
+from swirlfem_tpu_torch.nse.solver import StokesSEM
 from swirlfem_tpu_torch.ops import cuda_exchange
 from swirlfem_tpu_torch.ops import cuda_stiffness
 from swirlfem_tpu_torch.ops import cuda_stiffness2d
 from swirlfem_tpu_torch.ops import cuda_stiffness3d
 from swirlfem_tpu_torch.ops import kernel_checks
+from swirlfem_tpu_torch.utils.box import unit_cube_mesh
+from torch_port_boxes import affine_box
 
 pytestmark = pytest.mark.cuda
 
@@ -144,6 +148,130 @@ def test_stiffness3d_general_matches_f64_operator(device, n_el, order, dtype):
     assert result['rel_err_f64'] <= tol, result
 
 
+@functools.lru_cache(maxsize=None)
+def _affine_ops(n_el, order, dtype):
+  sem = StokesSEM.create(
+      affine_box(unit_cube_mesh(n_el, ndim=3, periodic_dims=(0, 1, 2))), {},
+      order=order, device='cuda', dtype=dtype)
+  assert sem.fast_ops.g_affine is not None
+  return sem.fast_ops
+
+
+def _variant_tol(dtype, tol32):
+  return tol32 if dtype == torch.float32 else 1e-13
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n_el,order', _CASES_3D)
+@pytest.mark.parametrize('num_c', [1, 3])
+def test_stiffness3d_dense_matches_f64_operator(device, n_el, order, num_c,
+                                                dtype):
+  del device
+  ops = _tgv_ops(n_el, order, dtype)
+  result = kernel_checks.check_stiffness3d_dense(ops, _fields3d(ops, num_c, 1))
+  assert result['rel_err_f64'] <= _variant_tol(
+      dtype, kernel_checks.STIFFNESS_REL_TOL), result
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n_el,order', _CASES_3D)
+@pytest.mark.parametrize('num_c', [1, 3])
+def test_stiffness3d_pair_matches_f64_operator(device, n_el, order, num_c,
+                                               dtype):
+  del device
+  ops = _tgv_ops(n_el, order, dtype)
+  result = kernel_checks.check_stiffness3d_pair(ops, _fields3d(ops, num_c, 1))
+  assert result['rel_err_f64'] <= _variant_tol(
+      dtype, kernel_checks.STIFFNESS_REL_TOL), result
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n_el,order', _CASES_3D)
+@pytest.mark.parametrize('num_c', [1, 3])
+def test_stiffness3d_pair_general_matches_f64_operator(device, n_el, order,
+                                                       num_c, dtype):
+  del device
+  us = _fields3d(_tgv_ops(n_el, order, dtype), num_c, 1)
+  tol = _variant_tol(dtype, kernel_checks.STIFFNESS_REL_TOL)
+  # The congruent and the affine box's own fields, then random ones.
+  for ops, gs in ((_tgv_ops(n_el, order, dtype), None),
+                  (_affine_ops(n_el, order, dtype), None),
+                  (_tgv_ops(n_el, order, dtype),
+                   _fields3d(_tgv_ops(n_el, order, dtype), 6, 10))):
+    result = kernel_checks.check_stiffness3d_pair_general(ops, us, gs)
+    assert result['rel_err_f64'] <= tol, result
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n_el,order', _CASES_3D)
+@pytest.mark.parametrize('num_c', [1, 3])
+def test_stiffness3d_pair_affine_matches_f64_operator(device, n_el, order,
+                                                      num_c, dtype):
+  del device
+  ops = _affine_ops(n_el, order, dtype)
+  us = _fields3d(ops, num_c, 1)
+  tol = _variant_tol(dtype, kernel_checks.STIFFNESS_REL_TOL)
+  random_c = kernel_checks.random_field(tuple(ops.g_affine.shape),
+                                        dtype=dtype, device=ops.wmass.device,
+                                        seed=20)
+  for c_affine in (None, random_c):  # the box's coefficients, random ones
+    result = kernel_checks.check_stiffness3d_pair_affine(ops, us, c_affine)
+    assert result['rel_err_f64'] <= tol, result
+
+
+def test_stiffness3d_variant_wrappers_reject_bad_input(device):
+  del device
+  ops = _affine_ops(3, 3, torch.float32)
+  us = _fields3d(ops, 2, 1)
+  bad = tuple(u.transpose(0, 1) for u in us)
+  with pytest.raises(ValueError, match='contiguous'):
+    cuda_stiffness3d.stiffness3d_pair_general(bad, ops.gs(),
+                                              ops.mats['dmat'])
+  with pytest.raises(ValueError, match='contiguous'):
+    cuda_stiffness3d.stiffness3d_pair_affine(bad, ops.g_affine,
+                                             ops.pair_affine_table())
+  with pytest.raises(ValueError, match='components'):
+    cuda_stiffness3d.stiffness3d_pair_affine(us * 3, ops.g_affine,
+                                             ops.pair_affine_table())
+  congruent = _tgv_ops(3, 3, torch.float32)
+  with pytest.raises(ValueError, match='components'):
+    cuda_stiffness3d.stiffness3d_dense(us * 3, congruent.dense_operator_t())
+  with pytest.raises(TypeError):
+    cuda_stiffness3d.stiffness3d_pair(
+        tuple(u.half() for u in us), congruent.pair_table().half())
+
+
+def test_cg_solved_step_on_card_matches_cpu(device):
+  """The affine box, Jacobi-CG and projected CG, float64 on both sides,
+  under ('affine', 'pair'): the kernels change only rounding."""
+  out = []
+  for dev in (device, torch.device('cpu')):
+    sem = StokesSEM.create(
+        affine_box(unit_cube_mesh(2, ndim=3, periodic_dims=(0, 1, 2))), {},
+        order=3, device=dev, dtype=torch.float64)
+    sem = dataclasses.replace(sem, fast_ops=dataclasses.replace(
+        sem.fast_ops, use_affine_kernel=True))
+    _, conv = tgv.make_advance(sem, mu=0.01, dt=2e-3, steps_per_chunk=1)
+    rng = np.random.default_rng(0)
+    shape = (4,) * 3 + (2,) * 3
+    u0 = tuple(torch.as_tensor(rng.standard_normal(shape), device=dev)
+               for _ in range(3))
+    p0 = torch.zeros((2,) * 3 + (2,) * 3, dtype=torch.float64, device=dev)
+    us, ps, cus = (u0, u0), (p0, p0), (conv(u0),) * 2
+    for _ in range(3):
+      f_el = tuple(-(2.0 * b - a) for a, b in zip(*cus))
+      u, p, _ = sem.stokes_one_step_el(
+          list(us), list(ps), f_el, mu=0.01, dt=2e-3, time_order=2,
+          alpha=0.05, tol=1e-11, atol=1e-13, maxiter=400,
+          exact_solves=False)
+      us, ps, cus = us[1:] + (u,), ps[1:] + (p,), cus[1:] + (conv(u),)
+    out.append(u + (p,))
+  for g, c in zip(*out):
+    err = float((g.cpu() - c).abs().max() / c.abs().max())
+    # Both solves stop at a 1e-11 relative residual, each in its own rounding.
+    assert err <= 1e-8, err
+
+
 def test_stiffness3d_launches_and_dispatch(device):
   del device
   ops = _tgv_ops(3, 3, torch.float32)
@@ -155,8 +283,23 @@ def test_stiffness3d_launches_and_dispatch(device):
   assert (cuda_stiffness3d.stiffness3d_uniform.launches,
           cuda_stiffness3d.stiffness3d_general.launches) == (before[0] + 1,
                                                              before[1] + 1)
-  for knobs in (dict(uniform_kernel_impl='dense'),
-                dict(use_uniform_kernel=False, general_kernel_impl='pair')):
+  # Keys with a kernel launch it, once per call for all components.
+  for knobs, wrapper in (
+      (dict(uniform_kernel_impl='dense'), cuda_stiffness3d.stiffness3d_dense),
+      (dict(uniform_kernel_impl='pair'), cuda_stiffness3d.stiffness3d_pair),
+      (dict(use_uniform_kernel=False, general_kernel_impl='pair'),
+       cuda_stiffness3d.stiffness3d_pair_general)):
+    count = wrapper.launches
+    dataclasses.replace(ops, **knobs).stiffness_el_multi(us)
+    assert wrapper.launches == count + 1
+  affine = _affine_ops(3, 3, torch.float32)
+  count = cuda_stiffness3d.stiffness3d_pair_affine.launches
+  dataclasses.replace(affine, use_affine_kernel=True).stiffness_el_multi(us)
+  assert cuda_stiffness3d.stiffness3d_pair_affine.launches == count + 1
+  # Keys without one raise, naming their ROADMAP item.
+  for knobs in (dict(uniform_kernel_impl='dense', kernel_precision='bf16x3'),
+                dict(use_uniform_kernel=False, general_kernel_impl='pairz'),
+                dict(use_uniform_kernel=False, general_kernel_impl='pairs2')):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
       dataclasses.replace(ops, **knobs).stiffness_el_multi(us)
   with pytest.raises(ValueError, match='components'):

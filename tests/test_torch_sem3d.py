@@ -278,50 +278,72 @@ def test_plain_kernels_match_pallas():
 
 
 def test_dispatch_table_names_every_unported_key():
-  ported = {('congruent', 'fused'), ('general', 'fused')}
-  items = {('congruent', 'dense'): 8, ('congruent', 'pair'): 9,
-           ('affine', 'pair'): 7, ('general', 'pair'): 10,
-           ('general', 'pairz'): 10, ('general', 'pairs2'): 10,
+  ported = {('congruent', 'fused'), ('general', 'fused'),
+            ('congruent', 'dense'), ('congruent', 'pair'),
+            ('affine', 'pair'), ('general', 'pair')}
+  items = {('general', 'pairz'): 10, ('general', 'pairs2'): 10,
            ('general', 'pairs4'): 10}
   assert set(sem3d.STIFFNESS_DISPATCH) == ported | set(items)
+  plains = set()
   for key, entry in sem3d.STIFFNESS_DISPATCH.items():
     assert entry.plain is not None
     if key in ported:
       assert entry.kernel is not None and not entry.todo
+      plains.add(entry.plain)
     else:
       assert entry.kernel is None
       assert f'ROADMAP.md, Queue 2 item {items[key]})' in entry.todo
+  # Every ported key has its own plain version.
+  assert len(plains) == len(ported)
 
 
-@pytest.mark.parametrize('knobs,key', [
-    (dict(uniform_kernel_impl='dense'), ('congruent', 'dense')),
-    (dict(uniform_kernel_impl='pair'), ('congruent', 'pair')),
+@pytest.mark.parametrize('knobs,key,wrapper', [
+    (dict(uniform_kernel_impl='dense'), ('congruent', 'dense'),
+     'stiffness3d_dense'),
+    (dict(uniform_kernel_impl='pair'), ('congruent', 'pair'),
+     'stiffness3d_pair'),
     (dict(use_uniform_kernel=False, general_kernel_impl='pairz'),
-     ('general', 'pairz')),
+     ('general', 'pairz'), None),
     (dict(use_uniform_kernel=False, general_kernel_impl='pairs4'),
-     ('general', 'pairs4')),
+     ('general', 'pairs4'), None),
 ])
-def test_unported_keys_run_plain_on_cpu_and_raise_on_cuda(knobs, key):
+def test_unported_keys_run_plain_on_cpu_and_raise_on_cuda(knobs, key,
+                                                          wrapper):
+  """Every opt-in key runs its plain version on the CPU; on CUDA a key
+  without a kernel raises, and a key with one goes to its wrapper."""
   _, sem = _pair('uniform', 2, 3)
   ops = dataclasses.replace(sem.fast_ops, **knobs)
   assert ops.stiffness_key == key
   u = torch.as_tensor(np.random.default_rng(8).standard_normal(
       ops.g11.shape))
+  if wrapper is not None:
+    before = getattr(cuda_stiffness3d, wrapper).launches
   torch.testing.assert_close(ops.stiffness_el(u),
                              sem.fast_ops.stiffness_el(u), rtol=1e-12,
                              atol=1e-12)
-  # A CUDA field: the dispatch raises before it touches the data.
-  on_card = types.SimpleNamespace(is_cuda=True)
-  with pytest.raises(NotImplementedError, match='ROADMAP.md, Queue 2 item'):
-    ops.stiffness_el_multi((on_card,))
+  entry = sem3d.STIFFNESS_DISPATCH[key]
+  if wrapper is None:
+    # A CUDA field: the dispatch raises before it touches the data.
+    on_card = types.SimpleNamespace(is_cuda=True)
+    with pytest.raises(NotImplementedError, match='ROADMAP.md, Queue 2 item'):
+      ops.stiffness_el_multi((on_card,))
+  else:
+    assert getattr(cuda_stiffness3d, wrapper).launches == before
+    assert entry.kernel is not None and not entry.todo
 
 
 def test_affine_key_and_knob_validation():
   _, sem = _pair('graded', 2, 3)
   ops = dataclasses.replace(sem.fast_ops, use_affine_kernel=True)
   assert ops.stiffness_key == ('affine', 'pair')
-  with pytest.raises(NotImplementedError, match='item 7'):
-    ops.stiffness_el_multi((types.SimpleNamespace(is_cuda=True),))
+  # The affine key has its kernel; on the CPU it runs its own plain version,
+  # which agrees with the general operator on the same factor fields.
+  assert sem3d.STIFFNESS_DISPATCH[ops.stiffness_key].kernel is not None
+  u = torch.as_tensor(np.random.default_rng(12).standard_normal(
+      ops.g11.shape))
+  torch.testing.assert_close(ops.stiffness_el(u),
+                             sem.fast_ops.stiffness_el(u), rtol=1e-11,
+                             atol=1e-11)
   with pytest.raises(ValueError, match='general_kernel_impl'):
     dataclasses.replace(ops, general_kernel_impl='kron')
   with pytest.raises(ValueError, match='uniform_kernel_impl'):

@@ -1,0 +1,284 @@
+"""The opt-in 3D stiffness variants of the port against the JAX package.
+
+The plain versions of the dense, pair, pair-general and pair-affine Hopper
+kernels (``swirlfem_tpu_torch.ops.cuda_stiffness3d``), at k = 4 on 2^3
+elements with numpy-seeded inputs, against (a) the JAX Pallas function in
+interpret mode, as ``tests/test_pallas.py`` runs it, and (b) the JAX einsum
+``stiffness_el_multi`` in float64; the affine detection on the graded and
+sheared periodic box and on a trilinear warp; the kernel knobs through
+``interop.sem3d_ops_from_arrays``; and the dispatch table.
+"""
+
+import dataclasses
+import functools
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from swirlfem_tpu.nse.solver import StokesSEM as JStokesSEM
+from swirlfem_tpu.ops import pallas_stiffness3d as jp3
+from swirlfem_tpu.utils.box import unit_cube_mesh as junit_cube_mesh
+from swirlfem_tpu_torch import interop
+from swirlfem_tpu_torch.core.structured import StructuredInfo
+from swirlfem_tpu_torch.nse.solver import StokesSEM
+from swirlfem_tpu_torch.ops import cuda_stiffness3d
+from swirlfem_tpu_torch.ops import sem3d
+from swirlfem_tpu_torch.utils.box import unit_cube_mesh
+from torch_port_boxes import affine_box
+
+ORDER, N_EL = 3, 2
+K = ORDER + 1
+# Against the float64 einsum, in float64.
+TOL_F64 = 1e-10
+# The interpret-mode pair kernels carry their three-pass bf16 error
+# (tests/test_pallas.py:295-306); the dense kernel is exact.
+TOL_BF16X3, TOL_DENSE = 5e-5, 1e-11
+
+
+def trilinear_warp(pm):
+  """tests/test_pallas.py:415-416: elements that are not parallelepipeds."""
+  c = np.asarray(pm.node_coords, dtype=np.float64).copy()
+  c[:, 0] += 0.05 * c[:, 1] * c[:, 2]
+  return pm.replace(node_coords=c)
+
+
+GEOMETRIES = {'congruent': lambda pm: pm, 'affine': affine_box,
+              'warped': trilinear_warp}
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(geometry):
+  warp = GEOMETRIES[geometry]
+  periodic = dict(ndim=3, periodic_dims=(0, 1, 2))
+  jsem = JStokesSEM.create(warp(junit_cube_mesh(N_EL, **periodic)), {},
+                           order=ORDER)
+  sem = StokesSEM.create(warp(unit_cube_mesh(N_EL, **periodic)), {},
+                         order=ORDER, device='cpu', dtype=torch.float64)
+  return jsem, sem
+
+
+def _fields(seed, count=3):
+  rng = np.random.default_rng(seed)
+  return tuple(rng.standard_normal((K, K, K, N_EL ** 3))
+               for _ in range(count))
+
+
+def _max_err(got, want):
+  """max |got - want| over the components, relative to max |want|."""
+  scale = max(float(np.abs(np.asarray(w)).max()) for w in want)
+  return max(float(np.abs(np.asarray(g, np.float64)
+                          - np.asarray(w, np.float64)).max())
+             for g, w in zip(got, want)) / scale
+
+
+def _t(arrays, dtype=torch.float64):
+  return tuple(torch.as_tensor(np.asarray(a), dtype=dtype) for a in arrays)
+
+
+def _dense(jops, ops, us, interpret_dtype):
+  del interpret_dtype  # exact in float64
+  pallas = jp3.stiffness3d_el_pallas_dense(
+      tuple(jnp.asarray(u) for u in us), jops.c_uniform, jops.w1, jops.dmat,
+      interpret=True)
+  plain = cuda_stiffness3d.stiffness3d_dense(_t(us), ops.dense_operator_t())
+  return plain, pallas, TOL_DENSE
+
+
+def _pair_congruent(jops, ops, us, interpret_dtype):
+  pallas = jp3.stiffness3d_el_pallas_pair(
+      tuple(jnp.asarray(u, interpret_dtype) for u in us), jops.c_uniform,
+      jops.w1, jops.dmat, interpret=True)
+  plain = cuda_stiffness3d.stiffness3d_pair(_t(us), ops.pair_table())
+  return plain, pallas, TOL_BF16X3
+
+
+def _pair_general(jops, ops, us, interpret_dtype):
+  pallas = jp3.stiffness3d_el_pallas_pair_general(
+      tuple(jnp.asarray(u, interpret_dtype) for u in us),
+      tuple(g.astype(interpret_dtype) for g in jops._gs()), jops.dmat,  # pylint: disable=protected-access
+      interpret=True)
+  plain = cuda_stiffness3d.stiffness3d_pair_general(_t(us), ops.gs(),
+                                                    ops.mats['dmat'])
+  return plain, pallas, TOL_BF16X3
+
+
+def _pair_affine(jops, ops, us, interpret_dtype):
+  pallas = jp3.stiffness3d_el_pallas_pair_affine(
+      tuple(jnp.asarray(u, interpret_dtype) for u in us), jops.g_affine,
+      jops.w1, jops.dmat, interpret=True)
+  plain = cuda_stiffness3d.stiffness3d_pair_affine(
+      _t(us), ops.g_affine, ops.pair_affine_table())
+  return plain, pallas, TOL_BF16X3
+
+
+# variant -> (geometry, runner, launch counter)
+VARIANTS = {
+    'dense': ('congruent', _dense, cuda_stiffness3d.stiffness3d_dense),
+    'pair': ('congruent', _pair_congruent, cuda_stiffness3d.stiffness3d_pair),
+    'pair_general': ('affine', _pair_general,
+                     cuda_stiffness3d.stiffness3d_pair_general),
+    'pair_affine': ('affine', _pair_affine,
+                    cuda_stiffness3d.stiffness3d_pair_affine),
+}
+
+
+@pytest.mark.parametrize('variant', list(VARIANTS))
+def test_plain_variant_matches_pallas_and_einsum(variant):
+  geometry, run, wrapper = VARIANTS[variant]
+  jsem, sem = _pair(geometry)
+  jops, ops = jsem.fast_ops, sem.fast_ops
+  us = _fields(seed=5)
+  before = wrapper.launches
+  plain, pallas, tol = run(jops, ops, us, jnp.float32)
+  assert wrapper.launches == before  # CPU tensors never launch
+  einsum = jops.stiffness_el_multi(tuple(jnp.asarray(u) for u in us))
+  assert _max_err([p.numpy() for p in plain], einsum) <= TOL_F64
+  assert _max_err(pallas, einsum) <= tol
+  assert _max_err([p.numpy() for p in plain], pallas) <= tol
+
+
+def test_pair_general_plain_on_random_factor_fields():
+  """Every cross term counts: random factor fields, against the JAX pair
+  kernel in interpret mode and the port's sum-factorized plain version."""
+  _, sem = _pair('congruent')
+  dmat = sem.fast_ops.mats['dmat']
+  us, gs = _fields(seed=6), _fields(seed=7, count=6)
+  plain = cuda_stiffness3d.stiffness3d_pair_general_plain(_t(us), _t(gs), dmat)
+  fused = cuda_stiffness3d.stiffness3d_general_plain(_t(us), _t(gs), dmat)
+  assert _max_err([p.numpy() for p in plain],
+                  [f.numpy() for f in fused]) <= 1e-13
+  pallas = jp3.stiffness3d_el_pallas_pair_general(
+      tuple(jnp.asarray(u, jnp.float32) for u in us),
+      tuple(jnp.asarray(g, jnp.float32) for g in gs), sem.fast_ops.dmat,
+      interpret=True)
+  assert _max_err([p.numpy() for p in plain], pallas) <= TOL_BF16X3
+
+
+def test_pair_affine_plain_on_random_coefficients():
+  """Random (6, E) coefficients: the weight-folded algebra against the
+  sum-factorized operator on G_ab = w(q) C_ab(e), and a ragged E."""
+  _, sem = _pair('affine')
+  ops = sem.fast_ops
+  rng = np.random.default_rng(8)
+  num_e = 5
+  us = _t(rng.standard_normal((2, K, K, K, num_e)))
+  c_affine = torch.as_tensor(rng.standard_normal((6, num_e)))
+  w1 = torch.as_tensor(ops.w1)
+  w3 = torch.einsum('i,j,k->ijk', w1, w1, w1)[..., None]
+  want = cuda_stiffness3d.stiffness3d_general_plain(
+      us, tuple(w3 * c for c in c_affine), ops.mats['dmat'])
+  got = cuda_stiffness3d.stiffness3d_pair_affine_plain(
+      us, c_affine, ops.pair_affine_table())
+  assert _max_err([g.numpy() for g in got],
+                  [w.numpy() for w in want]) <= 1e-13
+
+
+@pytest.mark.parametrize('geometry', list(GEOMETRIES))
+def test_affine_detection_matches_jax(geometry):
+  jsem, sem = _pair(geometry)
+  jops, ops = jsem.fast_ops, sem.fast_ops
+  assert (ops.c_uniform is not None) == (geometry == 'congruent')
+  assert (ops.g_affine is not None) == (geometry == 'affine')
+  assert (jops.g_affine is None) == (ops.g_affine is None)
+  assert (jops.c_uniform is None) == (ops.c_uniform is None)
+  if geometry == 'affine':
+    assert tuple(ops.g_affine.shape) == (6, N_EL ** 3)
+    np.testing.assert_allclose(ops.g_affine.numpy(),
+                               np.asarray(jops.g_affine), rtol=0, atol=1e-13)
+    # Per-element variation (grading) and non-zero shear coefficients.
+    assert float(ops.g_affine[1].abs().max()) > 1e-3
+    assert float(ops.g_affine[0].std()) > 1e-6
+    # The default keeps the exact general path; the knob opts in.
+    assert ops.stiffness_key == ('general', 'fused')
+    opted = dataclasses.replace(ops, use_affine_kernel=True)
+    assert opted.stiffness_key == ('affine', 'pair')
+
+
+KNOBS = [
+    dict(uniform_kernel_impl='dense', kernel_precision='highest'),
+    dict(uniform_kernel_impl='pair'),
+    dict(use_uniform_kernel=False, general_kernel_impl='pair'),
+    dict(use_affine_kernel=True),
+    dict(use_affine_kernel=False, general_kernel_impl='pair'),
+]
+KNOB_KEYS = [('congruent', 'dense'), ('congruent', 'pair'),
+             ('general', 'pair'), ('affine', 'pair'), ('general', 'pair')]
+KNOB_GEOMETRY = ['congruent', 'congruent', 'congruent', 'affine', 'affine']
+
+
+@pytest.mark.parametrize('knobs,key,geometry',
+                         list(zip(KNOBS, KNOB_KEYS, KNOB_GEOMETRY)))
+def test_interop_carries_g_affine_and_knobs(knobs, key, geometry):
+  """The JAX package's fields and knobs, through interop, give the same key
+  and (on the CPU, through the key's plain version) the same operator."""
+  jsem, _ = _pair(geometry)
+  jops = jsem.fast_ops.replace(**knobs)
+  names = interop.FIELD_NAMES_3D + interop.STATIC_NAMES_3D
+  arrays = {name: np.asarray(getattr(jops, name)) for name in names}
+  if jops.g_affine is not None:
+    arrays['g_affine'] = np.asarray(jops.g_affine)
+  ops = interop.sem3d_ops_from_arrays(
+      arrays, vinfo=StructuredInfo(**vars(jops.vinfo)),
+      pinfo=StructuredInfo(**vars(jops.pinfo)), c_uniform=jops.c_uniform,
+      device='cpu', dtype=torch.float64,
+      **{name: getattr(jops, name) for name in interop.KERNEL_KNOBS_3D})
+  for name in interop.KERNEL_KNOBS_3D:
+    assert getattr(ops, name) == getattr(jops, name), name
+  assert ops.stiffness_key == key
+  if jops.g_affine is not None:
+    np.testing.assert_array_equal(ops.g_affine.numpy(),
+                                  np.asarray(jops.g_affine))
+  us = _fields(seed=9)
+  einsum = jops.stiffness_el_multi(tuple(jnp.asarray(u) for u in us))
+  got = ops.stiffness_el_multi(_t(us))
+  assert _max_err([g.numpy() for g in got], einsum) <= TOL_F64
+  with pytest.raises(TypeError, match='unknown kernel knobs'):
+    interop.sem3d_ops_from_arrays(
+        arrays, vinfo=ops.vinfo, pinfo=ops.pinfo, c_uniform=jops.c_uniform,
+        device='cpu', dtype=torch.float64, tile_e=512)
+
+
+def test_kernel_precision_selects_the_dense_class():
+  _, sem = _pair('congruent')
+  ops = sem.fast_ops
+  assert ops.kernel_precision is None
+  on_card = types.SimpleNamespace(is_cuda=True)
+  bf16x3 = dataclasses.replace(ops, uniform_kernel_impl='dense',
+                               kernel_precision='bf16x3')
+  assert bf16x3.stiffness_key == ('congruent', 'dense')
+  # The CPU runs the plain version; the card has no kernel of that class.
+  u = _t(_fields(seed=10, count=1))
+  torch.testing.assert_close(bf16x3.stiffness_el_multi(u)[0],
+                             ops.stiffness_el_multi(u)[0], rtol=1e-12,
+                             atol=1e-12)
+  with pytest.raises(NotImplementedError, match='ROADMAP.md, Queue 2 item 8'):
+    bf16x3.stiffness_el_multi((on_card,))
+  with pytest.raises(ValueError, match='kernel_precision'):
+    dataclasses.replace(ops, kernel_precision='tf32')
+
+
+def test_wrappers_validate_their_tables():
+  _, sem = _pair('affine')
+  ops = sem.fast_ops
+  us = _t(_fields(seed=11, count=2))
+  with pytest.raises(ValueError, match='k\\^3'):
+    cuda_stiffness3d.stiffness3d_dense(us, torch.zeros(8, 8,
+                                                       dtype=torch.float64))
+  with pytest.raises(ValueError, match='table'):
+    cuda_stiffness3d.stiffness3d_pair(us, ops.pair_affine_table())
+  with pytest.raises(ValueError, match='table'):
+    cuda_stiffness3d.stiffness3d_pair_affine(us, ops.g_affine,
+                                             ops.mats['dmat'].reshape(-1))
+  with pytest.raises(ValueError, match='c_affine'):
+    cuda_stiffness3d.stiffness3d_pair_affine(us, ops.g_affine[:, :3],
+                                             ops.pair_affine_table())
+  with pytest.raises(ValueError, match='factor fields'):
+    cuda_stiffness3d.stiffness3d_pair_general(us, ops.gs()[:5],
+                                              ops.mats['dmat'])
+  with pytest.raises(ValueError, match='share device and dtype'):
+    cuda_stiffness3d.stiffness3d_pair(tuple(u.float() for u in us),
+                                      torch.zeros(K ** 4 + 2 * K * K + K,
+                                                  dtype=torch.float64))
