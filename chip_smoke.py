@@ -62,12 +62,28 @@ graded and sheared periodic box, all in float32.  Phases:
      and through the plain path on the CPU (float64), under the affine-pair
      and under the general-pair key;
  22. time the four kernels against their plain versions (the dense and the
-     pair one also against one library GEMM of the same operator).
+     pair one also against one library GEMM of the same operator);
+ 23. the split-bf16 classes ('bf16x3', 'default') of the static-operator
+     stiffness on the tensor cores, against their plain versions and the
+     float64 operator: the congruent kernel at the datagen shape (through
+     `Sem2DOps.stiffness_el_multi`), the affine one on the vertex-graded
+     lid-driven box and at the datagen shape, the dense 3D one at 16^3,
+     order 7, C = 3 ('bf16x3' within 1e-4, 'default' within 1e-2);
+ 24. 20 certified datagen steps at 'bf16x3' from phase 4's state, in turns
+     with the same steps at 'highest';
+ 25. the lid-driven cavity at 'bf16x3' (200 vertex-graded, 20 uniform and
+     20 Jacobi-CG vertex-graded steps) and at 'default' (20 steps on each
+     box), against the same steps at 'highest';
+ 26. 10 certified TGV-box steps under ('congruent', 'dense') at 'bf16x3'
+     against the same steps under the fused key;
+ 27. time the split kernels against their plain versions, their
+     tensor-core bound and one FP32 library GEMM of the same operator.
 
 Each kernel's count is set to 0 just before the path that launches it and
 read just after.  Every kernel's bound is the larger of its bytes (each
 input read once, each output written once) over 3.35 TB/s and its
-operations over 67 TFLOP/s (H100 SXM, FP32).
+operations over 67 TFLOP/s (H100 SXM, FP32), or over 989 TFLOP/s (dense
+bf16 tensor cores) for the split-bf16 kernels.
 
 Prints a JSON line of the kernels, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -86,8 +102,12 @@ import tempfile
 import time
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-  print(msg, flush=True)
+  """Prints `msg` after the seconds since the script started."""
+  print(f'{time.perf_counter() - _START:7.1f}s {msg}', flush=True)
 
 
 def require(cond, what) -> None:
@@ -454,6 +474,7 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
   state = (tgv_run['us'], tgv_run['ps'], tgv_run['cus'])
   solve = dict(mu=mu, dt=dt, tol=1e-5, atol=1e-6, maxiter=100)
   runs = {}
+  certified = {'state': state, 'solve': solve, 'count': count}
   for label, knobs, name in (
       ('fused', {}, None),
       ('dense', dict(uniform_kernel_impl='dense'), 'stiffness3d_dense'),
@@ -622,6 +643,7 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
     log(f'[22] {name}: {flops / t / 1e12:.3f} TFLOP/s, '
         f'{nbytes / t / 1e12:.3f} TB/s; bound '
         f'{times[name]["bound_ms"] * 1e3:.2f} us ({times[name]["bound_by"]})')
+  return certified
 
 
 def run_walled_phases(torch, device, dtype, kernel_checks, times,
@@ -808,6 +830,263 @@ def run_walled_phases(torch, device, dtype, kernel_checks, times,
     log(f'[17] stiffness2d_{name} at the datagen shape (9, 9, 4096) x 2: '
         f'{kernel_checks.time_ms(fn, device=device) * 1e3:.2f} us, bound '
         f'{b["bound_ms"] * 1e3:.3f} us ({b["bound_by"]})')
+  return {'affine': affine, 'affine64': affine64}
+
+
+def run_split_phases(torch, device, dtype, tgv, kernel_checks, times,
+                     launches, dg, walled, tgv_box) -> None:
+  """Phases 23-27: the split-bf16 classes ('bf16x3', 'default') of the
+  static-operator stiffness on the tensor cores.
+
+  `dg` holds the datagen solver, config, phase 4's end state and phase 3's
+  fields; `walled` the lid-driven boxes' operators; `tgv_box` the
+  Taylor-Green solver, phase 19's start state and solve settings and the
+  random fields of phase 8.  Each split-class run is timed in the same
+  phase as the same steps at 'highest' (the fused key on the TGV box).
+  Fills `times` and `launches` for the five split entries.
+  """
+  import dataclasses
+  import numpy as np
+  from swirlfem_tpu_torch.examples import cavity as cav
+  from swirlfem_tpu_torch.niles import datagen
+  from swirlfem_tpu_torch.ops import cuda_split
+  from swirlfem_tpu_torch.ops import cuda_stiffness
+  from swirlfem_tpu_torch.ops import cuda_stiffness3d
+  uniform_split = cuda_split.stiffness_uniform_split
+  affine_split = cuda_split.stiffness2d_affine_split
+  classes = ('bf16x3', 'default')
+
+  def at(ops, precision):
+    return dataclasses.replace(ops, kernel_precision=precision)
+
+  # -- 23. the split kernels vs plain and the float64 operator --------------
+  sem3 = tgv_box['full']
+  ops3 = sem3.fast_ops
+  us3 = tgv_box['us3']
+  affine, affine64 = walled['affine'], walled['affine64']
+  k16 = affine.vinfo.order + 1
+  us_lid = tuple(kernel_checks.random_field(
+      (k16, k16, affine.g_affine.shape[1]), dtype=dtype, device=device,
+      seed=s) for s in (1, 2))
+  checks = {}
+  for precision in classes:
+    checks[f'stiffness_uniform_{precision}'] = (
+        kernel_checks.check_stiffness_uniform_split(
+            at(dg['sem'].fast_ops, precision), dg['us']), '64^2 order 8',
+        '~1e-5')
+    checks[f'stiffness2d_affine_{precision}'] = (
+        kernel_checks.check_stiffness2d_affine_split(
+            at(affine, precision), us_lid), 'lid-driven 16^2 order 7',
+        '~1e-5')
+    checks[f'stiffness2d_affine_{precision} 64^2'] = (
+        kernel_checks.check_stiffness2d_affine_split(
+            at(affine64, precision), dg['us']), '64^2 order 8', '~1e-5')
+  checks['stiffness3d_dense_bf16x3'] = (
+      kernel_checks.check_stiffness3d_dense_split(ops3, us3),
+      '16^3 order 7 C=3', '2-3e-5')
+  for name, (check, shape, jax_err) in checks.items():
+    precision = 'default' if 'default' in name else 'bf16x3'
+    low, high = kernel_checks.CLASS_BANDS[precision]
+    log(f'[23] {name} at {shape}: kernel vs plain '
+        f'{check["rel_err_plain"]:.3e} of the largest output; vs float64 '
+        f'{check["rel_err_f64"]:.3e} (plain {check["plain_rel_err_f64"]:.3e};'
+        f' the JAX package measured {jax_err} for bf16x3, ~3e-3 for '
+        f'default); band ({low:g}, {high:g}]')
+    require(check['rel_err_plain'] <= kernel_checks.SPLIT_VS_PLAIN_TOL,
+            (name, check))
+    require(low < check['rel_err_f64'] <= high, (name, check))
+
+  # -- 24. certified datagen steps at 'bf16x3' ------------------------------
+  # 'highest' and 'bf16x3' in turns from phase 4's state, so that the two
+  # step times share the process's state and the host's load.
+  count = 20
+  runs = {'highest': [], 'bf16x3': []}
+  for precision in ('highest', 'bf16x3', 'bf16x3', 'highest'):
+    sem_p = with_knobs(dg['sem'], kernel_precision=precision)
+    one_step = datagen.make_one_step(sem_p, dg['cfg'], exact_solves=False)
+    uniform_split.launches = 0
+    cuda_stiffness.stiffness_uniform.launches = 0
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    state_p, auxes = steps(one_step, dg['state'], count)
+    torch.cuda.synchronize(device)
+    runs[precision].append({
+        'ms': (time.perf_counter() - t0) / count * 1e3, 'state': state_p,
+        'iters': [int(aux['u_star_info']['num_iterations'])
+                  for aux in auxes],
+        'split': uniform_split.launches,
+        'fp32': cuda_stiffness.stiffness_uniform.launches})
+  split_run, base = runs['bf16x3'][-1], runs['highest'][-1]
+  launches['stiffness_uniform_bf16x3'] = split_run['split']
+  iters = split_run['iters']
+  du = rel_err(split_run['state'][0][-1], base['state'][0][-1])
+  dp = rel_err(split_run['state'][1][-1], base['state'][1][-1])
+  log(f'[24] {count} certified datagen steps, in turns: highest '
+      f'{[round(r["ms"], 4) for r in runs["highest"]]} ms/step, bf16x3 '
+      f'{[round(r["ms"], 4) for r in runs["bf16x3"]]}; bf16x3 viscous CG '
+      f'iterations {iters} ({sum(i > 0 for i in iters)} solves iterated; '
+      f'highest {sum(i > 0 for i in base["iters"])}), split launches '
+      f'{split_run["split"]}, FP32 stiffness_uniform launches '
+      f'{split_run["fp32"]}; vs highest: u rel {du:.3e}, p rel {dp:.3e}')
+  require(split_run['split'] > 0,
+          'the bf16x3 steps never launched the split kernel')
+  require(split_run['fp32'] == 0, 'the bf16x3 steps launched the FP32 kernel')
+  require(max(iters) <= 2, iters)
+  require(all_finite(split_run['state']), 'non-finite bf16x3 datagen state')
+  require(du <= 1e-5, du)
+
+  # -- 25. the lid-driven cavity at the split classes -----------------------
+  def lid_run(sem, precision, count, fdm_viscous=True):
+    sem_p = with_knobs(sem, kernel_precision=precision)
+    step = cav.make_step(sem_p, reynolds=100.0, dt=1e-3,
+                         fdm_viscous=fdm_viscous)
+    state = cav.initial_state(sem_p, step.u_boundary)
+    uniform_split.launches = affine_split.launches = 0
+    iters = []
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(count):
+      state, aux = step(*state)
+      iters.append(aux['u_star_info']['num_iterations'])
+    torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) / count * 1e3
+    u = state[0][-1] + step.u_boundary
+    require(all_finite(state), f'non-finite lid-driven state ({precision})')
+    require(abs(float(u.abs().max()) - 1.0) < 1e-3, 'the lid moves at 1')
+    return {'u': u, 'ms': ms, 'iters': [int(i) for i in iters],
+            'launches': uniform_split.launches + affine_split.launches}
+
+  boxes = {grading: cav.make_cavity(16, 7, grading=grading, device=device,
+                                    dtype=dtype) for grading in (0.5, 0.0)}
+  # Each class right after the same steps at 'highest', in one phase.
+  for grading, count, fdm, precision in (
+      (0.5, 200, True, 'bf16x3'), (0.0, 20, True, 'bf16x3'),
+      (0.5, 20, False, 'bf16x3'), (0.5, 20, True, 'default'),
+      (0.0, 20, True, 'default')):
+    sem = boxes[grading]
+    base = lid_run(sem, 'highest', count, fdm)
+    r = lid_run(sem, precision, count, fdm)
+    err = rel_err(r['u'], base['u'])
+    label = (f'{"vertex-graded" if grading else "uniform"} box, '
+             f'{"FDM-seeded" if fdm else "Jacobi"} viscous CG, {count} steps '
+             f'at {precision}')
+    log(f'[25] {label}: {r["ms"]:.4f} ms/step (highest {base["ms"]:.4f}), '
+        f'viscous CG iterations {r["iters"][:5]}..{r["iters"][-3:]} (max '
+        f'{max(r["iters"])}, highest max {max(base["iters"])}), split '
+        f'launches {r["launches"]} ({r["launches"] / count:.2f}/step); vs '
+        f'highest: u rel {err:.3e}')
+    require(r['launches'] >= count, f'{label}: {r["launches"]} launches')
+    # 'default' rounds operator and field to bf16 in every matvec (~4e-3),
+    # and the viscous solve converges to that operator's answer: a
+    # preconditioner-grade class, held to 5e-2 after 20 steps.
+    require(err <= (1e-3 if precision == 'bf16x3' else 5e-2), (label, err))
+    key = (f'{"stiffness2d_affine" if grading else "stiffness_uniform"}_'
+           f'{precision}')
+    if fdm and key not in launches:
+      launches[key] = r['launches']
+
+  # -- 26. certified TGV-box steps under ('congruent', 'dense') at bf16x3 ---
+  count = tgv_box['count']
+  sem_v = with_knobs(sem3, uniform_kernel_impl='dense',
+                     kernel_precision='bf16x3')
+  base = cg_solved_steps(torch, tgv, sem3, tgv_box['state'], count,
+                         seeded=True, **tgv_box['solve'])
+  uniform_split.launches = 0
+  cuda_stiffness3d.stiffness3d_dense.launches = 0
+  r = cg_solved_steps(torch, tgv, sem_v, tgv_box['state'], count,
+                      seeded=True, **tgv_box['solve'])
+  n_split = uniform_split.launches
+  n_dense = cuda_stiffness3d.stiffness3d_dense.launches
+  launches['stiffness3d_dense_bf16x3'] = n_split
+  u_rel = rel_err(r['state'][0][-1], base['state'][0][-1])
+  d_rel = float(np.abs(r['dissipation'] - base['dissipation']).max()
+                / np.abs(base['dissipation']).max())
+  # The dissipation is the stiffness's quadratic form on a smooth field,
+  # where the operator's terms cancel to a small remainder: the class's
+  # own rounding, ~1e-5 of the largest term, shows there as ~1e-3 at 16^3
+  # (its float64 emulation, which equals the JAX kernel in interpret mode,
+  # misses by as much).  So the kernel is held to the class's plain version
+  # on the same velocity, and the series to the fused key at the class's
+  # resolution.
+  info = ops3.vinfo
+  flat_shape = (info.order + 1,) * 3 + (info.num_elements_per_dim ** 3,)
+  flat = tuple(c.reshape(flat_shape) for c in r['state'][0][-1])
+  hi3, lo3 = ops3.dense_split()
+  a64 = ops3.dense_operator_t().double().T
+  form = lambda aus: sum(float((a.double() * u.double()).sum())
+                         for a, u in zip(aus, flat))
+  d_kernel = form(uniform_split(flat, hi3, lo3, 3))
+  d_plain = form(cuda_split.stiffness_uniform_split_plain(flat, hi3, lo3, 3))
+  d_64 = form(tuple((a64 @ u.double().reshape(a64.shape[0], -1))
+                    .reshape(u.shape) for u in flat))
+  log(f'[26] TGV box, {count} certified steps under '
+      f'{sem_v.fast_ops.stiffness_key} at bf16x3: {r["ms_per_step"]:.4f} '
+      f'ms/step (fused {base["ms_per_step"]:.4f}), CG iterations (viscous, '
+      f'pressure) {r["iters"]}, split launches {n_split}, FP32 dense '
+      f'launches {n_dense}; vs fused: velocity rel {u_rel:.3e}, '
+      f'dissipation rel {d_rel:.3e}; last velocity\'s quadratic form vs the '
+      f'float64 operator: kernel {abs(d_kernel - d_64) / abs(d_64):.3e}, '
+      f'plain {abs(d_plain - d_64) / abs(d_64):.3e}, kernel vs plain '
+      f'{abs(d_kernel - d_plain) / abs(d_64):.3e}')
+  require(all_finite(r['state']), 'non-finite TGV-box state at bf16x3')
+  require(max(v for v, _ in r['iters']) <= 2, r['iters'])
+  require(u_rel <= 1e-4 and d_rel <= 1e-2, (u_rel, d_rel))
+  require(abs(d_kernel - d_plain) <= 1e-3 * abs(d_64), (d_kernel, d_plain))
+  require(n_split >= count and n_dense == 0, (n_split, n_dense))
+
+  # -- 27. times of the split kernels ---------------------------------------
+  tc = kernel_checks.H100_BF16_TC_FLOP_PER_S
+  amat = dg['sem'].fast_ops.mats['amat']
+  hi2, lo2 = at(dg['sem'].fast_ops, 'bf16x3').split_operator()
+  hia, loa = at(affine, 'bf16x3').split_operator()
+  hi3, lo3 = ops3.dense_split()
+  mstack = affine.mats['mstack']
+  a_dense = ops3.dense_operator_t().T.contiguous()
+  stack = lambda us, rows: torch.cat([u.reshape(rows, -1) for u in us], 1)
+  us2 = dg['us']
+  k2, k3 = amat.shape[0], a_dense.shape[0]
+  cases = {}
+  for precision, passes in cuda_split.PASSES.items():
+    cases[f'stiffness_uniform_{precision}'] = (
+        lambda p=passes: uniform_split(us2, hi2, lo2, p),
+        lambda p=passes: cuda_split.stiffness_uniform_split_plain(
+            us2, hi2, lo2, p),
+        # The library yardstick: one FP32 GEMM of the operator on the
+        # stacked components (the finest class of the same function).
+        lambda: torch.matmul(amat, stack(us2, k2)),
+        cuda_split.split_counts(k2, k2, us2[0].shape[-1], len(us2),
+                                passes=passes))
+    cases[f'stiffness2d_affine_{precision}'] = (
+        lambda p=passes: affine_split(us_lid, affine.g_affine, hia, loa, p),
+        lambda p=passes: cuda_split.stiffness2d_affine_split_plain(
+            us_lid, affine.g_affine, hia, loa, p),
+        lambda: torch.matmul(mstack, stack(us_lid, k16 ** 2)),
+        cuda_split.split_counts(k16 ** 2, k16 ** 2, us_lid[0].shape[-1],
+                                len(us_lid), passes=passes, num_blocks=3))
+  cases['stiffness3d_dense_bf16x3'] = (
+      lambda: uniform_split(us3, hi3, lo3, 3),
+      lambda: cuda_split.stiffness_uniform_split_plain(us3, hi3, lo3, 3),
+      lambda: torch.matmul(a_dense, stack(us3, k3)),
+      cuda_split.split_counts(k3, k3, us3[0].shape[-1], len(us3), passes=3))
+  time_kernels({name: c[:3] for name, c in cases.items()}, times,
+               kernel_checks, device, '[27]')
+  for name, (_, _, _, (flops, nbytes)) in cases.items():
+    times[name].update(kernel_checks.bound(flops, nbytes, tc))
+    times[name]['max_abs_err'] = checks[name][0]['max_abs_err']
+    t = times[name]['ms'] * 1e-3
+    log(f'[27] {name}: {flops / t / 1e12:.3f} TFLOP/s, '
+        f'{nbytes / t / 1e12:.3f} TB/s; bound '
+        f'{times[name]["bound_ms"] * 1e3:.3f} us ({times[name]["bound_by"]},'
+        f' tensor cores)')
+  # The affine kernels at the datagen shape, beside the congruent ones.
+  hi64, lo64 = at(affine64, 'bf16x3').split_operator()
+  for precision, passes in cuda_split.PASSES.items():
+    fn = lambda p=passes: affine_split(us2, affine64.g_affine, hi64, lo64, p)
+    b = kernel_checks.bound(*cuda_split.split_counts(
+        k2, k2, us2[0].shape[-1], len(us2), passes=passes, num_blocks=3), tc)
+    log(f'[27] stiffness2d_affine_{precision} at the datagen shape (9, 9, '
+        f'4096) x 2: {kernel_checks.time_ms(fn, device=device) * 1e3:.2f} '
+        f'us, bound {b["bound_ms"] * 1e3:.3f} us ({b["bound_by"]})')
 
 
 def main() -> int:
@@ -961,9 +1240,15 @@ def main() -> int:
   sem3, us3, tgv_run = run_tgv_phases(torch, device, dtype, tgv,
                                       cuda_stiffness3d, kernel_checks, times,
                                       launches)
-  run_walled_phases(torch, device, dtype, kernel_checks, times, launches)
-  run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
-                     kernel_checks, times, launches, sem3, us3, tgv_run)
+  walled = run_walled_phases(torch, device, dtype, kernel_checks, times,
+                             launches)
+  tgv_box = run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
+                               kernel_checks, times, launches, sem3, us3,
+                               tgv_run)
+  tgv_box.update(full=tgv_run['sem'], us3=us3)
+  dg = {'sem': sem, 'cfg': cfg, 'state': state, 'us': us}
+  run_split_phases(torch, device, dtype, tgv, kernel_checks, times,
+                   launches, dg, walled, tgv_box)
 
   kernels = [
       {'name': 'exchange2d', 'route': 'cuda',
@@ -1017,6 +1302,22 @@ def main() -> int:
        'launches': launches['stiffness3d_pair_general'],
        **times['stiffness3d_pair_general']},
   ]
+  # The split-bf16 classes (csrc/split_bf16_mma.cuh on the tensor cores).
+  for name, source, replaces in (
+      ('stiffness_uniform_bf16x3', 'stiffness_split.cu',
+       'pallas_stiffness.py:298'),
+      ('stiffness_uniform_default', 'stiffness_split.cu',
+       'pallas_stiffness.py:277'),
+      ('stiffness2d_affine_bf16x3', 'stiffness2d_affine_split.cu',
+       'pallas_stiffness.py:247'),
+      ('stiffness2d_affine_default', 'stiffness2d_affine_split.cu',
+       'pallas_stiffness.py:214'),
+      ('stiffness3d_dense_bf16x3', 'stiffness_split.cu',
+       'pallas_stiffness3d.py:65')):
+    kernels.append({'name': name, 'route': 'cuda',
+                    'source': f'swirlfem_tpu_torch/csrc/{source}',
+                    'replaces': f'swirlfem_tpu/ops/{replaces}',
+                    'launches': launches[name], **times[name]})
   for kern in kernels:
     require(kern['launches'] > 0, kern)
     require(all(math.isfinite(kern[key]) for key in

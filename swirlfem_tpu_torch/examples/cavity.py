@@ -65,15 +65,19 @@ def lid_boundary_field(sem: StokesSEM, lid_speed: float = 1.0):
 
 
 def make_step(sem: StokesSEM, *, reynolds: float, dt: float,
-              time_order: int = 2, maxiter: int = 200):
+              time_order: int = 2, maxiter: int = 200,
+              fdm_viscous: bool = True):
   """The step ``(us, ps, cus) -> ((us, ps, cus), aux)`` with the lift
-  `u_boundary` and the exact FDM seeds of both solves."""
+  `u_boundary` and the exact FDM seed of the pressure solve and, with
+  `fdm_viscous`, of the viscous one (else Jacobi-preconditioned CG, where
+  the stiffness apply sets the answer)."""
   u_boundary = lid_boundary_field(sem)
   ext = [float(c) for c in extk_coeffs(k=time_order - 1)]
   # Exact FDM inverse of the Schur operator: the pressure correction
   # converges in 1 iteration instead of O(order * num_elements).
   precond = sem.best_pressure_preconditioner(dt, time_order)
-  vprecond = sem.fdm_viscous_preconditioner(1.0 / reynolds, dt, time_order)
+  vprecond = (sem.fdm_viscous_preconditioner(1.0 / reynolds, dt, time_order)
+              if fdm_viscous else None)
 
   def step(us, ps, cus):
     cu = sum(ext[-i] * cus[-i] for i in range(1, len(ext) + 1))

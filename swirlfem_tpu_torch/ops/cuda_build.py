@@ -27,9 +27,10 @@ _SOURCES = ('exchange2d.cu', 'stiffness_uniform.cu', 'stiffness2d_general.cu',
             'stiffness2d_affine.cu', 'stiffness3d_uniform.cu',
             'stiffness3d_general.cu', 'stiffness3d_dense.cu',
             'stiffness3d_pair.cu', 'stiffness3d_pair_general.cu',
-            'stiffness3d_pair_affine.cu')
+            'stiffness3d_pair_affine.cu', 'stiffness_split.cu',
+            'stiffness2d_affine_split.cu')
 # Headers the sources include; part of the build's hash.
-_HEADERS = ('stiffness3d_pair_slab.cuh',)
+_HEADERS = ('stiffness3d_pair_slab.cuh', 'split_bf16_mma.cuh')
 _FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
           '-Xcompiler', '-fPIC')
 
@@ -67,6 +68,14 @@ _SIGNATURES = {
     # (table, c_affine, us[], outs[], num_c, k, num_e, stream)
     'stiffness3d_pair_affine_f32': (_P, _P, _PP, _PP, _I, _I, _I, _P),
     'stiffness3d_pair_affine_f64': (_P, _P, _PP, _PP, _I, _I, _I, _P),
+    # (hi, lo, us[], outs[], num_c, rows, rows_pad, depth_pad, num_e,
+    #  passes, stream)
+    'stiffness_uniform_split_f32': (_P, _P, _PP, _PP, _I, _I, _I, _I, _I, _I,
+                                    _P),
+    # (hi, lo, c_aff, us[], outs[], num_c, rows, rows_pad, depth_pad, num_e,
+    #  passes, stream)
+    'stiffness2d_affine_split_f32': (_P, _P, _P, _PP, _PP, _I, _I, _I, _I, _I,
+                                     _I, _P),
 }
 
 _library: ctypes.CDLL | None = None

@@ -1,0 +1,260 @@
+"""Split-bf16 classes of the static-operator stiffness: Hopper tensor-core
+kernels and their plain versions.
+
+Replaces the 'bf16x3' and 'default' arithmetic classes of three Pallas
+kernels of the JAX package:
+
+* ``swirlfem_tpu/ops/pallas_stiffness.py:stiffness_el_pallas_uniform``
+  (``_kernel_uniform_mm3``; ``_kernel_uniform_mm`` at ``Precision.DEFAULT``)
+  and ``swirlfem_tpu/ops/pallas_stiffness3d.py:stiffness3d_el_pallas_dense``
+  ('bf16x3'): `stiffness_uniform_split`, ``out_c = A u_c`` for a congruent
+  box's static ``(k^2, k^2)`` or ``(k^3, k^3)`` operator;
+* ``swirlfem_tpu/ops/pallas_stiffness.py:stiffness_el_pallas_affine``
+  (``_kernel_affine_mm3``; ``_kernel_affine_mm`` at DEFAULT):
+  `stiffness2d_affine_split`, ``y = [M11; M12; M22] u`` combined per element
+  with ``c_aff`` (3, E).
+
+The classes, as the JAX package defines them: the float64 operator is
+rounded to float32, ``m32``, and split on the host into ``hi = bf16(m32)``
+and ``lo = bf16(m32 - hi)`` (`split_operator_np`); the field is split in
+the kernel into ``uhi = bf16(u)`` and ``ulo = bf16(u - uhi)``; 'bf16x3'
+computes ``hi uhi + hi ulo + lo uhi`` and 'default' ``hi uhi`` (the TPU's
+single bf16 pass), both accumulating in float32.  A bf16 product is exact
+in float32, so kernel and plain version differ only in the order of their
+sums.
+
+The kernels (``csrc/stiffness_split.cu``, ``csrc/stiffness2d_affine_split.cu``,
+on ``csrc/split_bf16_mma.cuh``) run ``mma.sync`` bf16 tensor-core products
+and take float32 only: the classes are defined on float32.  Each wrapper
+takes its plain version only for CPU tensors; for CUDA tensors it launches
+its kernel or raises, and counts the launch in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from swirlfem_tpu_torch.ops import cuda_build
+
+# Arithmetic class -> bf16 passes.
+PASSES = {'bf16x3': 3, 'default': 1}
+MAX_COMPONENTS = 4
+# Rows and depth of the split operator are padded to multiples of this.
+PAD = 16
+# The affine kernel holds every row of each operator block in one tile.
+MAX_AFFINE_ROWS_PAD = 128
+
+
+def _ceil_pad(n: int) -> int:
+  return -(-n // PAD) * PAD
+
+
+def split_operator_np(m64, num_blocks: int = 1) -> np.ndarray:
+  """The host split of a static operator, as the kernels take it.
+
+  Args:
+    m64: the float64 operator, ``(num_blocks * M, K)``: `num_blocks` blocks
+      of M rows stacked (3 for the affine ``[M11; M12; M22]``).
+    num_blocks: number of stacked operator blocks.
+
+  Returns float32 ``(2, num_blocks * M_pad, K_pad)``: ``[hi, lo]``, each
+  entry a bf16 value, with ``hi = bf16(f32(m64))`` and
+  ``lo = bf16(f32(m64) - hi)`` (round to nearest even), block b's rows at
+  ``[b M_pad, b M_pad + M)``, zero padding; M_pad and K_pad are M and K
+  rounded up to a multiple of 16.
+  """
+  m64 = np.asarray(m64, dtype=np.float64)
+  rows, depth = m64.shape
+  if rows % num_blocks:
+    raise ValueError(f'{rows} rows do not split into {num_blocks} blocks')
+  m = rows // num_blocks
+  m32 = torch.from_numpy(m64.astype(np.float32))
+  hi = m32.to(torch.bfloat16)
+  lo = (m32 - hi.float()).to(torch.bfloat16)
+  out = np.zeros((2, num_blocks, _ceil_pad(m), _ceil_pad(depth)), np.float32)
+  for i, part in enumerate((hi, lo)):
+    out[i, :, :m, :depth] = part.float().numpy().reshape(num_blocks, m, depth)
+  return out.reshape(2, num_blocks * _ceil_pad(m), _ceil_pad(depth))
+
+
+def split_product_plain(hi: torch.Tensor, lo: torch.Tensor, u: torch.Tensor,
+                        passes: int) -> torch.Tensor:
+  """``hi uhi (+ hi ulo + lo uhi)`` in `u`'s dtype: the JAX package's
+  ``_kernel_uniform_mm3`` (three passes) or its one bf16 pass.
+
+  `hi`, `lo` are the padded bf16 split ``(R, K_pad)``; `u` is ``(K, E)``.
+  Returns ``(R, E)``.
+  """
+  dtype = u.dtype
+  depth = u.shape[0]
+  uhi = u.to(torch.bfloat16)
+  a_hi = hi[:, :depth].to(dtype)
+  y = a_hi @ uhi.to(dtype)
+  if passes == 3:
+    ulo = (u - uhi.to(dtype)).to(torch.bfloat16)
+    y = y + a_hi @ ulo.to(dtype) + lo[:, :depth].to(dtype) @ uhi.to(dtype)
+  elif passes != 1:
+    raise ValueError(f'passes must be 1 or 3, got {passes}')
+  return y
+
+
+def stiffness_uniform_split_plain(us, hi: torch.Tensor, lo: torch.Tensor,
+                                  passes: int):
+  """`split_product_plain` of each ``(k, k, E)`` / ``(k, k, k, E)`` (or
+  ``(rows, E)``) component."""
+  outs = []
+  for u in us:
+    rows = int(np.prod(u.shape[:-1]))
+    y = split_product_plain(hi, lo, u.reshape(rows, -1), passes)
+    outs.append(y[:rows].reshape(u.shape))
+  return tuple(outs)
+
+
+def stiffness2d_affine_split_plain(us, c_aff: torch.Tensor, hi: torch.Tensor,
+                                   lo: torch.Tensor, passes: int):
+  """``y = [M11; M12; M22] u`` in the split class, then
+  ``c11 y1 + c12 y2 + c22 y3`` per element (``_kernel_affine_mm3``)."""
+  m_pad = hi.shape[0] // 3
+  outs = []
+  for u in us:
+    rows = int(np.prod(u.shape[:-1]))
+    y = split_product_plain(hi, lo, u.reshape(rows, -1), passes)
+    outs.append((c_aff[0] * y[:rows] + c_aff[1] * y[m_pad:m_pad + rows]
+                 + c_aff[2] * y[2 * m_pad:2 * m_pad + rows]).reshape(u.shape))
+  return tuple(outs)
+
+
+def _check(what, us, hi, lo, passes, num_blocks):
+  """Validates the arguments; returns (us, rows)."""
+  us = tuple(us)
+  if not us:
+    raise ValueError(f'{what}: no components')
+  if passes not in (1, 3):
+    raise ValueError(f'{what}: passes must be 1 or 3, got {passes}')
+  shape = tuple(us[0].shape)
+  rows = int(np.prod(shape[:-1]))
+  if (hi.ndim != 2 or tuple(lo.shape) != tuple(hi.shape)
+      or hi.shape[0] % (PAD * num_blocks) or hi.shape[1] % PAD
+      or hi.shape[0] // num_blocks < rows or hi.shape[1] < rows):
+    raise ValueError(f'{what}: a split operator of shape {tuple(hi.shape)} '
+                     f'does not match {num_blocks} blocks of {rows} rows')
+  if hi.dtype != torch.bfloat16 or lo.dtype != torch.bfloat16:
+    raise TypeError(f'{what}: the split operator must be bfloat16')
+  for u in us:
+    if tuple(u.shape) != shape:
+      raise ValueError(f'{what}: components must have the same shape')
+    if u.device != hi.device or lo.device != hi.device:
+      raise ValueError(f'{what}: fields and operator must share a device')
+  return us, rows
+
+
+def _check_launchable(what, tensors, num_c):
+  if tensors[0].device.type != 'cuda':
+    raise ValueError(f'{what}: unsupported device {tensors[0].device}')
+  if tensors[0].dtype != torch.float32:
+    raise TypeError(f'{what} kernel takes float32 (the class is defined on '
+                    f'float32), got {tensors[0].dtype}')
+  if not 1 <= num_c <= MAX_COMPONENTS:
+    raise ValueError(f'{what} kernel takes 1..{MAX_COMPONENTS} components, '
+                     f'got {num_c}')
+  if not all(t.is_contiguous() for t in tensors):
+    raise ValueError(f'{what} kernel needs contiguous tensors')
+
+
+def _ptrs(tensors):
+  return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def stiffness_uniform_split(us, hi: torch.Tensor, lo: torch.Tensor,
+                            passes: int):
+  """Congruent-element stiffness of C components in a split-bf16 class.
+
+  Args:
+    us: tuple of C component fields, each ``(k, k, E)`` (2D) or
+      ``(k, k, k, E)`` (3D dense), or ``(rows, E)``.
+    hi, lo: the bf16 split of the ``(rows, rows)`` operator
+      (`split_operator_np`), on the fields' device.
+    passes: 3 ('bf16x3') or 1 ('default').
+
+  CPU tensors: `stiffness_uniform_split_plain`.  CUDA tensors: one launch
+  of the tensor-core kernel for all components, counted in
+  ``stiffness_uniform_split.launches``.
+  """
+  us, rows = _check('stiffness_uniform_split', us, hi, lo, passes, 1)
+  if hi.device.type == 'cpu':
+    return stiffness_uniform_split_plain(us, hi, lo, passes)
+  _check_launchable('stiffness_uniform_split', us + (hi, lo), len(us))
+  outs = tuple(torch.empty_like(u) for u in us)
+  stream = torch.cuda.current_stream(hi.device).cuda_stream
+  cuda_build.check(cuda_build.library().stiffness_uniform_split_f32(
+      hi.data_ptr(), lo.data_ptr(), _ptrs(us), _ptrs(outs), len(us), rows,
+      hi.shape[0], hi.shape[1], us[0].shape[-1], passes, stream),
+                   'stiffness_uniform_split')
+  stiffness_uniform_split.launches += 1
+  return outs
+
+
+stiffness_uniform_split.launches = 0
+
+
+def stiffness2d_affine_split(us, c_aff: torch.Tensor, hi: torch.Tensor,
+                             lo: torch.Tensor, passes: int):
+  """Affine-element 2D stiffness of C components in a split-bf16 class.
+
+  Args:
+    us: tuple of C component fields, each ``(k, k, E)`` or ``(k^2, E)``.
+    c_aff: per-element metric scalars ``[c11; c12; c22]``, shape (3, E), in
+      the fields' dtype.
+    hi, lo: the bf16 split of ``[M11; M12; M22]``
+      (``split_operator_np(mstack, num_blocks=3)``).
+    passes: 3 ('bf16x3') or 1 ('default').
+
+  CPU tensors: `stiffness2d_affine_split_plain`.  CUDA tensors: one launch
+  of the tensor-core kernel for all components, counted in
+  ``stiffness2d_affine_split.launches``.
+  """
+  us, rows = _check('stiffness2d_affine_split', us, hi, lo, passes, 3)
+  num_e = us[0].shape[-1]
+  if (tuple(c_aff.shape) != (3, num_e) or c_aff.device != hi.device
+      or c_aff.dtype != us[0].dtype):
+    raise ValueError(f'c_aff must be (3, {num_e}) on the fields\' device and '
+                     f'dtype, got {tuple(c_aff.shape)}')
+  if hi.device.type == 'cpu':
+    return stiffness2d_affine_split_plain(us, c_aff, hi, lo, passes)
+  _check_launchable('stiffness2d_affine_split', us + (c_aff, hi, lo),
+                    len(us))
+  if hi.shape[0] // 3 > MAX_AFFINE_ROWS_PAD:
+    raise ValueError(f'stiffness2d_affine_split kernel takes k^2 <= '
+                     f'{MAX_AFFINE_ROWS_PAD}; got {rows}')
+  outs = tuple(torch.empty_like(u) for u in us)
+  stream = torch.cuda.current_stream(hi.device).cuda_stream
+  cuda_build.check(cuda_build.library().stiffness2d_affine_split_f32(
+      hi.data_ptr(), lo.data_ptr(), c_aff.data_ptr(), _ptrs(us), _ptrs(outs),
+      len(us), rows, hi.shape[0] // 3, hi.shape[1], num_e, passes, stream),
+                   'stiffness2d_affine_split')
+  stiffness2d_affine_split.launches += 1
+  return outs
+
+
+stiffness2d_affine_split.launches = 0
+
+
+def split_counts(rows: int, depth: int, num_elems: int, num_components: int,
+                 *, passes: int, num_blocks: int = 1) -> tuple[int, int]:
+  """Analytic ``(flops, bytes)`` of one split-class apply: ``passes`` bf16
+  products of the ``(num_blocks rows, depth)`` operator with each
+  component (plus the ``5 rows`` flops of the affine combination per
+  element), every float32 component read and written once, the bf16
+  operator parts (hi, and lo with three passes) read once, and the affine
+  scalars (3, E) read once."""
+  c = num_components
+  flops = c * num_elems * (passes * 2 * num_blocks * rows * depth
+                           + (5 * rows if num_blocks == 3 else 0))
+  parts = 2 if passes == 3 else 1
+  nbytes = (2 * c * rows * num_elems * 4
+            + parts * num_blocks * _ceil_pad(rows) * _ceil_pad(depth) * 2
+            + (3 * num_elems * 4 if num_blocks == 3 else 0))
+  return flops, nbytes

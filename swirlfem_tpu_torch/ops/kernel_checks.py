@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from swirlfem_tpu_torch.ops import cuda_exchange
+from swirlfem_tpu_torch.ops import cuda_split
 from swirlfem_tpu_torch.ops import cuda_stiffness
 from swirlfem_tpu_torch.ops import cuda_stiffness2d
 from swirlfem_tpu_torch.ops import cuda_stiffness3d
@@ -21,18 +22,36 @@ from swirlfem_tpu_torch.ops import cuda_stiffness3d
 # Gate of the stiffness kernel against the float64 operator, relative to
 # the largest output entry (the JAX bench's gate, bench.py:602-611).
 STIFFNESS_REL_TOL = 1e-5
+# The split-bf16 classes against the float64 operator: 'bf16x3' at the JAX
+# bench's gate (bench.py:639, 464), 'default' (one bf16 pass; JAX measured
+# ~3e-3, swirlfem_tpu/ops/sem2d.py:179).  Each error must also exceed its
+# floor, which shows that the class's rounding really happened.
+SPLIT_REL_TOL = 1e-4
+DEFAULT_REL_TOL = 1e-2
+CLASS_BANDS = {'bf16x3': (1e-7, SPLIT_REL_TOL),
+               'default': (1e-5, DEFAULT_REL_TOL)}
+# A split kernel against its plain version, relative to the largest output
+# entry: both sum the same exact bf16 products, in another order.
+SPLIT_VS_PLAIN_TOL = 1e-5
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
-# HBM3 bandwidth and FP32 (non-tensor-core) rate.  A kernel's bound is the
-# larger of its bytes over the first and its operations over the second.
+# HBM3 bandwidth, FP32 (non-tensor-core) rate and dense bf16 tensor-core
+# rate.  A kernel's bound is the larger of its bytes over the first and its
+# operations over the rate of their type.
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_FLOP_PER_S = 67e12
+H100_BF16_TC_FLOP_PER_S = 989e12
 
 
-def bound(flops: float, nbytes: float) -> dict:
-  """The least time the card could take: ``bound_ms`` and ``bound_by``."""
+def bound(flops: float, nbytes: float,
+          flop_per_s: float = H100_FP32_FLOP_PER_S) -> dict:
+  """The least time the card could take: ``bound_ms`` and ``bound_by``.
+
+  `flop_per_s` is the peak rate of the operations' type: FP32 by default,
+  `H100_BF16_TC_FLOP_PER_S` for the split-bf16 tensor-core kernels.
+  """
   t_bytes = nbytes / H100_BYTES_PER_S
-  t_ops = flops / H100_FP32_FLOP_PER_S
+  t_ops = flops / flop_per_s
   return {'bound_ms': max(t_bytes, t_ops) * 1e3,
           'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
 
@@ -96,6 +115,59 @@ def check_stiffness2d_affine(ops, us) -> dict:
       tuple(u.double() for u in us), ops.g_affine.double(), m64)
   torch.cuda.synchronize(mstack.device)
   return _errors(got, plain, ref)
+
+
+def _split_errors(got, plain, ref) -> dict:
+  """`_errors` plus the kernel against its plain version relative to the
+  plain output's largest entry, ``rel_err_plain``."""
+  errs = _errors(got, plain, ref)
+  errs['rel_err_plain'] = errs['max_abs_err'] / max(
+      float(p.abs().max()) for p in plain)
+  return errs
+
+
+def check_stiffness_uniform_split(ops, us) -> dict:
+  """The congruent 2D stiffness in `ops.kernel_precision` ('bf16x3' or
+  'default'), through `Sem2DOps.stiffness_el_multi` (the split kernel on a
+  CUDA device), vs its plain version and the float64 operator."""
+  got = ops.stiffness_el_multi(us)
+  passes = cuda_split.PASSES[ops.kernel_precision]
+  plain = cuda_split.stiffness_uniform_split_plain(us, *ops.split_operator(),
+                                                   passes)
+  a64 = torch.as_tensor(
+      cuda_stiffness.uniform_amat_np(ops.c_uniform, ops.wq2d, ops.dmat),
+      dtype=torch.float64, device=us[0].device)
+  ref = cuda_stiffness.stiffness_uniform_plain(
+      tuple(u.double() for u in us), a64)
+  torch.cuda.synchronize(us[0].device)
+  return _split_errors(got, plain, ref)
+
+
+def check_stiffness2d_affine_split(ops, us) -> dict:
+  """The affine 2D stiffness in `ops.kernel_precision` through
+  `Sem2DOps.stiffness_el_multi`, vs its plain version and the float64
+  stacked operator on the same scalars."""
+  got = ops.stiffness_el_multi(us)
+  passes = cuda_split.PASSES[ops.kernel_precision]
+  plain = cuda_split.stiffness2d_affine_split_plain(
+      us, ops.g_affine, *ops.split_operator(), passes)
+  m64 = torch.as_tensor(cuda_stiffness.affine_mstack_np(ops.wq2d, ops.dmat),
+                        dtype=torch.float64, device=us[0].device)
+  ref = cuda_stiffness2d.stiffness2d_affine_plain(
+      tuple(u.double() for u in us), ops.g_affine.double(), m64)
+  torch.cuda.synchronize(us[0].device)
+  return _split_errors(got, plain, ref)
+
+
+def check_stiffness3d_dense_split(ops, us) -> dict:
+  """The dense 3D kernel in the 'bf16x3' class vs its plain version and the
+  float64 dense operator of the congruent box."""
+  hi, lo = ops.dense_split()
+  got = cuda_split.stiffness_uniform_split(us, hi, lo, 3)
+  plain = cuda_split.stiffness_uniform_split_plain(us, hi, lo, 3)
+  ref = _uniform_ref64(ops, us)
+  torch.cuda.synchronize(hi.device)
+  return _split_errors(got, plain, ref)
 
 
 def _errors(got, plain, ref) -> dict:

@@ -17,10 +17,11 @@ by (operator class, implementation), `STIFFNESS_DISPATCH`: the class is
 congruent (one dense element operator, ops.cuda_stiffness), affine
 (per-element scalars on a stacked operator) or general (three factor
 fields, both in ops.cuda_stiffness2d); the implementation is the kernel's
-arithmetic class, `kernel_precision`.  CPU tensors run the class's plain
-version for every key; CUDA tensors run the hand-written kernel where the
-key has one and raise `NotImplementedError`, naming the ROADMAP.md item,
-where it has none.
+arithmetic class, `kernel_precision`: 'highest' (FP32 FFMA kernels) or the
+split-bf16 classes 'bf16x3' and 'default' (tensor-core kernels of
+ops.cuda_split on the congruent and affine classes).  Every key has a plain
+version, which CPU tensors run, and a hand-written kernel, which CUDA
+tensors run.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from swirlfem_tpu_torch.core.structured import StructuredInfo
 from swirlfem_tpu_torch.ops import cuda_exchange
 from swirlfem_tpu_torch.ops import cuda_stiffness
 from swirlfem_tpu_torch.ops import cuda_stiffness2d
+from swirlfem_tpu_torch.ops import cuda_split
 
 KERNEL_PRECISIONS = ('highest', 'bf16x3', 'default')
 
@@ -104,14 +106,10 @@ CONGRUENT, AFFINE, GENERAL = 'congruent', 'affine', 'general'
 
 @dataclasses.dataclass(frozen=True)
 class _Entry:
-  """One (operator class, implementation) key of the stiffness dispatch.
-
-  `plain` is the CPU version; `kernel` the CUDA one, or None with `todo`
-  naming the ROADMAP.md item that ports it.
-  """
+  """One (operator class, implementation) key of the stiffness dispatch:
+  `plain` is the CPU version, `kernel` the CUDA one."""
   plain: object
-  kernel: object = None
-  todo: str = ''
+  kernel: object
 
 
 def _uniform_plain(ops, us):
@@ -142,16 +140,35 @@ def _general_kernel(ops, us):
       us, (ops.g11, ops.g12, ops.g22), ops.mats['dmat'])
 
 
-_PRECISION_TODO = ("has no Hopper kernel yet; only 'highest' is ported "
-                   '(ROADMAP.md, Queue 2 item 2)')
+def _uniform_split_plain(ops, us):
+  return cuda_split.stiffness_uniform_split_plain(
+      us, *ops.split_operator(), cuda_split.PASSES[ops.kernel_precision])
+
+
+def _uniform_split_kernel(ops, us):
+  return cuda_split.stiffness_uniform_split(
+      us, *ops.split_operator(), cuda_split.PASSES[ops.kernel_precision])
+
+
+def _affine_split_plain(ops, us):
+  return cuda_split.stiffness2d_affine_split_plain(
+      us, ops.g_affine, *ops.split_operator(),
+      cuda_split.PASSES[ops.kernel_precision])
+
+
+def _affine_split_kernel(ops, us):
+  return cuda_split.stiffness2d_affine_split(
+      us, ops.g_affine, *ops.split_operator(),
+      cuda_split.PASSES[ops.kernel_precision])
+
 
 STIFFNESS_DISPATCH = {
     (CONGRUENT, 'highest'): _Entry(_uniform_plain, _uniform_kernel),
     (AFFINE, 'highest'): _Entry(_affine_plain, _affine_kernel),
-    **{(cls, p): _Entry(plain, todo=_PRECISION_TODO)
-       for cls, plain in ((CONGRUENT, _uniform_plain),
-                          (AFFINE, _affine_plain))
-       for p in KERNEL_PRECISIONS[1:]},
+    **{(CONGRUENT, p): _Entry(_uniform_split_plain, _uniform_split_kernel)
+       for p in cuda_split.PASSES},
+    **{(AFFINE, p): _Entry(_affine_split_plain, _affine_split_kernel)
+       for p in cuda_split.PASSES},
     # The TPU's general kernel has one arithmetic class (HIGHEST) whatever
     # the knob says, and so does its port.
     **{(GENERAL, p): _Entry(_general_plain, _general_kernel)
@@ -193,12 +210,13 @@ class Sem2DOps:
   # Congruent elements (every element shares the same metric scalars):
   # the shared (c11, c12, c22); the stiffness is then one dense matrix.
   c_uniform: tuple | None = None
-  # Arithmetic class of the stiffness kernel.  Only 'highest' (FP32, no
-  # TF32) has a Hopper kernel; see ROADMAP.md, Queue 2 item 2.
+  # Arithmetic class of the congruent and affine stiffness: 'highest'
+  # (FP32, no TF32), 'bf16x3' (three bf16 tensor-core passes, ~1e-5
+  # relative) or 'default' (one bf16 pass, ~1e-3: preconditioner grade).
   kernel_precision: str = 'highest'
   # Device copies of the 1D matrices (and of the congruent-element operator
   # 'amat' and the affine operator stack 'mstack'), in the working dtype;
-  # filled in __post_init__.
+  # filled in __post_init__; `const` adds others at first use.
   mats: dict = dataclasses.field(default_factory=dict, repr=False,
                                  compare=False)
 
@@ -228,12 +246,33 @@ class Sem2DOps:
         moved[f.name] = val.to(device=device, dtype=dtype).contiguous()
     return dataclasses.replace(self, **moved)
 
-  def const(self, key: str, value: np.ndarray) -> torch.Tensor:
-    """Device copy of a static host matrix, made once and cached."""
+  def const(self, key: str, value, dtype: torch.dtype | None = None
+            ) -> torch.Tensor:
+    """Device copy of a static host matrix, made once and cached.
+
+    `value` is the matrix or a callable that builds it (called only when
+    `key` is not cached yet); `dtype` defaults to the working dtype.
+    """
     if key not in self.mats:
-      self.mats[key] = torch.as_tensor(value, dtype=self.wmass.dtype,
-                                       device=self.wmass.device)
+      if callable(value):
+        value = value()
+      self.mats[key] = torch.as_tensor(
+          value, dtype=self.wmass.dtype if dtype is None else dtype,
+          device=self.wmass.device)
     return self.mats[key]
+
+  def split_operator(self):
+    """``(hi, lo)``: the bf16 split (`cuda_split.split_operator_np`) of the
+    congruent operator or of the affine stack, made once and cached."""
+    if self.c_uniform is not None:
+      split = self.const('amat_split', lambda: cuda_split.split_operator_np(
+          cuda_stiffness.uniform_amat_np(self.c_uniform, self.wq2d,
+                                         self.dmat)), torch.bfloat16)
+    else:
+      split = self.const('mstack_split', lambda: cuda_split.split_operator_np(
+          cuda_stiffness.affine_mstack_np(self.wq2d, self.dmat),
+          num_blocks=3), torch.bfloat16)
+    return split[0], split[1]
 
   # -- 1D contractions (axis 0 = xi, axis 1 = eta; E last) ----------------
 
@@ -271,13 +310,8 @@ class Sem2DOps:
     """A_local on a tuple of components, in one call of the dispatched
     implementation (one kernel launch on CUDA)."""
     us = tuple(us)
-    key = self.stiffness_key
-    entry = STIFFNESS_DISPATCH[key]
-    if not us[0].is_cuda:
-      return entry.plain(self, us)
-    if entry.kernel is None:
-      raise NotImplementedError(f'2D stiffness {key} {entry.todo}')
-    return entry.kernel(self, us)
+    entry = STIFFNESS_DISPATCH[self.stiffness_key]
+    return (entry.kernel if us[0].is_cuda else entry.plain)(self, us)
 
   def stiffness_diag_el(self) -> torch.Tensor:
     """Element-local diagonal of the stiffness operator, (n, n, E).

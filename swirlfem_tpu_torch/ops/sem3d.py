@@ -27,6 +27,7 @@ import torch
 
 from swirlfem_tpu_torch.core.structured import _scatter_axis
 from swirlfem_tpu_torch.core.structured import StructuredInfo
+from swirlfem_tpu_torch.ops import cuda_split
 from swirlfem_tpu_torch.ops import cuda_stiffness3d
 
 
@@ -143,14 +144,16 @@ def _general_kernel(ops, us):
 
 
 def _dense_plain(ops, us):
+  if ops.kernel_precision in cuda_split.PASSES:
+    return cuda_split.stiffness_uniform_split_plain(
+        us, *ops.dense_split(), cuda_split.PASSES[ops.kernel_precision])
   return cuda_stiffness3d.stiffness3d_dense_plain(us, ops.dense_operator_t())
 
 
 def _dense_kernel(ops, us):
-  if ops.kernel_precision not in (None, 'highest'):
-    raise NotImplementedError(
-        f'3D dense stiffness at kernel_precision {ops.kernel_precision!r} '
-        + _QUEUE2.format(8))
+  if ops.kernel_precision in cuda_split.PASSES:
+    return cuda_split.stiffness_uniform_split(
+        us, *ops.dense_split(), cuda_split.PASSES[ops.kernel_precision])
   return cuda_stiffness3d.stiffness3d_dense(us, ops.dense_operator_t())
 
 
@@ -184,7 +187,7 @@ def _pair_affine_kernel(ops, us):
 
 STIFFNESS_DISPATCH = {
     (CONGRUENT, 'fused'): _Entry(_uniform_plain, _uniform_kernel),
-    # Class 'highest' only; 'bf16x3' raises on CUDA (Queue 2 item 8).
+    # 'highest' (FP32 FFMA) or 'bf16x3' (tensor cores), by kernel_precision.
     (CONGRUENT, 'dense'): _Entry(_dense_plain, _dense_kernel),
     (CONGRUENT, 'pair'): _Entry(_pair_plain, _pair_kernel),
     # The affine kernel is the 'pair' layout of the affine operator.
@@ -243,8 +246,8 @@ class Sem3DOps:
   uniform_kernel_impl: str = 'fused'
   general_kernel_impl: str = 'fused'
   # Arithmetic class of the dense congruent kernel: None / 'highest' = full
-  # working precision; 'bf16x3' = the three-pass split class (plain version
-  # on the CPU; no Hopper kernel yet).
+  # working precision; 'bf16x3' = the three-pass split class (tensor cores,
+  # float32 only, ops.cuda_split).
   kernel_precision: str | None = None
   # Device copies of the 1D matrices (and of the congruent coefficient
   # table 'table'), in the working dtype; filled in __post_init__.
@@ -282,17 +285,20 @@ class Sem3DOps:
         moved[f.name] = val.to(device=device, dtype=dtype).contiguous()
     return dataclasses.replace(self, **moved)
 
-  def const(self, key: str, value) -> torch.Tensor:
+  def const(self, key: str, value, dtype: torch.dtype | None = None
+            ) -> torch.Tensor:
     """Device copy of a static host matrix, made once and cached.
 
     `value` is the float64 matrix, or a callable that builds it (called
-    only when `key` is not cached yet).
+    only when `key` is not cached yet); `dtype` defaults to the working
+    dtype.
     """
     if key not in self.mats:
       if callable(value):
         value = value()
       self.mats[key] = torch.as_tensor(
-          np.ascontiguousarray(value), dtype=self.wmass.dtype,
+          np.ascontiguousarray(value),
+          dtype=self.wmass.dtype if dtype is None else dtype,
           device=self.wmass.device)
     return self.mats[key]
 
@@ -304,6 +310,14 @@ class Sem3DOps:
     """The transposed dense ``(k^3, k^3)`` operator of a congruent box."""
     return self.const('amat3d_t', lambda: cuda_stiffness3d.uniform_amat3d_np(
         self.c_uniform, self.w1, self.dmat).T)
+
+  def dense_split(self):
+    """``(hi, lo)``: the bf16 split (`cuda_split.split_operator_np`) of the
+    dense ``(k^3, k^3)`` operator of a congruent box, made once."""
+    split = self.const('amat3d_split', lambda: cuda_split.split_operator_np(
+        cuda_stiffness3d.uniform_amat3d_np(self.c_uniform, self.w1,
+                                           self.dmat)), torch.bfloat16)
+    return split[0], split[1]
 
   def pair_table(self) -> torch.Tensor:
     """`cuda_stiffness3d.pair_table_np` of a congruent box, on the device."""

@@ -21,6 +21,7 @@ from swirlfem_tpu_torch.examples import taylor_green_3d as tgv
 from swirlfem_tpu_torch.niles import datagen
 from swirlfem_tpu_torch.nse.solver import StokesSEM
 from swirlfem_tpu_torch.ops import cuda_exchange
+from swirlfem_tpu_torch.ops import cuda_split
 from swirlfem_tpu_torch.ops import cuda_stiffness
 from swirlfem_tpu_torch.ops import cuda_stiffness2d
 from swirlfem_tpu_torch.ops import cuda_stiffness3d
@@ -87,9 +88,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(device):
   with pytest.raises(ValueError, match='components'):
     cuda_stiffness.stiffness_uniform((w.reshape(5, 5, 16),) * 5,
                                      sem.fast_ops.mats['amat'])
-  bf16x3 = dataclasses.replace(sem.fast_ops, kernel_precision='bf16x3')
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    bf16x3.stiffness_el(w.reshape(5, 5, 16))
+  # The split classes launch the tensor-core kernel, float32 only.
+  for precision in ('bf16x3', 'default'):
+    split = dataclasses.replace(sem.fast_ops, kernel_precision=precision)
+    before = cuda_split.stiffness_uniform_split.launches
+    split.stiffness_el(w.reshape(5, 5, 16))
+    assert cuda_split.stiffness_uniform_split.launches == before + 1
+    with pytest.raises(TypeError, match='float32'):
+      split.to(device, torch.float64).stiffness_el(
+          w.double().reshape(5, 5, 16))
 
 
 @pytest.mark.parametrize('exact_solves', [True, False])
@@ -296,12 +303,20 @@ def test_stiffness3d_launches_and_dispatch(device):
   count = cuda_stiffness3d.stiffness3d_pair_affine.launches
   dataclasses.replace(affine, use_affine_kernel=True).stiffness_el_multi(us)
   assert cuda_stiffness3d.stiffness3d_pair_affine.launches == count + 1
+  # The dense key at 'bf16x3' launches the split kernel, float32 only.
+  dense3 = dataclasses.replace(ops, uniform_kernel_impl='dense',
+                               kernel_precision='bf16x3')
+  count = cuda_split.stiffness_uniform_split.launches
+  dense3.stiffness_el_multi(us)
+  assert cuda_split.stiffness_uniform_split.launches == count + 1
+  with pytest.raises(TypeError, match='float32'):
+    dense3.to(ops.wmass.device, torch.float64).stiffness_el_multi(
+        tuple(u.double() for u in us))
   # Keys without one raise, naming their ROADMAP item.
-  for knobs in (dict(uniform_kernel_impl='dense', kernel_precision='bf16x3'),
-                dict(use_uniform_kernel=False, general_kernel_impl='pairz'),
-                dict(use_uniform_kernel=False, general_kernel_impl='pairs2')):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-      dataclasses.replace(ops, **knobs).stiffness_el_multi(us)
+  for impl in ('pairz', 'pairs2', 'pairs4'):
+    with pytest.raises(NotImplementedError, match='Queue 2 item 10'):
+      dataclasses.replace(ops, use_uniform_kernel=False,
+                          general_kernel_impl=impl).stiffness_el_multi(us)
   with pytest.raises(ValueError, match='components'):
     cuda_stiffness3d.stiffness3d_uniform(us * 3, ops.mats['table'])
   with pytest.raises(ValueError, match='contiguous'):
@@ -391,9 +406,14 @@ def test_stiffness2d_launches_and_dispatch(device):
   assert (cuda_stiffness2d.stiffness2d_general.launches,
           cuda_stiffness2d.stiffness2d_affine.launches) == (before[0] + 1,
                                                             before[1] + 1)
-  bf16x3 = dataclasses.replace(affine, kernel_precision='bf16x3')
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    bf16x3.stiffness_el_multi(us)
+  for precision in ('bf16x3', 'default'):
+    split = dataclasses.replace(affine, kernel_precision=precision)
+    count = cuda_split.stiffness2d_affine_split.launches
+    split.stiffness_el_multi(us)
+    assert cuda_split.stiffness2d_affine_split.launches == count + 1
+    with pytest.raises(TypeError, match='float32'):
+      split.to(split.wmass.device, torch.float64).stiffness_el_multi(
+          tuple(u.double() for u in us))
   with pytest.raises(ValueError, match='components'):
     cuda_stiffness2d.stiffness2d_general(us * 3, (general.g11, general.g12,
                                                   general.g22),
@@ -416,3 +436,49 @@ def test_walled_cavities_on_card_match_cpu(device):
   for g, c in zip(*out):
     err = float((g.cpu() - c).abs().max() / c.abs().max())
     assert err <= 1e-10, err
+
+
+# The split-bf16 classes: kernel vs plain version and the float64 operator.
+@pytest.mark.parametrize('precision', ['bf16x3', 'default'])
+@pytest.mark.parametrize('order,num_e', [(8, 4096), (8, 37), (7, 256),
+                                         (3, 100)])
+@pytest.mark.parametrize('num_c', [1, 2, 4])
+def test_stiffness_uniform_split_matches_plain(device, order, num_e, num_c,
+                                               precision):
+  _, sem = _solver(device, torch.float32, resolution=4, order=order)
+  ops = dataclasses.replace(sem.fast_ops, kernel_precision=precision)
+  k = order + 1
+  us = tuple(kernel_checks.random_field((k, k, num_e), dtype=torch.float32,
+                                        device=device, seed=s)
+             for s in range(num_c))
+  result = kernel_checks.check_stiffness_uniform_split(ops, us)
+  low, high = kernel_checks.CLASS_BANDS[precision]
+  assert result['rel_err_plain'] <= kernel_checks.SPLIT_VS_PLAIN_TOL, result
+  assert low < result['rel_err_f64'] <= high, result
+
+
+@pytest.mark.parametrize('precision', ['bf16x3', 'default'])
+@pytest.mark.parametrize('n_el,order', _CASES_2D)
+@pytest.mark.parametrize('num_c', [1, 2])
+def test_stiffness2d_affine_split_matches_plain(device, n_el, order, num_c,
+                                                precision):
+  del device
+  ops = dataclasses.replace(_walled_ops('affine', n_el, order, torch.float32),
+                            kernel_precision=precision)
+  result = kernel_checks.check_stiffness2d_affine_split(
+      ops, _fields2d(ops, num_c, 1))
+  low, high = kernel_checks.CLASS_BANDS[precision]
+  assert result['rel_err_plain'] <= kernel_checks.SPLIT_VS_PLAIN_TOL, result
+  assert low < result['rel_err_f64'] <= high, result
+
+
+@pytest.mark.parametrize('n_el,order', _CASES_3D)
+@pytest.mark.parametrize('num_c', [1, 3])
+def test_stiffness3d_dense_split_matches_plain(device, n_el, order, num_c):
+  del device
+  ops = _tgv_ops(n_el, order, torch.float32)
+  result = kernel_checks.check_stiffness3d_dense_split(
+      ops, _fields3d(ops, num_c, 1))
+  low, high = kernel_checks.CLASS_BANDS['bf16x3']
+  assert result['rel_err_plain'] <= kernel_checks.SPLIT_VS_PLAIN_TOL, result
+  assert low < result['rel_err_f64'] <= high, result

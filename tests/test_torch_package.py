@@ -29,6 +29,7 @@ MODULES = [
     'swirlfem_tpu_torch.nse.solver',
     'swirlfem_tpu_torch.ops.cuda_build',
     'swirlfem_tpu_torch.ops.cuda_exchange',
+    'swirlfem_tpu_torch.ops.cuda_split',
     'swirlfem_tpu_torch.ops.cuda_stiffness',
     'swirlfem_tpu_torch.ops.cuda_stiffness2d',
     'swirlfem_tpu_torch.ops.cuda_stiffness3d',

@@ -196,13 +196,19 @@ def test_stiffness_uniform_plain_matches_pallas(uniform_ops):
 
 
 def test_kernel_precision_is_validated(uniform_ops):
-  _, ops = uniform_ops
+  jops, ops = uniform_ops
   with pytest.raises(ValueError, match='kernel_precision'):
     dataclasses.replace(ops, kernel_precision='tf32')
-  # Knobs without a Hopper kernel still run their plain version on CPU.
+  # 'bf16x3' runs its class on CPU tensors too: the JAX kernel of that
+  # class in interpret mode, not the 'highest' operator.
   ops3 = dataclasses.replace(ops, kernel_precision='bf16x3')
-  u = torch.ones_like(ops.wmass)
-  torch.testing.assert_close(ops3.stiffness_el(u), ops.stiffness_el(u))
+  u = np.random.default_rng(4).standard_normal(tuple(ops.wmass.shape))
+  want = stiffness_el_pallas_uniform(
+      (jnp.asarray(u),), jops.c_uniform, jops.wq2d, jops.dmat,
+      precision='bf16x3', interpret=True)[0]
+  got = ops3.stiffness_el(torch.as_tensor(u)).numpy()
+  assert _rel(got, want) <= 1e-12
+  assert _rel(got, ops.stiffness_el(torch.as_tensor(u)).numpy()) > 1e-8
 
 
 @pytest.mark.parametrize('geometry,cls', [('uniform', 'congruent'),
@@ -225,13 +231,12 @@ def test_stiffness_dispatch_by_operator_class(geometry, cls):
   assert before == (cuda_stiffness.stiffness_uniform.launches,
                     cuda_stiffness2d.stiffness2d_general.launches,
                     cuda_stiffness2d.stiffness2d_affine.launches)
-  # Every key has a plain version; on CUDA only 'highest' (and the general
-  # class, which has one arithmetic class) has a kernel.
+  # Every (class, arithmetic class) key has a plain version and a kernel.
+  assert set(sem2d.STIFFNESS_DISPATCH) == {
+      (c, p) for c in (sem2d.CONGRUENT, sem2d.AFFINE, sem2d.GENERAL)
+      for p in sem2d.KERNEL_PRECISIONS}
   for key, entry in sem2d.STIFFNESS_DISPATCH.items():
-    assert entry.plain is not None
-    assert (entry.kernel is not None) == (
-        key[1] == 'highest' or key[0] == sem2d.GENERAL), key
-    assert entry.kernel is not None or 'ROADMAP.md, Queue 2 item 2' in entry.todo
+    assert entry.plain is not None and entry.kernel is not None, key
 
 
 @functools.lru_cache(maxsize=None)

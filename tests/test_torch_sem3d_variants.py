@@ -242,20 +242,29 @@ def test_interop_carries_g_affine_and_knobs(knobs, key, geometry):
 
 
 def test_kernel_precision_selects_the_dense_class():
-  _, sem = _pair('congruent')
-  ops = sem.fast_ops
+  jsem, sem = _pair('congruent')
+  ops, jops = sem.fast_ops, jsem.fast_ops
   assert ops.kernel_precision is None
   on_card = types.SimpleNamespace(is_cuda=True)
   bf16x3 = dataclasses.replace(ops, uniform_kernel_impl='dense',
                                kernel_precision='bf16x3')
   assert bf16x3.stiffness_key == ('congruent', 'dense')
-  # The CPU runs the plain version; the card has no kernel of that class.
-  u = _t(_fields(seed=10, count=1))
-  torch.testing.assert_close(bf16x3.stiffness_el_multi(u)[0],
-                             ops.stiffness_el_multi(u)[0], rtol=1e-12,
-                             atol=1e-12)
-  with pytest.raises(NotImplementedError, match='ROADMAP.md, Queue 2 item 8'):
-    bf16x3.stiffness_el_multi((on_card,))
+  # The CPU runs the split class: the JAX dense kernel at 'bf16x3' in
+  # interpret mode, not the 'highest' operator.
+  u = _fields(seed=10, count=1)
+  want = jp3.stiffness3d_el_pallas_dense(
+      (jnp.asarray(u[0]),), jops.c_uniform, jops.w1, jops.dmat,
+      precision='bf16x3', interpret=True)
+  got = [g.numpy() for g in bf16x3.stiffness_el_multi(_t(u))]
+  assert _max_err(got, want) <= 1e-12
+  assert _max_err(got, [ops.stiffness_el_multi(_t(u))[0].numpy()]) > 1e-8
+  # On the card only the general pairz / pairs layouts still raise.
+  for impl in ('pairz', 'pairs2', 'pairs4'):
+    with pytest.raises(NotImplementedError,
+                       match='ROADMAP.md, Queue 2 item 10'):
+      dataclasses.replace(ops, use_uniform_kernel=False,
+                          general_kernel_impl=impl).stiffness_el_multi(
+                              (on_card,))
   with pytest.raises(ValueError, match='kernel_precision'):
     dataclasses.replace(ops, kernel_precision='tf32')
 
