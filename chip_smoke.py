@@ -36,33 +36,41 @@ graded and sheared periodic box, all in float32.  Phases:
  13. the 2D general and affine kernels against their plain versions and the
      float64 operator: general at n = 8, E = 144, C = 1 and 2 on the Ra 1e6
      box's own and on random factor fields, affine at n = 8, E = 256, C = 2
-     on the vertex-graded box, both at the datagen shape (64^2, n = 9);
+     on the vertex-graded box, both at the datagen shape (64^2, n = 9); the
+     Kronecker-form function (the general kernel at C = 1) on the box's own
+     factor fields and at the datagen shape, against its plain version and
+     bitwise against the general kernel;
  14. the heated cavity at the Ra 1e6 rung through `run_cavity` (launch
      counters reset just before): every viscous CG matvec launches
-     stiffness2d_general, every solve certifies in <= 2 iterations;
+     stiffness2d_general, every solve certifies in <= 2 iterations; then the
+     viscous form of its final velocity through `stiffness2d_kron`;
  15. the lid-driven cavity on the vertex-graded box (stiffness2d_affine on
      every step) and 20 steps on the uniform box (stiffness_uniform);
  16. 20 steps of a 4x4, order-5 heated and lid-driven cavity on the card
      (float32) and through the plain path on the CPU (float64);
- 17. time the 2D general and affine kernels against their plain versions
-     and one library call;
- 18. the four opt-in 3D stiffness kernels (dense, pair, pair-general,
-     pair-affine) against their plain versions and the float64 operator at
-     16^3 elements, order 7, 3 components: on the Taylor-Green box, on the
-     graded and sheared (affine) periodic box, and on random factor fields
-     and coefficients;
+ 17. time the 2D general, affine and Kronecker-form kernels against their
+     plain versions and one library call;
+ 18. the opt-in 3D stiffness kernels (dense; the bf16x3 pair, pair-general,
+     pairz and pair-affine) against their plain versions and the float64
+     operator at 16^3 elements, order 7, 3 components: on the Taylor-Green
+     box, on the graded and sheared (affine) periodic box, and on random
+     factor fields and coefficients; the superslab keys (pairs2, pairs4)
+     bitwise the pair-general kernel's output;
  19. the Taylor-Green box: certified steps (`exact_solves=False`, the FDM
-     inverses as CG seeds) under the dense, the pair and the general-pair
-     key, held against the same steps under the fused congruent key;
+     inverses as CG seeds) under the dense and the congruent pair key and,
+     with `use_uniform_kernel=False`, under each general key (pair, pairz,
+     pairs2, pairs4), held against the same steps under the fused congruent
+     key;
  20. the affine box, which is not separable: CG-solved steps (Jacobi-CG
      with the stiffness at every iteration, projected pressure CG) under
-     the affine-pair and the general-pair key against the fused general
+     the affine-pair key and each general key against the fused general
      key, with the iteration counts and the launches per step;
  21. 3 CG-solved steps of a 4^3, order-7 affine box on the card (float32)
-     and through the plain path on the CPU (float64), under the affine-pair
-     and under the general-pair key;
- 22. time the four kernels against their plain versions (the dense and the
-     pair one also against one library GEMM of the same operator);
+     and through the plain path on the CPU (float64), under the affine-pair,
+     the general-pair and the pairz key;
+ 22. time the 3D kernels against their plain versions and their bound (the
+     dense and the pair one also against one library GEMM of the same
+     operator);
  23. the split-bf16 classes ('bf16x3', 'default') of the static-operator
      stiffness on the tensor cores, against their plain versions and the
      float64 operator: the congruent kernel at the datagen shape (through
@@ -83,7 +91,7 @@ Each kernel's count is set to 0 just before the path that launches it and
 read just after.  Every kernel's bound is the larger of its bytes (each
 input read once, each output written once) over 3.35 TB/s and its
 operations over 67 TFLOP/s (H100 SXM, FP32), or over 989 TFLOP/s (dense
-bf16 tensor cores) for the split-bf16 kernels.
+bf16 tensor cores) for the split-bf16 and the bf16x3 pair kernels.
 
 Prints a JSON line of the kernels, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -400,13 +408,15 @@ def with_knobs(sem, **knobs):
 def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
                        kernel_checks, times, launches, sem3, us3,
                        tgv_run) -> None:
-  """Phases 18-22: the opt-in 3D stiffness kernels (dense, pair,
-  pair-general, pair-affine) and the CG-solved 3D el step that runs them.
+  """Phases 18-22: the opt-in 3D stiffness kernels (dense; the bf16x3 pair,
+  pair-general, pairz and pair-affine) and the CG-solved 3D el step that
+  runs them.
 
   `sem3`, `us3` and `tgv_run` are the Taylor-Green solver, the random fields
-  and the run of phases 8-9.  Fills `times` and `launches` for the four
+  and the run of phases 8-9.  Fills `times` and `launches` for the five
   kernels.
   """
+  import dataclasses
   import numpy as np
   from swirlfem_tpu_torch.nse.solver import StokesSEM
   from swirlfem_tpu_torch.ops.fdm_pressure import is_separable_box
@@ -417,7 +427,13 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
   num_e = n_el ** 3
   wrappers = {name: getattr(cuda_stiffness3d, name) for name in (
       'stiffness3d_dense', 'stiffness3d_pair', 'stiffness3d_pair_general',
-      'stiffness3d_pair_affine')}
+      'stiffness3d_pairz_general', 'stiffness3d_pair_affine')}
+  # The general pair-layout keys and the kernel each launches (the
+  # superslab keys run pair's kernel).
+  general_keys = (('pair', 'stiffness3d_pair_general'),
+                  ('pairz', 'stiffness3d_pairz_general'),
+                  ('pairs2', 'stiffness3d_pair_general'),
+                  ('pairs4', 'stiffness3d_pair_general'))
 
   def reset():
     for wrapper in wrappers.values():
@@ -428,7 +444,7 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
         affine_box(unit_cube_mesh(n, ndim=3, periodic_dims=(0, 1, 2))), {},
         order=order, device=dev, dtype=dt_)
 
-  # -- 18. the four kernels vs plain and the float64 operator ---------------
+  # -- 18. the kernels vs plain and the float64 operator --------------------
   t0 = time.perf_counter()
   sem_a = periodic_affine(n_el, device, dtype)
   ops3, ops_a = sem3.fast_ops, sem_a.fast_ops
@@ -445,27 +461,54 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
       shape, dtype=dtype, device=device, seed=seed)
   gs_rand = tuple(field(10 + s, (k,) * 3 + (num_e,)) for s in range(6))
   c_rand = field(20, (6, num_e))
+  general_checks = lambda zeta: [
+      kernel_checks.check_stiffness3d_pair_general(ops3, us3, zeta=zeta),
+      kernel_checks.check_stiffness3d_pair_general(ops_a, us3, zeta=zeta),
+      kernel_checks.check_stiffness3d_pair_general(ops3, us3, gs_rand,
+                                                   zeta=zeta)]
   checks = {
       'stiffness3d_dense': [
           kernel_checks.check_stiffness3d_dense(ops3, us3)],
       'stiffness3d_pair': [kernel_checks.check_stiffness3d_pair(ops3, us3)],
-      # The Taylor-Green box's, the affine box's and random factor fields.
-      'stiffness3d_pair_general': [
-          kernel_checks.check_stiffness3d_pair_general(ops3, us3),
-          kernel_checks.check_stiffness3d_pair_general(ops_a, us3),
-          kernel_checks.check_stiffness3d_pair_general(ops3, us3, gs_rand)],
+      # The Taylor-Green box's, the affine box's and random factor fields
+      # (the random ones catch a wrong fragment-to-point map).
+      'stiffness3d_pair_general': general_checks(False),
+      'stiffness3d_pairz_general': general_checks(True),
       # The affine box's and random coefficients.
       'stiffness3d_pair_affine': [
           kernel_checks.check_stiffness3d_pair_affine(ops_a, us3),
           kernel_checks.check_stiffness3d_pair_affine(ops_a, us3, c_rand)],
   }
+  low, high = kernel_checks.PAIR_BAND
   for name, results in checks.items():
     for result in results:
       log(f'[18] {name} 3 x {tuple(us3[0].shape)} f32: {result}')
-      # FP32 FFMA kernels: all four meet the gate of the exact class (the
-      # JAX tests give the three-pass pair variants 5e-5).
-      require(result['rel_err_f64'] <= kernel_checks.STIFFNESS_REL_TOL,
-              (name, result))
+      if name == 'stiffness3d_dense':  # FP32 FFMA, the exact class's gate
+        require(result['rel_err_f64'] <= kernel_checks.STIFFNESS_REL_TOL,
+                (name, result))
+        continue
+      # The bf16x3 pair kernels: their plain version within 1e-6 (the
+      # congruent pair) or the split tolerance (the slab pipelines), the
+      # float64 operator inside the pair kernels' band, above the FP32
+      # class's reading (the JAX package's gate is ~1e-5).
+      require(result['rel_err_plain'] <= kernel_checks.PAIR_VS_PLAIN_TOL.get(
+          name, kernel_checks.SPLIT_VS_PLAIN_TOL), (name, result))
+      require(low < result['rel_err_f64'] <= high, (name, result))
+  # The superslab keys through the dispatch: pair_general's kernel, bitwise.
+  for gops, gs_ in ((ops3, None), (ops3, gs_rand)):
+    base = dataclasses.replace(gops, use_uniform_kernel=False,
+                               general_kernel_impl='pair')
+    if gs_ is not None:
+      base = dataclasses.replace(base, g11=gs_[0], g12=gs_[1], g13=gs_[2],
+                                 g22=gs_[3], g23=gs_[4], g33=gs_[5])
+    want = base.stiffness_el_multi(us3)
+    for impl in ('pairs2', 'pairs4'):
+      got = dataclasses.replace(base, general_kernel_impl=impl
+                               ).stiffness_el_multi(us3)
+      same = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+      log(f'[18] {impl} on {"random" if gs_ is not None else "the box"}\'s '
+          f'factor fields: bitwise pair_general\'s output: {same}')
+      require(same, f'{impl} differs from pair_general')
 
   # -- 19. the Taylor-Green box: certified steps under each key -------------
   count = 10
@@ -479,9 +522,9 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
       ('fused', {}, None),
       ('dense', dict(uniform_kernel_impl='dense'), 'stiffness3d_dense'),
       ('pair', dict(uniform_kernel_impl='pair'), 'stiffness3d_pair'),
-      ('general pair', dict(use_uniform_kernel=False,
-                            general_kernel_impl='pair'),
-       'stiffness3d_pair_general')):
+      *((f'general {impl}', dict(use_uniform_kernel=False,
+                                 general_kernel_impl=impl), wname)
+        for impl, wname in general_keys)):
     sem_v = with_knobs(full, **knobs)
     reset()
     runs[label] = cg_solved_steps(torch, tgv, sem_v, state, count,
@@ -500,7 +543,12 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
         + (f', {name} launches {n_launch}' if name else ''))
     require(all_finite(r['state']), f'non-finite state under {label}')
     require(max(v for v, _ in r['iters']) <= 2, r['iters'])
-    require(u_rel <= 1e-4 and d_rel <= 1e-4, (label, u_rel, d_rel))
+    # The dissipation, a quadratic form of the stiffness on the smooth
+    # Taylor-Green field, magnifies the class's rounding where the operator
+    # is congruent: the congruent pair key reads ~2e-3 (as the dense key at
+    # bf16x3 in phase 26); every other key ~5e-6.
+    d_tol = 1e-2 if label == 'pair' else 1e-4
+    require(u_rel <= 1e-4 and d_rel <= d_tol, (label, u_rel, d_rel))
     if name:
       require(n_launch >= count, f'{name} launched {n_launch} times in '
               f'{count} steps')
@@ -523,8 +571,8 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
       ('general fused', {}, None),
       ('affine pair', dict(use_affine_kernel=True),
        'stiffness3d_pair_affine'),
-      ('general pair', dict(general_kernel_impl='pair'),
-       'stiffness3d_pair_general')):
+      *((f'general {impl}', dict(general_kernel_impl=impl), wname)
+        for impl, wname in general_keys)):
     sem_v = with_knobs(sem_a, **knobs)
     reset()
     cuda_stiffness3d.stiffness3d_general.launches = 0
@@ -533,7 +581,7 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
     wrapper = (wrappers[name] if name
                else cuda_stiffness3d.stiffness3d_general)
     n_launch = wrapper.launches
-    if name:
+    if name and label in ('affine pair', 'general pair', 'general pairz'):
       launches[name] = n_launch
     r, base = runs[label], runs['general fused']
     u_rel = rel_err(r['state'][0][-1], base['state'][0][-1])
@@ -555,8 +603,11 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
             f'{wrapper.__name__} launched {n_launch} times')
     require(min(v for v, _ in r['iters']) >= 1,
             'Jacobi-CG must iterate on a box without an FDM inverse')
-    require(all(abs(v - bv) <= 1 for (v, _), (bv, _) in
-                zip(r['iters'], base['iters'])), (r['iters'], base['iters']))
+    # The bf16x3 keys' iteration counts are logged, not held to the fused
+    # key's: the class's field split makes the operator slightly nonlinear
+    # in CG's directions (tests/test_torch_cg_step3d.py and
+    # test_torch_pair_split.py hold them within one of the JAX package's
+    # under the same key).
     # The unpreconditioned pressure CG is cut at its cap long before it
     # converges, and a truncated float32 Krylov iterate is sensitive to
     # rounding: kernels whose operators agree to 2e-7 (phase 18) give
@@ -580,7 +631,8 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
   # -- 21. card (float32) vs the CPU plain path (float64), 4^3 --------------
   n_small = 4
   for knobs in (dict(use_affine_kernel=True),
-                dict(general_kernel_impl='pair')):
+                dict(general_kernel_impl='pair'),
+                dict(general_kernel_impl='pairz')):
     outs = []
     for dev, dt_, tol_ in ((device, dtype, 1e-6),
                            (torch.device('cpu'), torch.float64, 1e-9)):
@@ -605,43 +657,63 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
     require(du <= 5e-4, du)
     require(dp <= 1e-2, dp)
 
-  # -- 22. times of the four kernels ----------------------------------------
-  amat_t, ptab = ops3.dense_operator_t(), ops3.pair_table()
-  atab, dmat = ops_a.pair_affine_table(), ops_a.mats['dmat']
+  # -- 22. times of the kernels --------------------------------------------
+  amat_t = ops3.dense_operator_t()
+  a2, ptab = ops3.pair_operators()
+  dp_a, at_w, atab = ops_a.pair_affine_operators()
+  dp = ops_a.pair_derivative_split()
+  dmat = ops_a.mats['dmat']
   gs_a = ops_a.gs()
   a_dense = amat_t.T.contiguous()
   ustack = torch.cat([u.reshape(k ** 3, -1) for u in us3], dim=1)
   cs3 = cuda_stiffness3d
-  # The congruent operator by the library: one GEMM of the dense (k^3, k^3)
-  # matrix on the (k^3, C E) stack of the components.  The dense and the
-  # pair kernel both compute this function.
+  # The congruent operator by the library: one FP32 GEMM of the dense
+  # (k^3, k^3) matrix on the (k^3, C E) stack of the components.  The dense
+  # and the pair kernel both compute this function.
   library_gemm = lambda: torch.matmul(a_dense, ustack)
   timed = {
       'stiffness3d_dense': (
           lambda: cs3.stiffness3d_dense(us3, amat_t),
           lambda: cs3.stiffness3d_dense_plain(us3, amat_t), library_gemm),
       'stiffness3d_pair': (
-          lambda: cs3.stiffness3d_pair(us3, ptab),
-          lambda: cs3.stiffness3d_pair_plain(us3, ptab), library_gemm),
+          lambda: cs3.stiffness3d_pair(us3, a2, ptab),
+          lambda: cs3.stiffness3d_pair_plain(us3, a2, ptab), library_gemm),
       'stiffness3d_pair_general': (
-          lambda: cs3.stiffness3d_pair_general(us3, gs_a, dmat),
-          lambda: cs3.stiffness3d_pair_general_plain(us3, gs_a, dmat), None),
+          lambda: cs3.stiffness3d_pair_general(us3, gs_a, dp, dmat),
+          lambda: cs3.stiffness3d_pair_general_plain(us3, gs_a, dp, dmat),
+          None),
+      'stiffness3d_pairz_general': (
+          lambda: cs3.stiffness3d_pairz_general(us3, gs_a, dp, dmat),
+          lambda: cs3.stiffness3d_pairz_general_plain(us3, gs_a, dp,
+                                                      dmat), None),
       'stiffness3d_pair_affine': (
-          lambda: cs3.stiffness3d_pair_affine(us3, ops_a.g_affine, atab),
-          lambda: cs3.stiffness3d_pair_affine_plain(us3, ops_a.g_affine,
-                                                    atab), None),
+          lambda: cs3.stiffness3d_pair_affine(us3, ops_a.g_affine, dp_a, at_w,
+                                              atab),
+          lambda: cs3.stiffness3d_pair_affine_plain(us3, ops_a.g_affine, dp_a,
+                                                    at_w, atab), None),
   }
   time_kernels(timed, times, kernel_checks, device, '[22]')
   itemsize = us3[0].element_size()
   for name in timed:
+    variant = name[len('stiffness3d_'):]
+    # The function's least work (FP32 operations) and bytes: the fields,
+    # the factor fields or coefficients, and the (k, k) D of the
+    # sum-factorized variants (the dense one reads its operator).
     flops, nbytes = cs3.stiffness3d_counts(
-        order, num_e, len(us3), variant=name[len('stiffness3d_'):],
-        dtype_bytes=itemsize)
+        order, num_e, len(us3), variant=variant, dtype_bytes=itemsize)
+    if variant != 'dense':
+      nbytes += dmat.numel() * itemsize
     times[name].update(kernel_checks.bound(flops, nbytes))
     times[name]['max_abs_err'] = max(c['max_abs_err'] for c in checks[name])
     t = times[name]['ms'] * 1e-3
-    log(f'[22] {name}: {flops / t / 1e12:.3f} TFLOP/s, '
-        f'{nbytes / t / 1e12:.3f} TB/s; bound '
+    issued = ''
+    if variant != 'dense':
+      tc_flops = cs3.stiffness3d_tensor_core_flops(order, num_e, len(us3),
+                                                   variant=variant)
+      issued = (f' (tensor cores issue {tc_flops / t / 1e12:.3f} TFLOP/s, '
+                'three passes and the Kronecker zeros)')
+    log(f'[22] {name}: {flops / t / 1e12:.3f} TFLOP/s of the function\'s '
+        f'work{issued}, {nbytes / t / 1e12:.3f} TB/s; bound '
         f'{times[name]["bound_ms"] * 1e3:.2f} us ({times[name]["bound_by"]})')
   return certified
 
@@ -704,10 +776,18 @@ def run_walled_phases(torch, device, dtype, kernel_checks, times,
       general64, fields(general64, 2, 1))
   checks['affine 64^2 C=2'] = kernel_checks.check_stiffness2d_affine(
       affine64, fields(affine64, 2, 1))
+  # The Kronecker-form function (the general kernel at C = 1) on the box's
+  # own factor fields and at the datagen shape: the general kernel's bits.
+  checks['kron'] = kernel_checks.check_stiffness2d_kron(
+      general, fields(general, 1, 1)[0])
+  checks['kron 64^2'] = kernel_checks.check_stiffness2d_kron(
+      general64, fields(general64, 1, 1)[0])
   for name, check in checks.items():
     log(f'[13] stiffness2d {name}: {check}')
     require(check['rel_err_f64'] <= kernel_checks.STIFFNESS_REL_TOL,
             (name, check))
+    if name.startswith('kron'):
+      require(check['vs_general_max_abs'] == 0.0, (name, check))
 
   # -- 14. the heated cavity, Ra 1e6 rung (the walled main path) ------------
   steps = 200
@@ -733,6 +813,28 @@ def run_walled_phases(torch, device, dtype, kernel_checks, times,
   require(gen >= r['steps'], f'stiffness2d_general launched {gen} times in '
           f'{r["steps"]} steps')
   require(max(r['cg_max_iters'].values()) <= 2, r['cg_max_iters'])
+  # The cavity's viscous form on its final velocity through the
+  # Kronecker-form function, as a caller of `stiffness2d_kron` applies it,
+  # against the solver's own stiffness apply (the general kernel).
+  sem_c = r['sem']
+  ops_c = sem_c.fast_ops
+  u_el = tuple(sem_c._v_el(r['u'][..., i])  # pylint: disable=protected-access
+               for i in range(r['u'].shape[-1]))
+  cuda_stiffness2d.stiffness2d_kron.launches = 0
+  kron_out = tuple(cuda_stiffness2d.stiffness2d_kron(
+      u, ops_c.g11, ops_c.g12, ops_c.g22, ops_c.mats['dmat']) for u in u_el)
+  launches['stiffness2d_kron'] = cuda_stiffness2d.stiffness2d_kron.launches
+  solver_out = ops_c.stiffness_el_multi(u_el)
+  form = sum(float((a.double() * u.double()).sum())
+             for a, u in zip(kron_out, u_el))
+  log(f'[14] viscous form of the final velocity through stiffness2d_kron: '
+      f'{form:.9e}, {launches["stiffness2d_kron"]} launches; vs the '
+      f'solver\'s stiffness apply: max abs '
+      f'{max(float((a - b).abs().max()) for a, b in zip(kron_out, solver_out))}')
+  require(rel_err(kron_out, solver_out) <= 1e-6,
+          'stiffness2d_kron differs from the solver\'s general kernel')
+  require(launches['stiffness2d_kron'] == len(u_el) and form > 0,
+          (launches['stiffness2d_kron'], form))
 
   # -- 15. the lid-driven cavity: vertex-graded (affine), then uniform ------
   for grading, name, count, kernel in (
@@ -800,12 +902,19 @@ def run_walled_phases(torch, device, dtype, kernel_checks, times,
           lambda: cuda_stiffness2d.stiffness2d_affine_plain(
               us_a, affine.g_affine, mstack),
           lambda: torch.matmul(mstack, ustack)),
+      # One component through the Kronecker-form function; its plain
+      # version is the Kronecker form itself.
+      'stiffness2d_kron': (
+          lambda: cuda_stiffness2d.stiffness2d_kron(us_g[0], *gs, dmat),
+          lambda: cuda_stiffness2d.stiffness2d_kron_plain(us_g[0], *gs, dmat),
+          None),
   }
   time_kernels(timed, times, kernel_checks, device, '[17]')
   itemsize = us_g[0].element_size()
   for name, ops, us, is_affine, check in (
       ('stiffness2d_general', general, us_g, False, checks['general C=2']),
-      ('stiffness2d_affine', affine, us_a, True, checks['affine C=2'])):
+      ('stiffness2d_affine', affine, us_a, True, checks['affine C=2']),
+      ('stiffness2d_kron', general, us_g[:1], False, checks['kron'])):
     flops, nbytes = cuda_stiffness2d.stiffness2d_counts(
         ops.vinfo.order, us[0].shape[-1], len(us), affine=is_affine,
         dtype_bytes=itemsize)
@@ -822,14 +931,17 @@ def run_walled_phases(torch, device, dtype, kernel_checks, times,
       'general': lambda: cuda_stiffness2d.stiffness2d_general(
           us64, gs64, general64.mats['dmat']),
       'affine': lambda: cuda_stiffness2d.stiffness2d_affine(
-          us64, affine64.g_affine, affine64.mats['mstack'])}
+          us64, affine64.g_affine, affine64.mats['mstack']),
+      'kron': lambda: cuda_stiffness2d.stiffness2d_kron(
+          us64[0], *gs64, general64.mats['dmat'])}
   for name, fn in at_datagen.items():
+    num_c = 1 if name == 'kron' else 2
     flops, nbytes = cuda_stiffness2d.stiffness2d_counts(
-        8, 4096, 2, affine=name == 'affine', dtype_bytes=itemsize)
+        8, 4096, num_c, affine=name == 'affine', dtype_bytes=itemsize)
     b = kernel_checks.bound(flops, nbytes)
-    log(f'[17] stiffness2d_{name} at the datagen shape (9, 9, 4096) x 2: '
-        f'{kernel_checks.time_ms(fn, device=device) * 1e3:.2f} us, bound '
-        f'{b["bound_ms"] * 1e3:.3f} us ({b["bound_by"]})')
+    log(f'[17] stiffness2d_{name} at the datagen shape (9, 9, 4096) x '
+        f'{num_c}: {kernel_checks.time_ms(fn, device=device) * 1e3:.2f} us, '
+        f'bound {b["bound_ms"] * 1e3:.3f} us ({b["bound_by"]})')
   return {'affine': affine, 'affine64': affine64}
 
 
@@ -1271,6 +1383,15 @@ def main() -> int:
        'replaces': 'swirlfem_tpu/ops/pallas_stiffness.py:409',
        'launches': launches['stiffness2d_affine'],
        **times['stiffness2d_affine']},
+      # The Kronecker-form function: the general kernel at C = 1.  No
+      # solver key reaches it (as in the JAX package): its launches are
+      # those of phase 14's direct call on the cavity's final velocity.
+      {'name': 'stiffness2d_kron', 'route': 'cuda',
+       'source': 'swirlfem_tpu_torch/csrc/stiffness2d_general.cu',
+       'replaces': 'swirlfem_tpu/ops/pallas_stiffness.py:87',
+       'launches': launches['stiffness2d_kron'],
+       'launched_by': 'direct call after the Ra 1e6 cavity run',
+       **times['stiffness2d_kron']},
       {'name': 'stiffness3d_uniform', 'route': 'cuda',
        'source': 'swirlfem_tpu_torch/csrc/stiffness3d_uniform.cu',
        'replaces': 'swirlfem_tpu/ops/pallas_stiffness3d.py:238',
@@ -1296,11 +1417,17 @@ def main() -> int:
        'replaces': 'swirlfem_tpu/ops/pallas_stiffness3d.py:328',
        'launches': launches['stiffness3d_pair'],
        **times['stiffness3d_pair']},
+      # Also the superslab keys' kernel (pallas_stiffness3d.py:587).
       {'name': 'stiffness3d_pair_general', 'route': 'cuda',
        'source': 'swirlfem_tpu_torch/csrc/stiffness3d_pair_general.cu',
        'replaces': 'swirlfem_tpu/ops/pallas_stiffness3d.py:449',
        'launches': launches['stiffness3d_pair_general'],
        **times['stiffness3d_pair_general']},
+      {'name': 'stiffness3d_pairz_general', 'route': 'cuda',
+       'source': 'swirlfem_tpu_torch/csrc/stiffness3d_pair_general.cu',
+       'replaces': 'swirlfem_tpu/ops/pallas_stiffness3d.py:865',
+       'launches': launches['stiffness3d_pairz_general'],
+       **times['stiffness3d_pairz_general']},
   ]
   # The split-bf16 classes (csrc/split_bf16_mma.cuh on the tensor cores).
   for name, source, replaces in (
@@ -1319,6 +1446,7 @@ def main() -> int:
                     'replaces': f'swirlfem_tpu/ops/{replaces}',
                     'launches': launches[name], **times[name]})
   for kern in kernels:
+    kern.setdefault('launched_by', 'main path')
     require(kern['launches'] > 0, kern)
     require(all(math.isfinite(kern[key]) for key in
                 ('max_abs_err', 'ms', 'plain_ms', 'call_ms', 'plain_call_ms',

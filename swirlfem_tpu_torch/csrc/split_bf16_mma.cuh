@@ -1,6 +1,7 @@
-// Split-bf16 block product on Hopper tensor cores, shared by the kernels of
-// the 'bf16x3' and 'default' stiffness classes (stiffness_split.cu,
-// stiffness2d_affine_split.cu).
+// Split-bf16 products on Hopper tensor cores, shared by the kernels of the
+// 'bf16x3' and 'default' stiffness classes: the block-tile product of
+// stiffness_split.cu and stiffness2d_affine_split.cu, and the fragment-level
+// product (`fragment_product`, at its definition) of the bf16x3 pair kernels.
 //
 // The TPU kernels of these classes (swirlfem_tpu/ops/pallas_stiffness.py:
 // _kernel_uniform_mm3, _kernel_affine_mm3, and _kernel_uniform_mm /
@@ -117,6 +118,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// The two 8x8 bf16 matrices of an m16n8k16 B fragment from a k-major tile;
+// lanes 0-15 give the row addresses (k 0-7, then k 8-15).
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_addr(p)));
 }
 
@@ -301,6 +312,106 @@ __device__ __forceinline__ void block_product(const Operator& op,
     multiply_chunk<Cfg>(a_stage(cur), b_stage(cur), m0, op.rows_pad, acc);
     if (more) store_field_split<Cfg>(vals, b_stage(cur ^ 1));
   }
+}
+
+// The fragment-level split product, for kernels that keep both operands in
+// shared memory (the bf16x3 pair kernels, stiffness3d_pair.cu and
+// stiffness3d_pair_slab.cuh):
+//
+//   acc[o][j] += A_o[row[j] : row[j] + 16, 0 : depth] B[0 : depth,
+//                col[j] : col[j] + 8]
+//
+// for the NF m16n8 fragments j of the calling warp with valid[j] (warp
+// uniform), over the NOPS operator blocks A_o = a + o * a_stride.  Both
+// operands are split: A as hi / lo (row-major, `lda` bf16 a row), B as its
+// hi / lo parts (k-major, `ldb` a row); 'bf16x3' (PASSES = 3) adds
+// hi uhi + hi ulo + lo uhi, 'default' hi uhi.  `depth` is a multiple of 16;
+// rows are 16-byte aligned.  The fragment layout of acc[o][j] is that of
+// `Accumulators`: rows g and g + 8, columns 2t and 2t + 1.  The three passes
+// accumulate apart and are added at the end, (hh + hl) + lh, as the JAX
+// kernels add their three products; the three independent mma chains also
+// overlap each other's latency.  With TRANS_A the operator is read as the
+// transpose of what lies in shared memory: A_o[r][c] = a[c lda + r]
+// (ldmatrix.trans of the stored 16 x 16 tiles), so that one stored split
+// serves a product and its transpose.
+template <int PASSES, int NOPS, int NF, bool TRANS_A = false>
+__device__ __forceinline__ void fragment_product(
+    const __nv_bfloat16* a_hi, const __nv_bfloat16* a_lo, int lda,
+    int a_stride, const __nv_bfloat16* b_hi, const __nv_bfloat16* b_lo,
+    int ldb, int depth, const int (&row)[NF], const int (&col)[NF],
+    const bool (&valid)[NF], float (&acc)[NOPS][NF][4]) {
+  static_assert(PASSES == 1 || PASSES == 3, "one or three bf16 passes");
+  const int lane = threadIdx.x & 31;
+  const int b_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  // Lane l gives the address of row l % 8 of 8 x 8 matrix l / 8 of the
+  // 16 x 16 A tile (a0-a3: rows 0-7 / 8-15 of columns 0-7, then 8-15).  A
+  // transposed tile stores those matrices transposed: matrix 1 (rows 8-15
+  // of A) lies at stored columns 8-15, matrix 2 (columns 8-15 of A) at
+  // stored rows 8-15.
+  const int a_row = TRANS_A ? (lane & 7) + ((lane >> 4) & 1) * 8 : lane & 15;
+  const int a_col = TRANS_A ? ((lane >> 3) & 1) * 8 : (lane >> 4) * 8;
+  float hl[NOPS][NF][4], lh[NOPS][NF][4];
+#pragma unroll
+  for (int o = 0; o < NOPS; ++o) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) hl[o][j][q] = lh[o][j][q] = 0.0f;
+    }
+  }
+  for (int ks = 0; ks < depth; ks += 16) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      if (!valid[j]) continue;  // warp-uniform
+      uint32_t bh[2], bl[2];
+      const int b_off = (ks + b_row) * ldb + col[j];
+      ldmatrix_x2_trans(bh, b_hi + b_off);
+      if (PASSES == 3) ldmatrix_x2_trans(bl, b_lo + b_off);
+#pragma unroll
+      for (int o = 0; o < NOPS; ++o) {
+        const int a_off =
+            TRANS_A ? o * a_stride + (ks + a_row) * lda + row[j] + a_col
+                    : o * a_stride + (row[j] + a_row) * lda + ks + a_col;
+        uint32_t ah[4], al[4];
+        if (TRANS_A) {
+          ldmatrix_x4_trans(ah, a_hi + a_off);
+        } else {
+          ldmatrix_x4(ah, a_hi + a_off);
+        }
+        mma_bf16(acc[o][j], ah, bh);
+        if (PASSES == 3) {
+          if (TRANS_A) {
+            ldmatrix_x4_trans(al, a_lo + a_off);
+          } else {
+            ldmatrix_x4(al, a_lo + a_off);
+          }
+          mma_bf16(hl[o][j], ah, bl);
+          mma_bf16(lh[o][j], al, bh);
+        }
+      }
+    }
+  }
+  if (PASSES == 3) {
+#pragma unroll
+    for (int o = 0; o < NOPS; ++o) {
+#pragma unroll
+      for (int j = 0; j < NF; ++j) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[o][j][q] = (acc[o][j][q] + hl[o][j][q]) + lh[o][j][q];
+        }
+      }
+    }
+  }
+}
+
+// Splits v into hi = bf16(v) and lo = bf16(v - hi), round to nearest even
+// (the JAX kernels' field split), and stores them at hi_p[i], lo_p[i].
+__device__ __forceinline__ void store_split(float v, __nv_bfloat16* hi_p,
+                                            __nv_bfloat16* lo_p, int i) {
+  const __nv_bfloat16 hi = __float2bfloat16_rn(v);
+  hi_p[i] = hi;
+  lo_p[i] = __float2bfloat16_rn(v - __bfloat162float(hi));
 }
 
 // Checks shared by the entry points; returns a CUDA error code or 0.

@@ -1,245 +1,429 @@
-// The slab pipeline shared by the pair-axis general and affine 3D stiffness
-// kernels (stiffness3d_pair_general.cu, stiffness3d_pair_affine.cu).
+// The bf16x3 slab pipeline of the pair-layout general and affine 3D
+// stiffness kernels (stiffness3d_pair_general.cu, stiffness3d_pair_affine.cu).
 //
-// With the (eta, zeta) pair merged into one axis pq = q k + r, a field is k
-// xi-slabs u[a] of shape (k^2, E).  Per slab a and component:
+// A field (k, k, k, E) is viewed as k slabs along a chain axis, the other
+// two axes merged into one pair axis of M = k^2 entries p: xi-slabs of the
+// (eta, zeta) pair (the JAX package's `pair`, `pairs` and affine kernels) or
+// zeta-slabs of the (xi, eta) pair (`pairz`).  Per slab a and component, as
+// the TPU kernel bodies compute it (swirlfem_tpu/ops/pallas_stiffness3d.py:
+// _kernel_3d_pair_general, _kernel_3d_pairz_general, _kernel_3d_pair_affine):
 //
-//   [s; t] = DP u[a],   DP = [D (x) I; I (x) D]     (eta and zeta derivatives)
-//   r      = sum_m D[a, m] u[m]                      (xi chain)
-//   (fa, fb, fc) = G(a) (r, s, t)                    (pointwise flux)
-//   pair[a] = (D (x) I)^T fb + (I (x) D)^T fc        (transposed pair stage)
-//   out[m]  = pair[m] + sum_a D[a, m] fa[a]          (transposed xi chain)
+//   [P1; P2] = mm3(DP, u[a]),  DP = [D (x) I; I (x) D]     (2M x M)
+//   C        = sum_m D[a, m] u[m]                  (FP32 chain, FFMA)
+//   (Q1, Q2, Qc) = flux of (P1, P2, C)             (pointwise)
+//   pair[a]  = mm3(T1, Q1) + mm3(T2, Q2)           (T = [T1, T2], M x 2M)
+//   out[m]   = pair[m] + (w2 *) sum_a Ct[a, m] Qc[a]   (FP32, FFMA)
 //
-// DP and its transposes are Kronecker products with the identity: every row
-// has k non-zeros, and they are applied as such.
+// where mm3 is the class bf16x3: the host split of the float64 operator
+// (hi, lo) times the split of the float32 operand (bf16(x), bf16(x - hi)),
+// hi xhi + hi xlo + lo xhi, in float32.  On xi-slabs (r, s, t) = (C, P1, P2)
+// and (Q1, Q2, Qc) = (fb, fc, fa); on zeta-slabs (r, s, t) = (P1, P2, C)
+// and (Q1, Q2, Qc) = (fa, fb, fc); T1, T2 are the transposes of DP's blocks
+// (affine: times diag(w (x) w), folded in before the split), Ct is D
+// (affine: Dw[a][m] = D[a][m] w_a, and the w2 = w (x) w factor).  The
+// general flux is (fa, fb, fc) = G (r, s, t) on the six factor fields; the
+// affine one fa = c11 r + c12 s + c13 t, fb = w_a (c12 r + c22 s + c23 t),
+// fc = w_a (c13 r + c23 s + c33 t) on six scalars per element.
 //
-// Design (exact in the working precision: FFMA, no TF32).  A block owns TE
-// consecutive elements (8 in float32, 4 in float64) and has one thread per
-// pair row pq and element: k^2 TE threads, 512 at order 7.  A thread keeps
-// its own xi column of u (k values), the fluxes fa (k values) and the pair
-// results (k values) in registers; the metric of its k points stays in
-// registers for all components (general: 6 k factor values, read from device
-// memory once per call; affine: six scalars of its element and k weights).
-// Per component the block stores the (k^3, TE) u tile in shared memory, then
-// walks the slabs: each thread forms s and t from the tile (two k-term
-// contractions along q and r), r from its registers, the fluxes; fb and fc
-// go to one of two shared slab buffers, and after ONE barrier the transposed
-// pair stage reads them back (the other buffer takes the next slab
-// meanwhile).  The element index is the fastest thread index, so tile rows
-// are read without bank conflicts and no padding is needed.
+// Design.  A block owns TE = 16 consecutive elements and walks the
+// components, each through all k slabs; 8 warps.  Shared memory holds the
+// split DP and T (hi, lo; M padded with zeros to Mp, a multiple of 16), the
+// component's float32 (k M, TE) tile, and per slab the split u[a] and the
+// split (Q1; Q2).  Both products are mma.sync m16n8k16 bf16 fragments
+// (split_bf16_mma.cuh: fragment_product): each warp owns the same m16n8
+// fragments of the (Mp, TE) output in both products and in both of DP's
+// blocks, so a thread holds P1, P2 and, after the second product, pair at
+// the same points (p, e), where it also forms C from the tile and keeps the
+// k outputs out[m] of its points in registers until the last slab.  The
+// metric at its points is loaded from device memory one slab ahead, so that
+// the loads are in flight during the products.  Two barriers per slab: after the split of u[a], and after
+// the split of (Q1; Q2).  On general elements T is DP's transpose (the split
+// is elementwise), so the second product reads DP's split with transposed
+// fragment loads (ldmatrix.trans) and T takes no shared memory.
 //
-// Why one barrier per slab is enough: slab a writes buffer a & 1 after the
-// barrier of slab a - 1, which every reader of that buffer (slab a - 2) had
-// to pass first; a component's tile is overwritten only after the last
-// slab's barrier, which follows every thread's last tile read.
+// Shared memory at order 7 (M = Mp = 64): tile 48 KB, DP 36 KB, u[a] 6 KB,
+// (Q1; Q2) 12 KB: 102 KB, two blocks of 256 threads per SM (256 blocks at
+// 16^3 elements); affine elements add T, 34 KB, and take one block per SM.
+// The operators stay in shared memory, so k <= 8.
+// The factor fields (general) are read once per component (the L2 serves
+// the re-reads).  The bound is the bytes (stiffness3d_pair_general.cu,
+// stiffness3d_pair_affine.cu).  A first version (32 elements a block, the
+// metric loaded point by point after the first product) took 273.9 us on
+// the general and 203.5 us on the affine box at 16^3 elements, order 7,
+// C = 3 (H100 at 700 W); wgmma, TMA and more blocks per SM are later work.
 
 #ifndef SWIRLFEM_STIFFNESS3D_PAIR_SLAB_CUH_
 #define SWIRLFEM_STIFFNESS3D_PAIR_SLAB_CUH_
 
-#include <cuda_runtime.h>
+#include "split_bf16_mma.cuh"
 
 namespace pair_slab {
 
 constexpr int kMaxComponents = 4;
 constexpr int kFactors = 6;
 constexpr int kMinK = 2;
-constexpr int kMaxK = 10;
+constexpr int kMaxK = 8;
+constexpr int kTE = 16;        // elements per block
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
 
 struct Pointers {
-  const void* u[kMaxComponents];
+  const float* u[kMaxComponents];
   // General: the six factor fields g11, g12, g13, g22, g23, g33, each
   // (k, k, k, E).  Affine: g[0] is the (6, E) coefficient array.
-  const void* g[kFactors];
-  void* out[kMaxComponents];
+  const float* g[kFactors];
+  float* out[kMaxComponents];
 };
 
-template <typename T>
-struct TileE;
-template <>
-struct TileE<float> {
-  static constexpr int value = 8;
-};
-template <>
-struct TileE<double> {
-  static constexpr int value = 4;
+// The split operators as the host passes them: dp (2, 2 Mp, Mp) and, for
+// affine elements, t (2, Mp, 2 Mp), [hi, lo] each.
+struct Operators {
+  const __nv_bfloat16* dp;
+  const __nv_bfloat16* t;
 };
 
-// The static table.  General: [D (k^2)].  Affine: [D (k^2), Dw (k^2) with
-// Dw[a][m] = D[a][m] w_a, w (k), w (x) w (k^2)].
-template <typename T, int K, bool kAffine>
+template <int K, bool kZeta, bool kAffine>
 struct Layout {
-  static constexpr int kTE = TileE<T>::value;
-  static constexpr int kK2 = K * K;
-  static constexpr int kThreads = kK2 * kTE;
-  static constexpr int kTable = kAffine ? 3 * kK2 + K : kK2;
+  static constexpr int M = K * K;
+  static constexpr int Mp = (M + 15) / 16 * 16;
+  static constexpr int kLdT = kTE + 8;       // float32 tile row
+  static constexpr int kLdB = kTE + 8;       // bf16 rows of u[a] and Q
+  static constexpr int kLdDP = Mp + 8;       // bf16 rows of DP
+  static constexpr int kLdTT = 2 * Mp + 8;   // bf16 rows of T
+  // The float32 table: D (K^2), Ct (K^2), w (K), w2 (M); general: D only.
+  static constexpr int kTable = kAffine ? 3 * K * K + K : K * K;
   static constexpr int kTablePadded = (kTable + 3) & ~3;
-  static constexpr int kSlab = kK2 * kTE;
+  static constexpr int kTileFloats = K * M * kLdT;
+  static constexpr int kDP = 2 * Mp * kLdDP;  // bf16 per part
+  // The affine T (folded with the weights) has a split of its own; the
+  // general T is DP's transpose, read from DP's split.
+  static constexpr int kTT = kAffine ? Mp * kLdTT : 0;
+  static constexpr int kU = Mp * kLdB;
+  static constexpr int kQ = 2 * Mp * kLdB;
   static constexpr size_t kSmem =
-      (static_cast<size_t>(kTablePadded) + (K + 4) * kSlab) * sizeof(T);
+      (static_cast<size_t>(kTablePadded) + kTileFloats) * 4 +
+      static_cast<size_t>(2 * (kDP + kTT + kU + kQ)) * 2;
+  // m16n8 fragments of one (Mp, TE) output, and per warp.
+  static constexpr int kFrags = (Mp / 16) * (kTE / 8);
+  static constexpr int NF = (kFrags + kWarps - 1) / kWarps;
+  // Two blocks per SM where shared memory allows it (the general kernels).
+  static constexpr int kMinBlocks = 2 * (kSmem + 1024) <= 233472 ? 2 : 1;
+  static_assert(kSmem <= 232448, "shared memory");
 };
 
-template <typename T, int K, bool kAffine>
-__global__ void __launch_bounds__(Layout<T, K, kAffine>::kThreads)
-pair_slab_kernel(const T* __restrict__ table, Pointers ptrs, int num_c,
-                 int num_e) {
-  using L = Layout<T, K, kAffine>;
-  constexpr int TE = L::kTE;
-  constexpr int K2 = L::kK2;
+// Offset of (slab, pair p) in a (k, k, k, E) field, in units of E.
+template <int K, bool kZeta>
+__device__ __forceinline__ long long row_of(int slab, int p) {
+  return kZeta ? static_cast<long long>(p) * K + slab
+               : static_cast<long long>(slab) * K * K + p;
+}
+
+template <int K, bool kZeta, bool kAffine>
+__global__ void __launch_bounds__(kThreads,
+                                  (Layout<K, kZeta, kAffine>::kMinBlocks))
+pair_slab_kernel(Operators ops, const float* __restrict__ table,
+                 Pointers ptrs, int num_c, int num_e, bool vec) {
+  using L = Layout<K, kZeta, kAffine>;
+  constexpr int M = L::M;
+  constexpr int Mp = L::Mp;
+  constexpr int NF = L::NF;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* tab = reinterpret_cast<T*>(smem_raw);
-  T* tile = tab + L::kTablePadded;  // tile[(a * K2 + pq) * TE + el]
-  T* fb_s = tile + K * L::kSlab;    // two slab buffers of fb, then two of fc
-  T* fc_s = fb_s + 2 * L::kSlab;
-  const T* d_s = tab;               // d_s[i * K + j] = D[i][j]
-  // Coefficients of the transposed xi chain: D, or Dw on affine elements.
-  const T* xt_s = kAffine ? tab + K2 : tab;
+  float* tab = reinterpret_cast<float*>(smem_raw);
+  float* tile = tab + L::kTablePadded;  // tile[(slab M + p) kLdT + col]
+  __nv_bfloat16* dp_s = reinterpret_cast<__nv_bfloat16*>(tile + L::kTileFloats);
+  __nv_bfloat16* t_s = dp_s + 2 * L::kDP;
+  __nv_bfloat16* u_s = t_s + 2 * L::kTT;
+  __nv_bfloat16* q_s = u_s + 2 * L::kU;
+  const float* d_s = tab;                          // D[a][m] at a K + m
+  const float* ct_s = kAffine ? tab + K * K : tab;  // Ct[a][m]
+  const float* w_s = tab + 2 * K * K;              // affine: w, then w2
+  const float* w2_s = w_s + K;
 
   const int tid = threadIdx.x;
-  const int el = tid % TE;
-  const int pq = tid / TE;
-  const int q = pq / K;
-  const int r = pq - q * K;
-  const long long e = static_cast<long long>(blockIdx.x) * TE + el;
-  const bool live = e < num_e;
-  const int own = pq * TE + el;
+  const long long e0 = static_cast<long long>(blockIdx.x) * kTE;
 
-  for (int i = tid; i < L::kTable; i += L::kThreads) tab[i] = table[i];
+  // Stage the table and the split operators (16-byte vectors).
+  for (int i = tid; i < L::kTable; i += kThreads) tab[i] = table[i];
+  for (int v = tid; v < 2 * 2 * Mp * (Mp / 8); v += kThreads) {
+    const int row = v / (Mp / 8);  // part * 2 Mp + r
+    const int c = (v - row * (Mp / 8)) * 8;
+    *reinterpret_cast<uint4*>(dp_s + row * L::kLdDP + c) =
+        *reinterpret_cast<const uint4*>(ops.dp + row * Mp + c);
+  }
+  for (int v = tid; kAffine && v < 2 * Mp * (2 * Mp / 8); v += kThreads) {
+    const int row = v / (2 * Mp / 8);  // part * Mp + r
+    const int c = (v - row * (2 * Mp / 8)) * 8;
+    *reinterpret_cast<uint4*>(t_s + row * L::kLdTT + c) =
+        *reinterpret_cast<const uint4*>(ops.t + row * 2 * Mp + c);
+  }
 
-  // The metric of this thread's k points.  General: g[s][a] = G_s(a, pq, e).
-  // Affine: G_s(a, pq, e) = w_a w2[pq] c[s](e); the weights are applied to
-  // the fluxes below.
-  constexpr int kMetricDepth = kAffine ? 1 : K;
-  T g[kFactors][kMetricDepth];
+  // This warp's fragments: f = warp + 8 j of the (Mp / 16) x (TE / 8) grid.
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  int frow[NF], fcol[NF];
+  bool fvalid[NF];
 #pragma unroll
-  for (int s = 0; s < kFactors; ++s) {
-    if constexpr (kAffine) {
-      const T* __restrict__ c = static_cast<const T*>(ptrs.g[0]);
-      g[s][0] = live ? c[static_cast<long long>(s) * num_e + e] : T(0);
-    } else {
-      const T* __restrict__ gs = static_cast<const T*>(ptrs.g[s]);
+  for (int j = 0; j < NF; ++j) {
+    const int f = warp + kWarps * j;
+    fvalid[j] = f < L::kFrags;
+    frow[j] = (f / (kTE / 8)) * 16;
+    fcol[j] = (f % (kTE / 8)) * 8;
+  }
+
+  // The metric at this thread's points of slab a (all slabs alike on affine
+  // elements), into gv; loaded one slab ahead of its use, so that the loads
+  // are in flight during the products.
+  float gv[kFactors][NF][4];
+  auto load_metric = [&](int a) {
 #pragma unroll
-      for (int a = 0; a < K; ++a) {
-        g[s][a] =
-            live ? gs[static_cast<long long>(a * K2 + pq) * num_e + e] : T(0);
+    for (int j = 0; j < NF; ++j) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int p = frow[j] + g + 8 * (q >> 1);
+        const long long e = e0 + fcol[j] + 2 * t + (q & 1);
+        const bool live = fvalid[j] && p < M && e < num_e;
+#pragma unroll
+        for (int f = 0; f < kFactors; ++f) {
+          gv[f][j][q] = !live ? 0.0f
+                        : kAffine
+                            ? ptrs.g[0][static_cast<long long>(f) * num_e + e]
+                            : ptrs.g[f][row_of<K, kZeta>(a, p) * num_e + e];
+        }
       }
     }
-  }
-  __syncthreads();  // the table is staged
-  T w2pq = T(1);
-  if constexpr (kAffine) w2pq = tab[2 * K2 + K + pq];
+  };
+  load_metric(0);
 
-  for (int c = 0; c < num_c; ++c) {
-    const T* __restrict__ u = static_cast<const T*>(ptrs.u[c]);
-    T ucol[K];
-#pragma unroll
-    for (int a = 0; a < K; ++a) {
-      ucol[a] =
-          live ? u[static_cast<long long>(a * K2 + pq) * num_e + e] : T(0);
-      tile[a * L::kSlab + own] = ucol[a];
+  for (int comp = 0; comp < num_c; ++comp) {
+    // The component's float32 tile (coalesced along E, zero past num_e).
+    // The previous component's last reads of the tile preceded the last
+    // slab's second barrier.
+    const float* __restrict__ u = ptrs.u[comp];
+#pragma unroll 4
+    for (int v = tid; v < K * M * (kTE / 4); v += kThreads) {
+      const int row = v / (kTE / 4);
+      const int col = (v - row * (kTE / 4)) * 4;
+      const int slab = row / M;
+      const long long e = e0 + col;
+      const float* src = u + row_of<K, kZeta>(slab, row - slab * M) * num_e + e;
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (vec && e + 4 <= num_e) {
+        x = *reinterpret_cast<const float4*>(src);
+      } else {
+        x.x = e < num_e ? src[0] : 0.0f;
+        x.y = e + 1 < num_e ? src[1] : 0.0f;
+        x.z = e + 2 < num_e ? src[2] : 0.0f;
+        x.w = e + 3 < num_e ? src[3] : 0.0f;
+      }
+      *reinterpret_cast<float4*>(tile + row * L::kLdT + col) = x;
     }
     __syncthreads();
 
-    T fa[K], pair[K];
-#pragma unroll
-    for (int a = 0; a < K; ++a) {
-      // Eta and zeta derivatives from the tile, the xi chain from registers.
-      T s = T(0), t = T(0), rr = T(0);
-      const T* slab = tile + a * L::kSlab + el;
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        s = fma(d_s[q * K + j], slab[(j * K + r) * TE], s);
-        t = fma(d_s[r * K + j], slab[(q * K + j) * TE], t);
-        rr = fma(d_s[a * K + j], ucol[j], rr);
-      }
-      T fbv, fcv;
-      if constexpr (kAffine) {
-        const T wq = tab[2 * K2 + a] * w2pq;  // w_a w2[pq]
-        fa[a] = g[0][0] * rr + g[1][0] * s + g[2][0] * t;
-        fbv = wq * (g[1][0] * rr + g[3][0] * s + g[4][0] * t);
-        fcv = wq * (g[2][0] * rr + g[4][0] * s + g[5][0] * t);
-      } else {
-        fa[a] = g[0][a] * rr + g[1][a] * s + g[2][a] * t;
-        fbv = g[1][a] * rr + g[3][a] * s + g[4][a] * t;
-        fcv = g[2][a] * rr + g[4][a] * s + g[5][a] * t;
-      }
-      T* fb = fb_s + (a & 1) * L::kSlab;
-      T* fc = fc_s + (a & 1) * L::kSlab;
-      fb[own] = fbv;
-      fc[own] = fcv;
-      __syncthreads();
-      // The transposed pair stage of this slab.
-      T acc = T(0);
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        acc = fma(d_s[j * K + q], fb[(j * K + r) * TE + el], acc);
-        acc = fma(d_s[j * K + r], fc[(q * K + j) * TE + el], acc);
-      }
-      pair[a] = acc;
-    }
-
-    // The transposed xi chain and the store.
-    T* __restrict__ out = static_cast<T*>(ptrs.out[c]);
+    float out_acc[K][NF][4];
 #pragma unroll
     for (int m = 0; m < K; ++m) {
-      T x = T(0);
 #pragma unroll
-      for (int a = 0; a < K; ++a) x = fma(xt_s[a * K + m], fa[a], x);
-      if (live) {
-        out[static_cast<long long>(m * K2 + pq) * num_e + e] =
-            kAffine ? pair[m] + w2pq * x : pair[m] + x;
+      for (int j = 0; j < NF; ++j) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) out_acc[m][j][q] = 0.0f;
+      }
+    }
+
+    for (int a = 0; a < K; ++a) {
+      // The split of u[a], zero past the pair axis.
+      for (int idx = tid; idx < Mp * kTE; idx += kThreads) {
+        const int p = idx / kTE;
+        const int col = idx - p * kTE;
+        const float v = p < M ? tile[(a * M + p) * L::kLdT + col] : 0.0f;
+        split_bf16::store_split(v, u_s, u_s + L::kU, p * L::kLdB + col);
+      }
+      __syncthreads();
+
+      // [P1; P2] = mm3(DP, u[a]).
+      float acc1[2][NF][4];
+#pragma unroll
+      for (int o = 0; o < 2; ++o) {
+#pragma unroll
+        for (int j = 0; j < NF; ++j) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc1[o][j][q] = 0.0f;
+        }
+      }
+      split_bf16::fragment_product<3, 2, NF>(
+          dp_s, dp_s + L::kDP, L::kLdDP, Mp * L::kLdDP, u_s, u_s + L::kU,
+          L::kLdB, Mp, frow, fcol, fvalid, acc1);
+
+      // The chain at this thread's points (independent chains, the tile
+      // row outermost).
+      float chain[NF][4];
+#pragma unroll
+      for (int j = 0; j < NF; ++j) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) chain[j][q] = 0.0f;
+      }
+#pragma unroll
+      for (int m = 0; m < K; ++m) {
+        const float dam = d_s[a * K + m];
+#pragma unroll
+        for (int j = 0; j < NF; ++j) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int p = min(frow[j] + g + 8 * (q >> 1), M - 1);
+            const int col = fcol[j] + 2 * t + (q & 1);
+            chain[j][q] =
+                fmaf(dam, tile[(m * M + p) * L::kLdT + col], chain[j][q]);
+          }
+        }
+      }
+
+      // The flux, the chain's transpose into out_acc, and the split of
+      // (Q1; Q2) at this thread's points.
+#pragma unroll
+      for (int j = 0; j < NF; ++j) {
+        if (!fvalid[j]) continue;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int p = frow[j] + g + 8 * (q >> 1);
+          const int col = fcol[j] + 2 * t + (q & 1);
+          float q1 = 0.0f, q2 = 0.0f;
+          if (p < M) {
+            const float p1 = acc1[0][j][q];
+            const float p2 = acc1[1][j][q];
+            const float r = kZeta ? p1 : chain[j][q];
+            const float s = kZeta ? p2 : p1;
+            const float tt = kZeta ? chain[j][q] : p2;
+            float fa = gv[0][j][q] * r + gv[1][j][q] * s + gv[2][j][q] * tt;
+            float fb = gv[1][j][q] * r + gv[3][j][q] * s + gv[4][j][q] * tt;
+            float fc = gv[2][j][q] * r + gv[4][j][q] * s + gv[5][j][q] * tt;
+            if (kAffine) {
+              fb *= w_s[a];
+              fc *= w_s[a];
+            }
+            // (Q1, Q2, Qc): xi-slabs (fb, fc, fa), zeta-slabs (fa, fb, fc).
+            q1 = kZeta ? fa : fb;
+            q2 = kZeta ? fb : fc;
+            float qc = kZeta ? fc : fa;
+            if (kAffine) qc *= w2_s[p];
+#pragma unroll
+            for (int m = 0; m < K; ++m) {
+              out_acc[m][j][q] = fmaf(ct_s[a * K + m], qc, out_acc[m][j][q]);
+            }
+          }
+          split_bf16::store_split(q1, q_s, q_s + L::kQ, p * L::kLdB + col);
+          split_bf16::store_split(q2, q_s, q_s + L::kQ,
+                                  (Mp + p) * L::kLdB + col);
+        }
+      }
+      // The next slab's metric (the next component starts at slab 0 again).
+      if (!kAffine) load_metric(a + 1 < K ? a + 1 : 0);
+      __syncthreads();
+
+      // pair[a] = mm3(T1, Q1) + mm3(T2, Q2), one product of depth 2 Mp.
+      float acc2[1][NF][4];
+#pragma unroll
+      for (int j = 0; j < NF; ++j) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc2[0][j][q] = 0.0f;
+      }
+      if constexpr (kAffine) {
+        split_bf16::fragment_product<3, 1, NF>(
+            t_s, t_s + L::kTT, L::kLdTT, 0, q_s, q_s + L::kQ, L::kLdB,
+            2 * Mp, frow, fcol, fvalid, acc2);
+      } else {
+        // T = DP^T: the transposed fragments of DP's split.
+        split_bf16::fragment_product<3, 1, NF, true>(
+            dp_s, dp_s + L::kDP, L::kLdDP, 0, q_s, q_s + L::kQ, L::kLdB,
+            2 * Mp, frow, fcol, fvalid, acc2);
+      }
+#pragma unroll
+      for (int m = 0; m < K; ++m) {
+        if (m != a) continue;  // a static index into out_acc
+#pragma unroll
+        for (int j = 0; j < NF; ++j) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) out_acc[m][j][q] += acc2[0][j][q];
+        }
+      }
+    }
+
+    // The k output slabs of this thread's points.
+    float* __restrict__ out = ptrs.out[comp];
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      if (!fvalid[j]) continue;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int p = frow[j] + g + 8 * (q >> 1);
+        const long long e = e0 + fcol[j] + 2 * t + (q & 1);
+        if (p >= M || e >= num_e) continue;
+#pragma unroll
+        for (int m = 0; m < K; ++m) {
+          out[row_of<K, kZeta>(m, p) * num_e + e] = out_acc[m][j][q];
+        }
       }
     }
   }
 }
 
-template <typename T, int K, bool kAffine>
-int launch_k(const T* table, const Pointers& ptrs, int num_c, int num_e,
-             cudaStream_t stream) {
-  using L = Layout<T, K, kAffine>;
-  if (L::kSmem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        pair_slab_kernel<T, K, kAffine>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(L::kSmem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int blocks = (num_e + L::kTE - 1) / L::kTE;
-  pair_slab_kernel<T, K, kAffine>
-      <<<blocks, L::kThreads, L::kSmem, stream>>>(table, ptrs, num_c, num_e);
+template <int K, bool kZeta, bool kAffine>
+int launch_k(const Operators& ops, const float* table, const Pointers& ptrs,
+             int num_c, int num_e, bool vec, cudaStream_t stream) {
+  using L = Layout<K, kZeta, kAffine>;
+  const int err = split_bf16::allow_smem(pair_slab_kernel<K, kZeta, kAffine>,
+                                         static_cast<int>(L::kSmem));
+  if (err != 0) return err;
+  const int blocks = (num_e + kTE - 1) / kTE;
+  pair_slab_kernel<K, kZeta, kAffine>
+      <<<blocks, kThreads, L::kSmem, stream>>>(ops, table, ptrs, num_c,
+                                               num_e, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kAffine, int K = kMinK>
-int dispatch(int k, const T* table, const Pointers& ptrs, int num_c, int num_e,
+template <bool kZeta, bool kAffine, int K = kMinK>
+int dispatch(int k, const Operators& ops, const float* table,
+             const Pointers& ptrs, int num_c, int num_e, bool vec,
              cudaStream_t stream) {
   if constexpr (K > kMaxK) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (k == K) {
-      return launch_k<T, K, kAffine>(table, ptrs, num_c, num_e, stream);
+      return launch_k<K, kZeta, kAffine>(ops, table, ptrs, num_c, num_e, vec,
+                                         stream);
     }
-    return dispatch<T, kAffine, K + 1>(k, table, ptrs, num_c, num_e, stream);
+    return dispatch<kZeta, kAffine, K + 1>(k, ops, table, ptrs, num_c, num_e,
+                                           vec, stream);
   }
 }
 
 // `gs` holds kFactors field pointers (general) or one pointer to the (6, E)
-// coefficients (affine).
-template <typename T, bool kAffine>
-int launch(const void* table, const void* const* us, const void* const* gs,
-           void* const* outs, int num_c, int k, int num_e, void* stream) {
+// coefficients (affine); `table` is D (general) or the affine table.
+template <bool kZeta, bool kAffine>
+int launch(const void* dp, const void* t, const void* table,
+           const void* const* us, const void* const* gs, void* const* outs,
+           int num_c, int k, int num_e, void* stream) {
   if (num_c < 1 || num_c > kMaxComponents || k < kMinK || k > kMaxK ||
       num_e < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_e == 0) return static_cast<int>(cudaGetLastError());
   Pointers ptrs = {};
+  // 16-byte field loads where every row of every component is aligned.
+  bool vec = num_e % 4 == 0;
   for (int c = 0; c < num_c; ++c) {
-    ptrs.u[c] = us[c];
-    ptrs.out[c] = outs[c];
+    ptrs.u[c] = static_cast<const float*>(us[c]);
+    ptrs.out[c] = static_cast<float*>(outs[c]);
+    vec = vec && reinterpret_cast<uintptr_t>(us[c]) % 16 == 0;
   }
-  for (int s = 0; s < (kAffine ? 1 : kFactors); ++s) ptrs.g[s] = gs[s];
-  return dispatch<T, kAffine>(k, static_cast<const T*>(table), ptrs, num_c,
-                              num_e, static_cast<cudaStream_t>(stream));
+  for (int s = 0; s < (kAffine ? 1 : kFactors); ++s) {
+    ptrs.g[s] = static_cast<const float*>(gs[s]);
+  }
+  const Operators ops = {static_cast<const __nv_bfloat16*>(dp),
+                         static_cast<const __nv_bfloat16*>(t)};
+  return dispatch<kZeta, kAffine>(k, ops, static_cast<const float*>(table),
+                                  ptrs, num_c, num_e, vec,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace pair_slab

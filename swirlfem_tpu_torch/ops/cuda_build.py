@@ -59,15 +59,14 @@ _SIGNATURES = {
     # (amat_t, us[], outs[], num_c, k3, num_e, stream)
     'stiffness3d_dense_f32': (_P, _PP, _PP, _I, _I, _I, _P),
     'stiffness3d_dense_f64': (_P, _PP, _PP, _I, _I, _I, _P),
-    # (table, us[], outs[], num_c, k, num_e, stream)
-    'stiffness3d_pair_f32': (_P, _PP, _PP, _I, _I, _I, _P),
-    'stiffness3d_pair_f64': (_P, _PP, _PP, _I, _I, _I, _P),
-    # (dmat, us[], gs[6], outs[], num_c, k, num_e, stream)
-    'stiffness3d_pair_general_f32': (_P, _PP, _PP, _PP, _I, _I, _I, _P),
-    'stiffness3d_pair_general_f64': (_P, _PP, _PP, _PP, _I, _I, _I, _P),
-    # (table, c_affine, us[], outs[], num_c, k, num_e, stream)
-    'stiffness3d_pair_affine_f32': (_P, _P, _PP, _PP, _I, _I, _I, _P),
-    'stiffness3d_pair_affine_f64': (_P, _P, _PP, _PP, _I, _I, _I, _P),
+    # (a2 split, table, us[], outs[], num_c, k, num_e, stream)
+    'stiffness3d_pair_f32': (_P, _P, _PP, _PP, _I, _I, _I, _P),
+    # (dp split, dmat, us[], gs[6], outs[], num_c, k, num_e, stream)
+    'stiffness3d_pair_general_f32': (_P, _P, _PP, _PP, _PP, _I, _I, _I, _P),
+    'stiffness3d_pairz_general_f32': (_P, _P, _PP, _PP, _PP, _I, _I, _I, _P),
+    # (dp split, t split, table, c_affine, us[], outs[], num_c, k, num_e,
+    #  stream)
+    'stiffness3d_pair_affine_f32': (_P, _P, _P, _P, _PP, _PP, _I, _I, _I, _P),
     # (hi, lo, us[], outs[], num_c, rows, rows_pad, depth_pad, num_e,
     #  passes, stream)
     'stiffness_uniform_split_f32': (_P, _P, _PP, _PP, _I, _I, _I, _I, _I, _I,

@@ -80,6 +80,68 @@ def split_operator_np(m64, num_blocks: int = 1) -> np.ndarray:
   return out.reshape(2, num_blocks * _ceil_pad(m), _ceil_pad(depth))
 
 
+def _pair_kron_np(dmat):
+  """``(D (x) I, I (x) D)``, float64 ``(k^2, k^2)`` each: the derivative
+  along the first and the second axis of a merged pair."""
+  d64 = np.asarray(dmat, dtype=np.float64)
+  eye = np.eye(d64.shape[0])
+  return np.kron(d64, eye), np.kron(eye, d64)
+
+
+def _side_by_side(*m64s) -> np.ndarray:
+  """The splits of square operators placed side by side: ``(2, M_pad,
+  n M_pad)`` float32, operator i in columns ``[i M_pad, i M_pad + M)``."""
+  return np.concatenate([split_operator_np(m) for m in m64s], axis=2)
+
+
+def pair_derivative_split_np(dmat) -> np.ndarray:
+  """The split of ``DP = [D (x) I; I (x) D]`` as two blocks of ``(k^2, k^2)``
+  rows, ``(2, 2 M_pad, M_pad)`` with ``M_pad`` = k^2 rounded up to 16.
+
+  ``swirlfem_tpu/ops/pallas_stiffness3d.py:483-494`` (pair and pairs: the
+  (eta, zeta) pair) and ``:886-896`` (pairz: the (xi, eta) pair) build the
+  same matrix.
+  """
+  return split_operator_np(np.vstack(_pair_kron_np(dmat)), num_blocks=2)
+
+
+def pair_transpose_split_np(dmat, w1) -> np.ndarray:
+  """The affine kernel's transposed pair stage ``[(D (x) I)^T W2, (I (x)
+  D)^T W2]`` with ``W2 = diag(w (x) w)`` folded in float64 BEFORE the
+  split, ``(2, M_pad, 2 M_pad)``, each product split on its own as the JAX
+  wrapper splits them (``pallas_stiffness3d.py:756-777``).
+
+  Without the fold the transposed stage's split is DP's split transposed
+  (the split is elementwise), which the general kernels read in its place.
+  """
+  de, dz = _pair_kron_np(dmat)
+  w = np.asarray(w1, dtype=np.float64)
+  w2 = np.diag(np.kron(w, w))
+  return _side_by_side(de.T @ w2, dz.T @ w2)
+
+
+def pair_uniform_split_np(c_uniform, w1, dmat):
+  """The congruent pair kernel's operands (``pallas_stiffness3d.py:356-371``).
+
+  Returns ``(a2, table)``: `a2` the split of ``A2 = c22 At (x) W + c33 W (x)
+  At`` (``(2, M_pad, M_pad)``, `split_operator_np`), and `table` float64
+  ``[c11 At (k^2, row-major), w (k), W2 hi (k^2), W2 lo (k^2)]``, the hi /
+  lo split of the diagonal ``W2 = diag(w (x) w)`` as float64 values.
+  """
+  w = np.asarray(w1, dtype=np.float64)
+  d = np.asarray(dmat, dtype=np.float64)
+  wm = np.diag(w)
+  at = d.T @ wm @ d
+  c11, c22, c33 = (float(v) for v in c_uniform)
+  a2 = c22 * np.kron(at, wm) + c33 * np.kron(wm, at)
+  k2 = w.size ** 2
+  w2 = split_operator_np(np.diag(np.kron(w, w)))
+  w2_hi, w2_lo = (np.diagonal(part[:k2, :k2]).astype(np.float64)
+                  for part in w2)
+  table = np.concatenate([(c11 * at).reshape(-1), w, w2_hi, w2_lo])
+  return split_operator_np(a2), table
+
+
 def split_product_plain(hi: torch.Tensor, lo: torch.Tensor, u: torch.Tensor,
                         passes: int) -> torch.Tensor:
   """``hi uhi (+ hi ulo + lo uhi)`` in `u`'s dtype: the JAX package's

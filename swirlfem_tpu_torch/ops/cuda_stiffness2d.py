@@ -1,11 +1,13 @@
 """General and affine 2D stiffness: two Hopper kernels and their plain versions.
 
-Replaces two Pallas kernels of ``swirlfem_tpu/ops/pallas_stiffness.py``:
+Replaces three Pallas kernels of ``swirlfem_tpu/ops/pallas_stiffness.py``:
 
 * `stiffness2d_general` (``stiffness_el_pallas_batched`` and its C = 1 case
   ``stiffness_el_pallas``): the sum-factorized
   ``A u = D_xi^T (G11 u_xi + G12 u_eta) + D_eta^T (G12 u_xi + G22 u_eta)`` on
   the three factor fields, which are read once for all components of a call.
+  `stiffness2d_kron` (``stiffness_el_pallas_kron``, the same operator by
+  Kronecker matmuls) launches the same kernel at C = 1.
 * `stiffness2d_affine` (``stiffness_el_pallas_affine``, precision
   'highest'): on affine elements ``A_e = c11 M11 + c12 M12 + c22 M22`` with
   per-element scalars c (3, E) and the stacked static operator
@@ -124,6 +126,15 @@ def stiffness2d_general(us, gs, dmat: torch.Tensor):
                        'device and dtype')
   if dmat.device.type == 'cpu':
     return stiffness2d_general_plain(us, gs, dmat)
+  outs = _launch_general(us, gs, dmat)
+  stiffness2d_general.launches += 1
+  return outs
+
+
+def _launch_general(us, gs, dmat: torch.Tensor):
+  """One launch of the general kernel on CUDA tensors checked by the
+  caller for shape; returns the outputs."""
+  k = dmat.shape[0]
   if dmat.device.type != 'cuda':
     raise ValueError(f'stiffness2d_general: unsupported device {dmat.device}')
   _check_launchable('stiffness2d_general', us + gs + (dmat,), len(us),
@@ -138,11 +149,66 @@ def stiffness2d_general(us, gs, dmat: torch.Tensor):
   stream = torch.cuda.current_stream(dmat.device).cuda_stream
   cuda_build.check(fn(dmat.data_ptr(), _ptrs(us), _ptrs(gs), _ptrs(outs),
                       len(us), k, num_e, stream), 'stiffness2d_general')
-  stiffness2d_general.launches += 1
   return outs
 
 
 stiffness2d_general.launches = 0
+
+
+def stiffness2d_kron_plain(u: torch.Tensor, g11: torch.Tensor,
+                           g12: torch.Tensor, g22: torch.Tensor,
+                           dmat: torch.Tensor) -> torch.Tensor:
+  """The Kronecker form of the JAX kernel body (``_kernel_kron``): with
+  ``Dxi = D (x) I`` and ``Deta = I (x) D`` on the flattened ``(n^2, E)``
+  field, ``ur = Dxi u``, ``us = Deta u``, ``out = Dxi^T (G11 ur + G12 us) +
+  Deta^T (G12 ur + G22 us)``."""
+  n = dmat.shape[0]
+  eye = torch.eye(n, dtype=dmat.dtype, device=dmat.device)
+  dxi, deta = torch.kron(dmat, eye), torch.kron(eye, dmat)
+  flat = lambda x: x.reshape(n * n, -1)
+  uf = flat(u)
+  ur, us = dxi @ uf, deta @ uf
+  fa = flat(g11) * ur + flat(g12) * us
+  fb = flat(g12) * ur + flat(g22) * us
+  return (dxi.T @ fa + deta.T @ fb).reshape(u.shape)
+
+
+def stiffness2d_kron(u: torch.Tensor, g11: torch.Tensor, g12: torch.Tensor,
+                     g22: torch.Tensor, dmat: torch.Tensor) -> torch.Tensor:
+  """General 2D stiffness of ONE component, the JAX package's
+  ``pallas_stiffness.py:stiffness_el_pallas_kron`` (same signature: the
+  field and the three factor fields ``(n, n, E)``, the ``(n, n)`` matrix).
+
+  The TPU kernel applies the four 1D contractions as ``(n^2, n^2)``
+  Kronecker matmuls ``D (x) I`` and ``I (x) D`` on its matrix unit, in the
+  class 'highest'; they compute the sum-factorized operator with zeros in
+  between.  On the card that form is not carried over: an FFMA kernel of it
+  would multiply ``n^2 - n`` zeros for every ``n`` useful terms.  So a CUDA
+  call launches the general kernel (``csrc/stiffness2d_general.cu``) at
+  C = 1, counted in ``stiffness2d_kron.launches``; CPU tensors run
+  `stiffness2d_kron_plain`.  No solver key reaches it, as none does in the
+  JAX package.
+  """
+  k = dmat.shape[0]
+  if dmat.ndim != 2 or dmat.shape[1] != k:
+    raise ValueError(f'dmat must be square, got {tuple(dmat.shape)}')
+  us = _check_fields('stiffness2d_kron', (u,), dmat, k * k)
+  if u.ndim != 3:
+    raise ValueError('stiffness2d_kron: the field must be (n, n, E)')
+  gs = (g11, g12, g22)
+  for g in gs:
+    if (tuple(g.shape) != tuple(u.shape) or g.device != dmat.device
+        or g.dtype != dmat.dtype):
+      raise ValueError('factor fields must match the field in shape, device '
+                       'and dtype')
+  if dmat.device.type == 'cpu':
+    return stiffness2d_kron_plain(u, g11, g12, g22, dmat)
+  out = _launch_general(us, gs, dmat)[0]
+  stiffness2d_kron.launches += 1
+  return out
+
+
+stiffness2d_kron.launches = 0
 
 
 def affine_smem_bytes(k2: int, itemsize: int) -> int:

@@ -1,6 +1,7 @@
-"""3D stiffness: six Hopper kernels and their plain versions.
+"""3D stiffness: seven Hopper kernels and their plain versions.
 
-Replaces six Pallas kernels of ``swirlfem_tpu/ops/pallas_stiffness3d.py``:
+Replaces the eight Pallas kernels of ``swirlfem_tpu/ops/pallas_stiffness3d.py``
+(the 'bf16x3' class of the dense one is ``ops.cuda_split``'s):
 
 * `stiffness3d_uniform` (``stiffness3d_el_pallas_uniform``): the congruent
   axis-aligned box, where the element operator is
@@ -14,22 +15,34 @@ Replaces six Pallas kernels of ``swirlfem_tpu/ops/pallas_stiffness3d.py``:
 * `stiffness3d_dense` (``stiffness3d_el_pallas_dense``, class 'highest'):
   the congruent operator as ONE static ``(k^3, k^3)`` matrix applied to the
   ``(k^3, E)`` field of each component.
+
+and, in the class the JAX package always runs them in, bf16x3 (three bf16
+tensor-core products of split operator and split field, float32 sums; the
+chains along the third axis stay FP32):
+
 * `stiffness3d_pair` (``stiffness3d_el_pallas_pair``): the congruent
   operator per xi-slab, ``out[a] = w_a (A2 u[a]) + c11 sum_b At[a,b] (W2
   u[b])`` with the static ``(k^2, k^2)`` matrix ``A2 = c22 At(x)W + c33
-  W(x)At`` on the merged (eta, zeta) pair.
-* `stiffness3d_pair_general` (``stiffness3d_el_pallas_pair_general``): the
-  general operator per xi-slab, with the stacked pair derivative ``DP = [D(x)I;
-  I(x)D]``, the pointwise flux and the transposed pair stage.
-* `stiffness3d_pair_affine` (``stiffness3d_el_pallas_pair_affine``): the same
-  slab structure on affine elements, ``G_ab(q, e) = w(q) C_ab(e)`` with six
-  scalars per element and the quadrature weight folded into static tables.
+  W(x)At`` on the merged (eta, zeta) pair and the diagonal ``W2``.
+* `stiffness3d_pair_general` (``stiffness3d_el_pallas_pair_general`` and
+  ``stiffness3d_el_pallas_pairs_general``, whose block-diagonal superslab
+  operators compute the same products): the general operator per xi-slab,
+  with the stacked pair derivative ``DP = [D(x)I; I(x)D]``, the pointwise
+  flux and the transposed pair stage.
+* `stiffness3d_pairz_general` (``stiffness3d_el_pallas_pairz_general``): the
+  same pipeline with zeta as the chain axis and (xi, eta) as the pair.
+* `stiffness3d_pair_affine` (``stiffness3d_el_pallas_pair_affine``): the
+  xi-slab pipeline on affine elements, ``G_ab(q, e) = w(q) C_ab(e)`` with six
+  scalars per element and the quadrature weight folded into the tables.
 
-Fields are E-last ``(k, k, k, E)``.  The kernels (``csrc/stiffness3d_*.cu``)
-run in FP32 (or FP64) FFMA, no TF32; their source notes give the bound on
-the card.  Every static table is built in float64 on the host.  Each wrapper
-takes the plain version only for CPU tensors; for CUDA tensors it launches
-its kernel or raises, and counts the launch in ``<wrapper>.launches``.
+Fields are E-last ``(k, k, k, E)``.  The first three kernels run in FP32 (or
+FP64) FFMA, no TF32; the pair kernels take float32 only.  Their source
+notes (``csrc/stiffness3d_*.cu``) give the bound on the card.  Every static
+table and split is built in float64 on the host (``ops.cuda_split``).  The
+plain versions of the pair kernels repeat the JAX kernel bodies step by
+step.  Each wrapper takes the plain version only for CPU tensors; for CUDA
+tensors it launches its kernel or raises, and counts the launch in
+``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -40,10 +53,14 @@ import numpy as np
 import torch
 
 from swirlfem_tpu_torch.ops import cuda_build
+from swirlfem_tpu_torch.ops import cuda_split
 
 MAX_COMPONENTS = 4
 # The kernels are instantiated for k = order + 1 in [2, MAX_K].
 MAX_K = 10
+# The bf16x3 pair kernels hold their split operators in shared memory:
+# k = order + 1 in [2, MAX_K_SPLIT].
+MAX_K_SPLIT = 8
 NUM_FACTORS = 6
 
 
@@ -87,25 +104,6 @@ def _unpack_table(table: torch.Tensor, k: int):
   w, cw1, cw2 = (table[k * k + i * k:k * k + (i + 1) * k] for i in range(3))
   cw3 = table[k * k + 3 * k:].reshape(k, k)
   return at, w, cw1, cw2, cw3
-
-
-def pair_table_np(c_uniform, w1, dmat) -> np.ndarray:
-  """Coefficient table of the pair-axis congruent operator, float64.
-
-  Packed as ``[A2^T (k^4, row-major), c11 At (k*k), w (k), w(x)w (k*k)]``
-  with ``A2 = c22 At(x)W + c33 W(x)At`` on the merged (eta, zeta) pair
-  (``swirlfem_tpu/ops/pallas_stiffness3d.py:356-362``), so that per xi-slab
-
-      out[a] = w_a (A2 u[a]) + (w(x)w) * sum_b (c11 At)[a, b] u[b].
-  """
-  w = np.asarray(w1, dtype=np.float64)
-  d = np.asarray(dmat, dtype=np.float64)
-  wm = np.diag(w)
-  at = d.T @ wm @ d
-  c11, c22, c33 = (float(v) for v in c_uniform)
-  a2 = c22 * np.kron(at, wm) + c33 * np.kron(wm, at)
-  return np.concatenate([a2.T.reshape(-1), (c11 * at).reshape(-1), w,
-                         np.kron(w, w)])
 
 
 def pair_affine_table_np(w1, dmat) -> np.ndarray:
@@ -161,88 +159,166 @@ def stiffness3d_dense_plain(us, amat_t: torch.Tensor):
                for u in us)
 
 
-def _unpack_pair_table(table: torch.Tensor, k: int):
+def _split(x: torch.Tensor):
+  """``(xhi, xlo)`` in `x`'s dtype: ``xhi = bf16(x)``, ``xlo = bf16(x - xhi)``
+  (round to nearest even), the field split of the JAX kernels' ``mm3``."""
+  hi = x.to(torch.bfloat16).to(x.dtype)
+  return hi, (x - hi).to(torch.bfloat16).to(x.dtype)
+
+
+def _mm3(split: torch.Tensor, x: torch.Tensor, rows: int) -> torch.Tensor:
+  """``mm3`` of the JAX pair kernels: three bf16 products of the split
+  operator (`split` = ``[hi, lo]``, padded) with the split `x` ``(depth,
+  N)``, accumulated in `x`'s dtype; the first `rows` rows."""
+  return cuda_split.split_product_plain(split[0], split[1], x, 3)[:rows]
+
+
+def _slabs(u: torch.Tensor, zeta: bool) -> torch.Tensor:
+  """``(k, k^2, E)`` slabs along the chain axis, the other two merged into
+  the pair axis: xi-slabs of the (eta, zeta) pair, or (`zeta`) zeta-slabs of
+  the (xi, eta) pair."""
+  k = u.shape[0]
+  if zeta:
+    return u.reshape(k * k, k, -1).transpose(0, 1)
+  return u.reshape(k, k * k, -1)
+
+
+def _unslab(x: torch.Tensor, zeta: bool) -> torch.Tensor:
+  k = x.shape[0]
+  if zeta:
+    x = x.transpose(0, 1)
+  return x.reshape(k, k, k, -1)
+
+
+def _pair_columns(x: torch.Tensor) -> torch.Tensor:
+  """Slabs ``(k, k^2, E)`` -> ``(k^2, k E)``: the pair axis as the depth of
+  one product, every slab's elements as its columns."""
+  return x.transpose(0, 1).reshape(x.shape[1], -1)
+
+
+def _from_columns(y: torch.Tensor, k: int) -> torch.Tensor:
+  return y.reshape(y.shape[0], k, -1).transpose(0, 1)
+
+
+def _unpack_pair_uniform(table: torch.Tensor, k: int):
   k2 = k * k
-  a2 = table[:k2 * k2].reshape(k2, k2).T
-  cat = table[k2 * k2:k2 * k2 + k2].reshape(k, k)
-  w = table[k2 * k2 + k2:k2 * k2 + k2 + k]
-  return a2, cat, w, table[k2 * k2 + k2 + k:]
+  return (table[:k2].reshape(k, k), table[k2:k2 + k],
+          table[k2 + k:2 * k2 + k], table[2 * k2 + k:])
 
 
-def stiffness3d_pair_plain(us, table: torch.Tensor):
-  """The pair-axis congruent operator, slab by slab."""
+def stiffness3d_pair_plain(us, a2: torch.Tensor, table: torch.Tensor):
+  """The congruent pair kernel body (``_kernel_3d_pair``) step by step:
+
+      out[a] = w_a mm3(A2, u[a]) + sum_b (c11 At)[a, b] mm3(W2, u[b])
+
+  with the diagonal ``W2`` product as its three exact terms per point,
+  ``(W2hi uhi + W2hi ulo) + W2lo uhi``.  `a2` is the ``[hi, lo]`` split of
+  ``A2``, `table` `cuda_split.pair_uniform_split_np`'s in the working dtype.
+  """
   k = us[0].shape[0]
-  a2, cat, w, w2 = _unpack_pair_table(table, k)
+  cat, w, w2hi, w2lo = _unpack_pair_uniform(table, k)
+  w2hi, w2lo = w2hi[None, :, None], w2lo[None, :, None]
   outs = []
   for u in us:
-    slabs = u.reshape(k, k * k, -1)                       # (a, pq, E)
-    a2u = torch.einsum('pj,aje->ape', a2, slabs)
-    chain = torch.einsum('ab,bpe->ape', cat, w2[None, :, None] * slabs)
-    outs.append((w[:, None, None] * a2u + chain).reshape(u.shape))
+    x = _slabs(u, False)
+    a2u = _from_columns(_mm3(a2, _pair_columns(x), k * k), k)
+    uhi, ulo = _split(x)
+    w2u = w2hi * uhi + w2hi * ulo + w2lo * uhi
+    chain = torch.einsum('ab,bpe->ape', cat, w2u)
+    outs.append(_unslab(w[:, None, None] * a2u + chain, False))
   return tuple(outs)
 
 
-def _pair_matrices(dmat: torch.Tensor):
-  """``DP = [D(x)I; I(x)D]`` ``(2k^2, k^2)`` and the two transposed pair
-  matrices ``(D(x)I)^T``, ``(I(x)D)^T``."""
-  eye = torch.eye(dmat.shape[0], dtype=dmat.dtype, device=dmat.device)
-  de, dz = torch.kron(dmat, eye), torch.kron(eye, dmat)
-  return torch.cat([de, dz]), de.T, dz.T
+def _pair_slab_plain(us, dp: torch.Tensor, at: torch.Tensor,
+                     chain_t: torch.Tensor, dmat: torch.Tensor, flux,
+                     zeta: bool, w2=None):
+  """The bf16x3 slab pipeline of the general and affine pair kernels.
 
-
-def stiffness3d_pair_general_plain(us, gs, dmat: torch.Tensor):
-  """The general operator by xi-slabs: stacked pair derivative, flux,
-  transposed pair stage, xi chains."""
+  Per slab along the chain axis: ``[P1; P2] = mm3(DP, u[a])``, the FP32
+  chain ``C = sum_m D[a, m] u[m]``, the flux ``(Q1, Q2, Qc) = flux(P1, P2,
+  C)`` (Q1, Q2 the pair fluxes, Qc the chain flux), ``pair = mm3(T1, Q1) +
+  mm3(T2, Q2)`` with ``at = [T1, T2]``, and ``out[m] = pair[m] + (w2 *)
+  sum_a chain_t[a, m] Qc[a]``.
+  """
   k = dmat.shape[0]
   k2 = k * k
-  dp, et, zt = _pair_matrices(dmat)
-  g11, g12, g13, g22, g23, g33 = (g.reshape(k, k2, -1) for g in gs)
+  m_pad = at.shape[1]
   outs = []
   for u in us:
-    slabs = u.reshape(k, k2, -1)
-    st = torch.einsum('sj,aje->ase', dp, slabs)
-    s_, t_ = st[:, :k2], st[:, k2:]
-    r = torch.einsum('am,mpe->ape', dmat, slabs)
-    fa = g11 * r + g12 * s_ + g13 * t_
-    fb = g12 * r + g22 * s_ + g23 * t_
-    fc = g13 * r + g23 * s_ + g33 * t_
-    pair = (torch.einsum('pj,aje->ape', et, fb)
-            + torch.einsum('pj,aje->ape', zt, fc))
-    outs.append((pair + torch.einsum('am,ape->mpe', dmat, fa))
-                .reshape(u.shape))
+    x = _slabs(u, zeta)
+    pp = _mm3(dp, _pair_columns(x), 2 * m_pad)
+    p1 = _from_columns(pp[:k2], k)
+    p2 = _from_columns(pp[m_pad:m_pad + k2], k)
+    chain = torch.einsum('am,mpe->ape', dmat, x)
+    q1, q2, qc = flux(p1, p2, chain)
+    pair = (_mm3(at[:, :, :m_pad], _pair_columns(q1), k2)
+            + _mm3(at[:, :, m_pad:], _pair_columns(q2), k2))
+    xi = torch.einsum('am,ape->mpe', chain_t, qc)
+    if w2 is not None:
+      xi = w2[None, :, None] * xi
+    outs.append(_unslab(_from_columns(pair, k) + xi, zeta))
   return tuple(outs)
+
+
+def _general_flux(gs, zeta: bool):
+  """The flux of the six factor fields, in slabs; returns ``flux(P1, P2, C)
+  -> (Q1, Q2, Qc)``: xi-slabs take ``(r, s, t) = (C, P1, P2)`` and return
+  ``(fb, fc, fa)``, zeta-slabs ``(P1, P2, C)`` and ``(fa, fb, fc)``."""
+  g11, g12, g13, g22, g23, g33 = (_slabs(g, zeta) for g in gs)
+
+  def flux(p1, p2, chain):
+    r, s, t = (p1, p2, chain) if zeta else (chain, p1, p2)
+    fa = g11 * r + g12 * s + g13 * t
+    fb = g12 * r + g22 * s + g23 * t
+    fc = g13 * r + g23 * s + g33 * t
+    return (fa, fb, fc) if zeta else (fb, fc, fa)
+  return flux
+
+
+def stiffness3d_pair_general_plain(us, gs, dp: torch.Tensor,
+                                   dmat: torch.Tensor):
+  """The general pair kernel body (``_kernel_3d_pair_general``; its
+  superslab form ``_kernel_3d_pairs_general`` computes the same products)
+  step by step: xi-slabs of the (eta, zeta) pair, bf16x3 pair products,
+  FP32 xi chains.  `dp`: `cuda_split.pair_derivative_split_np` as
+  bfloat16; the transposed stage's split is its transpose (the split is
+  elementwise)."""
+  return _pair_slab_plain(us, dp, dp.transpose(1, 2), dmat, dmat,
+                          _general_flux(gs, False), False)
+
+
+def stiffness3d_pairz_general_plain(us, gs, dp: torch.Tensor,
+                                    dmat: torch.Tensor):
+  """The pairz kernel body (``_kernel_3d_pairz_general``) step by step:
+  zeta-slabs of the (xi, eta) pair, bf16x3 pair products, FP32 zeta
+  chains.  Same operands as `stiffness3d_pair_general_plain`."""
+  return _pair_slab_plain(us, dp, dp.transpose(1, 2), dmat, dmat,
+                          _general_flux(gs, True), True)
 
 
 def stiffness3d_pair_affine_plain(us, c_affine: torch.Tensor,
+                                  dp: torch.Tensor, at: torch.Tensor,
                                   table: torch.Tensor):
-  """The affine operator by xi-slabs with the weight folded statically:
-  weight-free ``fa``, ``w_a`` on the pair fluxes, ``w(x)w`` in the transposed
-  pair matrices and on the xi term, ``Dw`` in the transposed xi chain."""
+  """The affine pair kernel body (``_kernel_3d_pair_affine``) step by step:
+  weight-free ``fa``, ``w_a`` on the pair fluxes, ``diag(w (x) w)`` folded
+  into the transposed pair split `at` (``cuda_split.pair_transpose_split_np(
+  dmat, w1)``) and multiplied onto the transposed xi chain of ``Dw``."""
   k = us[0].shape[0]
   k2 = k * k
   dmat = table[:k2].reshape(k, k)
   dw = table[k2:2 * k2].reshape(k, k)
   w = table[2 * k2:2 * k2 + k]
   w2 = table[2 * k2 + k:]
-  dp, et, zt = _pair_matrices(dmat)
-  et, zt = et * w2[None, :], zt * w2[None, :]
   c11, c12, c13, c22, c23, c33 = (c_affine[i][None, None, :]
                                   for i in range(NUM_FACTORS))
   wa = w[:, None, None]
-  outs = []
-  for u in us:
-    slabs = u.reshape(k, k2, -1)
-    st = torch.einsum('sj,aje->ase', dp, slabs)
-    s_, t_ = st[:, :k2], st[:, k2:]
-    r = torch.einsum('am,mpe->ape', dmat, slabs)
-    fa = c11 * r + c12 * s_ + c13 * t_
-    fb = wa * (c12 * r + c22 * s_ + c23 * t_)
-    fc = wa * (c13 * r + c23 * s_ + c33 * t_)
-    pair = (torch.einsum('pj,aje->ape', et, fb)
-            + torch.einsum('pj,aje->ape', zt, fc))
-    xi = torch.einsum('am,ape->mpe', dw, fa)
-    outs.append((pair + w2[None, :, None] * xi).reshape(u.shape))
-  return tuple(outs)
+
+  def flux(s, t, r):
+    fa = c11 * r + c12 * s + c13 * t
+    fb = wa * (c12 * r + c22 * s + c23 * t)
+    fc = wa * (c13 * r + c23 * s + c33 * t)
+    return fb, fc, fa
+  return _pair_slab_plain(us, dp, at, dw, dmat, flux, False, w2)
 
 
 def _check_fields(what, us, like: torch.Tensor, k: int):
@@ -401,29 +477,58 @@ def stiffness3d_dense(us, amat_t: torch.Tensor):
 stiffness3d_dense.launches = 0
 
 
-def stiffness3d_pair(us, table: torch.Tensor):
-  """Congruent-element 3D stiffness in pair-axis form.
+def _check_split(what, split: torch.Tensor, shape, device):
+  if (tuple(split.shape) != shape or split.dtype != torch.bfloat16
+      or split.device != device):
+    raise ValueError(f'{what}: a split operator must be bfloat16 {shape} on '
+                     f'the fields\' device, got {split.dtype} '
+                     f'{tuple(split.shape)} on {split.device}')
+
+
+def _check_split_launchable(what, tensors, num_c, k, dtype):
+  """The bf16x3 pair kernels: float32 only (the class is defined on
+  float32), k <= MAX_K_SPLIT (their operators live in shared memory)."""
+  if dtype != torch.float32:
+    raise TypeError(f'{what} kernel takes float32 (the bf16x3 class is '
+                    f'defined on float32), got {dtype}')
+  if not 1 <= num_c <= MAX_COMPONENTS or not 2 <= k <= MAX_K_SPLIT:
+    raise ValueError(f'{what} kernel takes 1..{MAX_COMPONENTS} components and '
+                     f'2 <= k <= {MAX_K_SPLIT}; got {num_c}, {k}')
+  if not all(t.is_contiguous() for t in tensors):
+    raise ValueError(f'{what} kernel needs contiguous tensors')
+
+
+def _pad(k: int) -> int:
+  return cuda_split._ceil_pad(k * k)  # pylint: disable=protected-access
+
+
+def stiffness3d_pair(us, a2: torch.Tensor, table: torch.Tensor):
+  """Congruent-element 3D stiffness in pair-axis form, class bf16x3.
 
   Args:
     us: tuple of C component fields, each ``(k, k, k, E)``.
-    table: `pair_table_np` in the working dtype, on the fields' device.
+    a2: the bfloat16 ``[hi, lo]`` split of ``A2``, ``(2, M_pad, M_pad)``
+      (`cuda_split.pair_uniform_split_np`), on the fields' device.
+    table: that function's table in the working dtype.
 
   CPU tensors: `stiffness3d_pair_plain`.  CUDA tensors: one launch of the
-  hand-written kernel for all components, counted in
+  tensor-core kernel for all components, counted in
   ``stiffness3d_pair.launches``.
   """
   us = tuple(us)
   k = us[0].shape[0] if us else 0
-  if table.ndim != 1 or table.numel() != k ** 4 + 2 * k * k + k:
+  if table.ndim != 1 or table.numel() != 3 * k * k + k:
     raise ValueError(f'a table of {table.numel()} entries does not match '
-                     f'k = {k} (k^4 + 2k^2 + k)')
+                     f'k = {k} (3k^2 + k)')
   us = _check_fields('stiffness3d_pair', us, table, k)
+  _check_split('stiffness3d_pair', a2, (2, _pad(k), _pad(k)), table.device)
   if table.device.type == 'cpu':
-    return stiffness3d_pair_plain(us, table)
-  _check_launchable('stiffness3d_pair', us + (table,), len(us), k,
-                    table.dtype)
+    return stiffness3d_pair_plain(us, a2, table)
+  _check_split_launchable('stiffness3d_pair', us + (a2, table), len(us), k,
+                          table.dtype)
   outs = _launch('stiffness3d_pair',
-                 lambda pu, po: (table.data_ptr(), pu, po), us, table, k)
+                 lambda pu, po: (a2.data_ptr(), table.data_ptr(), pu, po), us,
+                 table, k)
   stiffness3d_pair.launches += 1
   return outs
 
@@ -431,44 +536,85 @@ def stiffness3d_pair(us, table: torch.Tensor):
 stiffness3d_pair.launches = 0
 
 
-def stiffness3d_pair_general(us, gs, dmat: torch.Tensor):
-  """General 3D stiffness on six factor fields in pair-axis form.
-
-  Args as `stiffness3d_general`.  CPU tensors:
-  `stiffness3d_pair_general_plain`.  CUDA tensors: one launch of the
-  hand-written kernel for all components (the factor fields are read once),
-  counted in ``stiffness3d_pair_general.launches``.
-  """
+def _general_pair(name, plain, us, gs, dp, dmat):
+  """Checks and runs one of the two general pair-layout kernels."""
   k = dmat.shape[0]
   if dmat.ndim != 2 or dmat.shape[1] != k:
     raise ValueError(f'dmat must be square, got {tuple(dmat.shape)}')
-  us = _check_fields('stiffness3d_pair_general', us, dmat, k)
+  us = _check_fields(name, us, dmat, k)
   gs = _check_factors(gs, us[0], dmat)
+  m_pad = _pad(k)
+  _check_split(name, dp, (2, 2 * m_pad, m_pad), dmat.device)
   if dmat.device.type == 'cpu':
-    return stiffness3d_pair_general_plain(us, gs, dmat)
-  _check_launchable('stiffness3d_pair_general', us + gs + (dmat,), len(us),
-                    k, dmat.dtype)
-  outs = _launch('stiffness3d_pair_general',
-                 lambda pu, po: (dmat.data_ptr(), pu, _ptrs(gs), po), us,
-                 dmat, k)
-  stiffness3d_pair_general.launches += 1
+    return plain(us, gs, dp, dmat)
+  _check_split_launchable(name, us + gs + (dp, dmat), len(us), k,
+                          dmat.dtype)
+  # The kernel reads the transposed stage from DP's split, transposed.
+  return _launch(name, lambda pu, po: (dp.data_ptr(), dmat.data_ptr(), pu,
+                                       _ptrs(gs), po), us, dmat, k)
+
+
+def stiffness3d_pair_general(us, gs, dp: torch.Tensor, dmat: torch.Tensor):
+  """General 3D stiffness on six factor fields, xi-slabs of the (eta, zeta)
+  pair, class bf16x3 (``pallas_stiffness3d.py:stiffness3d_el_pallas_pair_
+  general`` and ``stiffness3d_el_pallas_pairs_general``).
+
+  Args:
+    us: tuple of C component fields, each ``(k, k, k, E)``.
+    gs: ``(g11, g12, g13, g22, g23, g33)``, each ``(k, k, k, E)``.
+    dp: the bfloat16 split `cuda_split.pair_derivative_split_np` of `dmat`;
+      the transposed stage reads it transposed.
+    dmat: the ``(k, k)`` 1D differentiation matrix in the working dtype.
+
+  CPU tensors: `stiffness3d_pair_general_plain`.  CUDA tensors: one launch
+  of the tensor-core kernel for all components, counted in
+  ``stiffness3d_pair_general.launches``.
+  """
+  outs = _general_pair('stiffness3d_pair_general',
+                       stiffness3d_pair_general_plain, us, gs, dp, dmat)
+  if dmat.device.type != 'cpu':
+    stiffness3d_pair_general.launches += 1
   return outs
 
 
 stiffness3d_pair_general.launches = 0
 
 
-def stiffness3d_pair_affine(us, c_affine: torch.Tensor, table: torch.Tensor):
-  """Affine-element 3D stiffness in pair-axis form.
+def stiffness3d_pairz_general(us, gs, dp: torch.Tensor,
+                              dmat: torch.Tensor):
+  """General 3D stiffness on six factor fields, zeta-slabs of the (xi, eta)
+  pair, class bf16x3 (``pallas_stiffness3d.py:stiffness3d_el_pallas_pairz_
+  general``).  Args as `stiffness3d_pair_general` (the same split).
+
+  CPU tensors: `stiffness3d_pairz_general_plain`.  CUDA tensors: one
+  launch of the tensor-core kernel for all components, counted in
+  ``stiffness3d_pairz_general.launches``.
+  """
+  outs = _general_pair('stiffness3d_pairz_general',
+                       stiffness3d_pairz_general_plain, us, gs, dp, dmat)
+  if dmat.device.type != 'cpu':
+    stiffness3d_pairz_general.launches += 1
+  return outs
+
+
+stiffness3d_pairz_general.launches = 0
+
+
+def stiffness3d_pair_affine(us, c_affine: torch.Tensor, dp: torch.Tensor,
+                            at: torch.Tensor, table: torch.Tensor):
+  """Affine-element 3D stiffness in pair-axis form, class bf16x3.
 
   Args:
     us: tuple of C component fields, each ``(k, k, k, E)``.
     c_affine: ``(6, E)`` per-element coefficients, rows ``(c11, c12, c13,
       c22, c23, c33)``, with ``G_ab(q, e) = w(q) C_ab(e)``.
+    dp, at: the bfloat16 splits `cuda_split.pair_derivative_split_np(dmat)`
+      and `cuda_split.pair_transpose_split_np(dmat, w1)` (the weight folded
+      in).
     table: `pair_affine_table_np` in the working dtype.
 
   CPU tensors: `stiffness3d_pair_affine_plain`.  CUDA tensors: one launch
-  of the hand-written kernel for all components, counted in
+  of the tensor-core kernel for all components, counted in
   ``stiffness3d_pair_affine.launches``.
   """
   us = tuple(us)
@@ -481,12 +627,19 @@ def stiffness3d_pair_affine(us, c_affine: torch.Tensor, table: torch.Tensor):
       or c_affine.device != table.device or c_affine.dtype != table.dtype):
     raise ValueError('c_affine must be (6, E) on the fields\' device in '
                      'their dtype')
+  m_pad = _pad(k)
+  _check_split('stiffness3d_pair_affine', dp, (2, 2 * m_pad, m_pad),
+               table.device)
+  _check_split('stiffness3d_pair_affine', at, (2, m_pad, 2 * m_pad),
+               table.device)
   if table.device.type == 'cpu':
-    return stiffness3d_pair_affine_plain(us, c_affine, table)
-  _check_launchable('stiffness3d_pair_affine', us + (c_affine, table),
-                    len(us), k, table.dtype)
+    return stiffness3d_pair_affine_plain(us, c_affine, dp, at, table)
+  _check_split_launchable('stiffness3d_pair_affine',
+                          us + (c_affine, dp, at, table), len(us), k,
+                          table.dtype)
   outs = _launch('stiffness3d_pair_affine',
-                 lambda pu, po: (table.data_ptr(), c_affine.data_ptr(), pu,
+                 lambda pu, po: (dp.data_ptr(), at.data_ptr(),
+                                 table.data_ptr(), c_affine.data_ptr(), pu,
                                  po), us, table, k)
   stiffness3d_pair_affine.launches += 1
   return outs
@@ -505,24 +658,43 @@ def stiffness3d_counts(order, num_elems, num_components, *, variant,
   ``bench.py:_stiffness_counts``: 6 one-dimensional contractions of ``2 k^4``
   flops per element and component plus the pointwise geometric stage (8
   flops on a congruent box, 17 on six factor fields).  ``'pair'`` computes
-  the same function as ``'uniform'`` and ``'pair_general'`` the same as
-  ``'general'``, so each takes that count, not the larger one of its own
-  dense ``(k^2, k^2)`` pair product; ``'pair_affine'`` adds the three weight
-  multiplies and reads 6 scalars per element in place of the factor fields.
-  ``'dense'`` is the ``(k^3, k^3)`` product itself (``2 k^3`` flops per
-  point), and it reads the operator.
+  the same function as ``'uniform'``, and ``'pair_general'`` and
+  ``'pairz_general'`` the same as ``'general'``, so each takes that count,
+  not the larger one of its tensor-core passes
+  (`stiffness3d_tensor_core_flops`); ``'pair_affine'`` adds the three
+  weight multiplies and reads 6 scalars per element in place of the factor
+  fields.  The small static tables (``D``, the weights) are the caller's
+  to add.  ``'dense'`` is the ``(k^3, k^3)`` product itself (``2 k^3``
+  flops per point), and it reads the operator.
   """
   k = order + 1
   pts = k ** 3 * num_elems
   c = num_components
   fields = 2 * c * pts
+  general = (c * pts * (12 * k + 17), fields + NUM_FACTORS * pts)
   flops, words = {
       'uniform': (c * pts * (12 * k + 8), fields),
-      'general': (c * pts * (12 * k + 17), fields + NUM_FACTORS * pts),
+      'general': general,
       'dense': (c * pts * 2 * k ** 3, fields + k ** 6),
       'pair': (c * pts * (12 * k + 8), fields),
-      'pair_general': (c * pts * (12 * k + 17), fields + NUM_FACTORS * pts),
+      'pair_general': general,
+      'pairz_general': general,
       'pair_affine': (c * pts * (12 * k + 20),
                       fields + NUM_FACTORS * num_elems),
   }[variant]
   return flops, words * dtype_bytes
+
+
+def stiffness3d_tensor_core_flops(order, num_elems, num_components, *,
+                                  variant):
+  """The bf16 tensor-core flops one apply of a pair kernel issues, all
+  three passes and the zeros of the Kronecker factors counted: ``'pair'``
+  one ``(k^2, k^2)`` product per slab (``6 k^2`` per point), the general and
+  affine ones the stacked ``(2k^2, k^2)`` derivative product and the two
+  transposed ``(k^2, k^2)`` products (``24 k^2`` per point).  A measure of
+  the kernels' issue load, not of the function's work (no bound uses it).
+  """
+  k2 = (order + 1) ** 2
+  per_point = {'pair': 6 * k2, 'pair_general': 24 * k2,
+               'pairz_general': 24 * k2, 'pair_affine': 24 * k2}[variant]
+  return num_components * (order + 1) ** 3 * num_elems * per_point

@@ -33,6 +33,16 @@ CLASS_BANDS = {'bf16x3': (1e-7, SPLIT_REL_TOL),
 # A split kernel against its plain version, relative to the largest output
 # entry: both sum the same exact bf16 products, in another order.
 SPLIT_VS_PLAIN_TOL = 1e-5
+# The bf16x3 pair kernels.  The congruent one splits only its input, as the
+# static-operator split kernels do, and holds its plain version to 1e-6;
+# the slab pipelines (general, pairz, affine) also split their intermediate
+# fluxes, whose low bf16 part can round the other way where two sums
+# differ by one unit in the last place, and hold `SPLIT_VS_PLAIN_TOL`.
+# Against the float64 operator they read 4e-6 to 1.4e-5, the FP32 class
+# ~2e-7: the floor of their band is 1e-6, so that a kernel of the wrong
+# class fails it.
+PAIR_VS_PLAIN_TOL = {'stiffness3d_pair': 1e-6}
+PAIR_BAND = (1e-6, SPLIT_REL_TOL)
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # HBM3 bandwidth, FP32 (non-tensor-core) rate and dense bf16 tensor-core
@@ -115,6 +125,25 @@ def check_stiffness2d_affine(ops, us) -> dict:
       tuple(u.double() for u in us), ops.g_affine.double(), m64)
   torch.cuda.synchronize(mstack.device)
   return _errors(got, plain, ref)
+
+
+def check_stiffness2d_kron(ops, u, gs=None) -> dict:
+  """stiffness2d_kron (the general kernel at C = 1) vs its plain version (the
+  Kronecker form), vs `stiffness2d_general` on the same field, and both vs
+  the float64 operator; ``vs_general_max_abs`` is the largest difference
+  from the general kernel."""
+  gs = (ops.g11, ops.g12, ops.g22) if gs is None else tuple(gs)
+  dmat = ops.mats['dmat']
+  got = cuda_stiffness2d.stiffness2d_kron(u, *gs, dmat)
+  plain = cuda_stiffness2d.stiffness2d_kron_plain(u, *gs, dmat)
+  general = cuda_stiffness2d.stiffness2d_general((u,), gs, dmat)[0]
+  ref = cuda_stiffness2d.stiffness2d_general_plain(
+      (u.double(),), tuple(g.double() for g in gs),
+      torch.as_tensor(ops.dmat, dtype=torch.float64, device=dmat.device))
+  torch.cuda.synchronize(dmat.device)
+  errs = _errors((got,), (plain,), ref)
+  errs['vs_general_max_abs'] = float((got - general).abs().max())
+  return errs
 
 
 def _split_errors(got, plain, ref) -> dict:
@@ -227,42 +256,51 @@ def check_stiffness3d_dense(ops, us) -> dict:
 
 
 def check_stiffness3d_pair(ops, us) -> dict:
-  """stiffness3d_pair kernel vs its plain version and the float64 dense
-  operator of the congruent box."""
-  table = ops.pair_table()
-  got = cuda_stiffness3d.stiffness3d_pair(us, table)
-  plain = cuda_stiffness3d.stiffness3d_pair_plain(us, table)
+  """stiffness3d_pair kernel (bf16x3) vs its plain version and the float64
+  dense operator of the congruent box; ``rel_err_plain`` relative to the
+  plain output's largest entry."""
+  a2, table = ops.pair_operators()
+  got = cuda_stiffness3d.stiffness3d_pair(us, a2, table)
+  plain = cuda_stiffness3d.stiffness3d_pair_plain(us, a2, table)
   ref = _uniform_ref64(ops, us)
   torch.cuda.synchronize(table.device)
-  return _errors(got, plain, ref)
+  return _split_errors(got, plain, ref)
 
 
-def check_stiffness3d_pair_general(ops, us, gs=None) -> dict:
-  """stiffness3d_pair_general kernel vs its plain version and the float64
-  sum-factorized operator on the same factor fields (`gs`, default the
-  box's own)."""
+def check_stiffness3d_pair_general(ops, us, gs=None, *, zeta=False) -> dict:
+  """stiffness3d_pair_general kernel (or, with `zeta`, the pairz one), class
+  bf16x3, vs its plain version and the float64 sum-factorized operator on
+  the same factor fields (`gs`, default the box's own)."""
   gs = ops.gs() if gs is None else tuple(gs)
   dmat = ops.mats['dmat']
-  got = cuda_stiffness3d.stiffness3d_pair_general(us, gs, dmat)
-  plain = cuda_stiffness3d.stiffness3d_pair_general_plain(us, gs, dmat)
+  dp = ops.pair_derivative_split()
+  cs3 = cuda_stiffness3d
+  kernel, plain_fn = ((cs3.stiffness3d_pairz_general,
+                       cs3.stiffness3d_pairz_general_plain) if zeta else
+                      (cs3.stiffness3d_pair_general,
+                       cs3.stiffness3d_pair_general_plain))
+  got = kernel(us, gs, dp, dmat)
+  plain = plain_fn(us, gs, dp, dmat)
   ref = _general_ref64(ops, us, gs)
   torch.cuda.synchronize(dmat.device)
-  return _errors(got, plain, ref)
+  return _split_errors(got, plain, ref)
 
 
 def check_stiffness3d_pair_affine(ops, us, c_affine=None) -> dict:
-  """stiffness3d_pair_affine kernel vs its plain version and the float64
-  sum-factorized operator on ``G_ab = w(q) C_ab(e)`` (`c_affine`, default
-  the box's own ``ops.g_affine``, weights in float64)."""
+  """stiffness3d_pair_affine kernel (bf16x3) vs its plain version and the
+  float64 sum-factorized operator on ``G_ab = w(q) C_ab(e)`` (`c_affine`,
+  default the box's own ``ops.g_affine``, weights in float64)."""
   c_affine = ops.g_affine if c_affine is None else c_affine
-  table = ops.pair_affine_table()
-  got = cuda_stiffness3d.stiffness3d_pair_affine(us, c_affine, table)
-  plain = cuda_stiffness3d.stiffness3d_pair_affine_plain(us, c_affine, table)
+  dp, at_w, table = ops.pair_affine_operators()
+  got = cuda_stiffness3d.stiffness3d_pair_affine(us, c_affine, dp, at_w,
+                                                 table)
+  plain = cuda_stiffness3d.stiffness3d_pair_affine_plain(us, c_affine, dp,
+                                                         at_w, table)
   w1 = torch.as_tensor(ops.w1, dtype=torch.float64, device=table.device)
   w3 = torch.einsum('i,j,k->ijk', w1, w1, w1)[..., None]
   ref = _general_ref64(ops, us, tuple(w3 * c.double() for c in c_affine))
   torch.cuda.synchronize(table.device)
-  return _errors(got, plain, ref)
+  return _split_errors(got, plain, ref)
 
 
 def check_stiffness3d_general(ops, us, gs=None) -> dict:

@@ -10,10 +10,9 @@ divergence/gradient coupling to the discontinuous Gauss-Legendre pressure
 space and the overintegrated convection form.
 
 The stiffness apply dispatches through ONE table keyed by (operator class,
-implementation), `STIFFNESS_DISPATCH`.  CPU tensors run the class's plain
-version for every key; CUDA tensors run the hand-written kernel of
-``ops.cuda_stiffness3d`` where the key has one, and raise
-`NotImplementedError`, naming the ROADMAP.md item, where it has none.  The
+implementation), `STIFFNESS_DISPATCH`.  CPU tensors run the key's plain
+version; CUDA tensors run its hand-written kernel (``ops.cuda_stiffness3d``,
+``ops.cuda_split``): every key has one.  The
 periodic el exchange stays plain PyTorch (the JAX package has no 3D
 exchange kernel).
 """
@@ -113,17 +112,10 @@ KERNEL_PRECISIONS = (None, 'highest', 'bf16x3')
 
 @dataclasses.dataclass(frozen=True)
 class _Entry:
-  """One (operator class, implementation) key of the stiffness dispatch.
-
-  `plain` is the CPU version; `kernel` the CUDA one, or None with `todo`
-  naming the ROADMAP.md item that ports it.
-  """
+  """One (operator class, implementation) key of the stiffness dispatch:
+  `plain` is the CPU version, `kernel` the CUDA one."""
   plain: object
-  kernel: object = None
-  todo: str = ''
-
-
-_QUEUE2 = 'has no Hopper kernel yet (ROADMAP.md, Queue 2 item {})'
+  kernel: object
 
 
 def _uniform_plain(ops, us):
@@ -158,33 +150,48 @@ def _dense_kernel(ops, us):
 
 
 def _pair_plain(ops, us):
-  return cuda_stiffness3d.stiffness3d_pair_plain(us, ops.pair_table())
+  return cuda_stiffness3d.stiffness3d_pair_plain(us, *ops.pair_operators())
 
 
 def _pair_kernel(ops, us):
-  return cuda_stiffness3d.stiffness3d_pair(us, ops.pair_table())
+  return cuda_stiffness3d.stiffness3d_pair(us, *ops.pair_operators())
 
 
 def _pair_general_plain(ops, us):
-  return cuda_stiffness3d.stiffness3d_pair_general_plain(us, ops.gs(),
-                                                         ops.mats['dmat'])
+  return cuda_stiffness3d.stiffness3d_pair_general_plain(
+      us, ops.gs(), ops.pair_derivative_split(), ops.mats['dmat'])
 
 
 def _pair_general_kernel(ops, us):
-  return cuda_stiffness3d.stiffness3d_pair_general(us, ops.gs(),
-                                                   ops.mats['dmat'])
+  return cuda_stiffness3d.stiffness3d_pair_general(
+      us, ops.gs(), ops.pair_derivative_split(), ops.mats['dmat'])
+
+
+def _pairz_general_plain(ops, us):
+  return cuda_stiffness3d.stiffness3d_pairz_general_plain(
+      us, ops.gs(), ops.pair_derivative_split(), ops.mats['dmat'])
+
+
+def _pairz_general_kernel(ops, us):
+  return cuda_stiffness3d.stiffness3d_pairz_general(
+      us, ops.gs(), ops.pair_derivative_split(), ops.mats['dmat'])
 
 
 def _pair_affine_plain(ops, us):
   return cuda_stiffness3d.stiffness3d_pair_affine_plain(
-      us, ops.g_affine, ops.pair_affine_table())
+      us, ops.g_affine, *ops.pair_affine_operators())
 
 
 def _pair_affine_kernel(ops, us):
-  return cuda_stiffness3d.stiffness3d_pair_affine(us, ops.g_affine,
-                                                  ops.pair_affine_table())
+  return cuda_stiffness3d.stiffness3d_pair_affine(
+      us, ops.g_affine, *ops.pair_affine_operators())
 
 
+# Every key has a hand-written kernel.  `kernel_precision` selects the class
+# of the dense congruent key only; the pair keys always run bf16x3, as the
+# JAX package's pair kernels do (swirlfem_tpu/ops/sem3d.py:259-292), and
+# take float32 on the card (float64 on CUDA raises TypeError; on the CPU
+# their plain versions emulate the class in either dtype).
 STIFFNESS_DISPATCH = {
     (CONGRUENT, 'fused'): _Entry(_uniform_plain, _uniform_kernel),
     # 'highest' (FP32 FFMA) or 'bf16x3' (tensor cores), by kernel_precision.
@@ -194,8 +201,12 @@ STIFFNESS_DISPATCH = {
     (AFFINE, 'pair'): _Entry(_pair_affine_plain, _pair_affine_kernel),
     (GENERAL, 'fused'): _Entry(_general_plain, _general_kernel),
     (GENERAL, 'pair'): _Entry(_pair_general_plain, _pair_general_kernel),
-    **{(GENERAL, impl): _Entry(_general_plain, todo=_QUEUE2.format(10))
-       for impl in GENERAL_IMPLS[2:]},
+    (GENERAL, 'pairz'): _Entry(_pairz_general_plain, _pairz_general_kernel),
+    # The superslab layouts stack S slabs into block-diagonal operators for
+    # the TPU's matrix unit: their off-diagonal blocks add exact zeros, so
+    # they compute pair's products bit for bit, and run its kernel.
+    (GENERAL, 'pairs2'): _Entry(_pair_general_plain, _pair_general_kernel),
+    (GENERAL, 'pairs4'): _Entry(_pair_general_plain, _pair_general_kernel),
 }
 
 
@@ -319,16 +330,35 @@ class Sem3DOps:
                                            self.dmat)), torch.bfloat16)
     return split[0], split[1]
 
-  def pair_table(self) -> torch.Tensor:
-    """`cuda_stiffness3d.pair_table_np` of a congruent box, on the device."""
-    return self.const('pair_table', lambda: cuda_stiffness3d.pair_table_np(
-        self.c_uniform, self.w1, self.dmat))
+  def _split(self, key: str, build):
+    """A bfloat16 split operator (float32 from `build`), made once."""
+    return self.const(key, build, torch.bfloat16)
 
-  def pair_affine_table(self) -> torch.Tensor:
-    """`cuda_stiffness3d.pair_affine_table_np`, on the device."""
-    return self.const(
-        'pair_affine_table',
-        lambda: cuda_stiffness3d.pair_affine_table_np(self.w1, self.dmat))
+  def pair_operators(self):
+    """``(a2, table)`` of the congruent pair kernel
+    (`cuda_split.pair_uniform_split_np`), on the device, made once."""
+    split = lambda: cuda_split.pair_uniform_split_np(self.c_uniform, self.w1,
+                                                     self.dmat)
+    return (self._split('pair_a2', lambda: split()[0]),
+            self.const('pair_table', lambda: split()[1]))
+
+  def pair_derivative_split(self) -> torch.Tensor:
+    """``dp``: the bf16 split of the pair derivative ``[D (x) I; I (x) D]``,
+    shared by the pair, pairs, pairz and affine pair kernels (the general
+    ones read its transpose as the transposed pair stage)."""
+    return self._split('pair_dp', lambda: cuda_split.pair_derivative_split_np(
+        self.dmat))
+
+  def pair_affine_operators(self):
+    """``(dp, at_w, table)`` of the affine pair kernel: the transposed pair
+    split with ``diag(w (x) w)`` folded in, and
+    `cuda_stiffness3d.pair_affine_table_np`."""
+    return (self.pair_derivative_split(),
+            self._split('pair_at_w', lambda: cuda_split.pair_transpose_split_np(
+                self.dmat, self.w1)),
+            self.const('pair_affine_table',
+                       lambda: cuda_stiffness3d.pair_affine_table_np(
+                           self.w1, self.dmat)))
 
   # -- 1D contractions (axes 0..2 = xi, eta, zeta; E last) -----------------
 
@@ -381,8 +411,6 @@ class Sem3DOps:
     entry = STIFFNESS_DISPATCH[key]
     if not us[0].is_cuda:
       return entry.plain(self, us)
-    if entry.kernel is None:
-      raise NotImplementedError(f'3D stiffness {key} {entry.todo}')
     return entry.kernel(self, us)
 
   def stiffness_diag_el(self) -> torch.Tensor:

@@ -5,12 +5,16 @@ periodic cube of ``tests/test_pallas.py:384-392``.  The box is not
 separable, so there is no FDM inverse: the viscous solve is Jacobi-CG (the
 stiffness runs at every iteration) and the pressure solve projected CG.
 Three steps at 2^3 elements, order 3, float64, from one numpy-seeded state,
-must match the JAX package to 1e-9 with CG iteration counts within one;
-every opt-in stiffness key (on the CPU: its plain version) must give the
-same steps as ``('general', 'fused')``; the Jacobi diagonal is built once
-per step.
+must match the JAX package to 1e-9 with CG iteration counts within one.
+Every opt-in stiffness key (on the CPU: its plain version) must give the
+JAX package's steps under the same key, its Pallas kernels in interpret
+mode, to 1e-9; the pair keys run the class bf16x3 in both packages, so
+against ``('general', 'fused')`` they hold only to that class.  The same
+on the Taylor-Green box with the FDM inverses as CG seeds.  The Jacobi
+diagonal is built once per step.
 """
 
+import contextlib
 import dataclasses
 import functools
 
@@ -22,6 +26,7 @@ import torch
 
 from swirlfem_tpu.examples import taylor_green_3d as jtg
 from swirlfem_tpu.nse import solver as jsolver
+from swirlfem_tpu.ops import pallas_stiffness3d as jp3
 from swirlfem_tpu.utils.box import unit_cube_mesh as junit_cube_mesh
 from swirlfem_tpu_torch.examples import taylor_green_3d as tg
 from swirlfem_tpu_torch.linalg.cg import tree_map
@@ -35,6 +40,27 @@ N_EL, ORDER, STEPS = 2, 3, 3
 MU, DT, TIME_ORDER, ALPHA = 1.0 / 100.0, 2e-3, 2, 0.05
 SOLVE = dict(tol=1e-11, atol=1e-13, maxiter=400)
 TWO_PI = 2.0 * np.pi
+# States under a bf16x3 key against the exact fused key: the class's
+# operator error (~1e-5 of the largest entry) moves the solves' answers.
+BF16X3_STATE_TOL = 1e-4
+# The JAX package's 3D Pallas stiffness functions.
+PALLAS_3D = ('stiffness3d_el_pallas', 'stiffness3d_el_pallas_uniform',
+             'stiffness3d_el_pallas_dense', 'stiffness3d_el_pallas_pair',
+             'stiffness3d_el_pallas_pair_general',
+             'stiffness3d_el_pallas_pairs_general',
+             'stiffness3d_el_pallas_pairz_general',
+             'stiffness3d_el_pallas_pair_affine')
+
+
+@contextlib.contextmanager
+def pallas_interpret():
+  """Runs the JAX package's 3D Pallas stiffness in interpret mode on the
+  CPU, as its own tests do; nothing of the package changes."""
+  with pytest.MonkeyPatch.context() as mp:
+    for name in PALLAS_3D:
+      mp.setattr(jp3, name, functools.partial(getattr(jp3, name),
+                                              interpret=True))
+    yield
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,7 +126,15 @@ def _port_steps(sem, us, ps, seeded=False):
   return us[-1], ps[-1], iters
 
 
-def _jax_steps(jsem, us, ps):
+def _jax_steps(jsem, us, ps, knobs=None, seeded=False):
+  """The JAX package's `STEPS` CG-solved steps; with `knobs`, its Pallas
+  stiffness under those knobs (call inside `pallas_interpret`); `seeded`
+  takes the FDM inverses as CG seeds."""
+  if knobs is not None:
+    jsem = jsem.replace(fast_ops=jsem.fast_ops.replace(use_pallas=True,
+                                                       **knobs))
+  vp, pp = (jsem.fdm_el_preconditioners(MU, DT, TIME_ORDER) if seeded
+            else (None, None))
   us = tuple(tuple(jnp.asarray(c) for c in u) for u in us)
   ps = tuple(jnp.asarray(p) for p in ps)
   _, conv = jtg.make_advance(jsem, mu=MU, dt=DT, time_order=TIME_ORDER,
@@ -114,7 +148,8 @@ def _jax_steps(jsem, us, ps):
               *cus)
     u, p, aux = jsem.stokes_one_step_el(
         list(us), list(ps), tmap(lambda c: -c, cu), mu=MU, dt=DT,
-        time_order=TIME_ORDER, alpha=ALPHA, exact_solves=False, **SOLVE)
+        time_order=TIME_ORDER, alpha=ALPHA, pressure_preconditioner_el=pp,
+        viscous_preconditioner_el=vp, exact_solves=False, **SOLVE)
     return (us[1:] + (u,), ps[1:] + (p,), cus[1:] + (conv(u),),
             (aux['u_star_info']['num_iterations'],
              aux['dp_info']['num_iterations']))
@@ -163,23 +198,36 @@ def test_cg_solved_steps_match_jax():
     assert abs(gv - wv) <= 1 and abs(gp - wp) <= 1, (got_iters, want_iters)
 
 
+def _assert_steps_close(got, want, tol=1e-9, iters_exact=False):
+  got_u, got_p, got_iters = got
+  want_u, want_p, want_iters = want
+  for g, w in zip(got_u, want_u):
+    assert _rel(np.asarray(g), np.asarray(w)) <= tol
+  assert _rel(np.asarray(got_p), np.asarray(want_p)) <= tol
+  if iters_exact:
+    assert got_iters == want_iters
+  for (gv, gp), (wv, wp) in zip(got_iters, want_iters):
+    assert abs(gv - wv) <= 1 and abs(gp - wp) <= 1, (got_iters, want_iters)
+
+
 @pytest.mark.parametrize('knobs,key', [
     (dict(use_affine_kernel=True), ('affine', 'pair')),
     (dict(general_kernel_impl='pair'), ('general', 'pair')),
 ])
 def test_opt_in_keys_give_the_same_steps(knobs, key):
-  _, sem = _sems()
+  """The JAX package's steps under the same key (bf16x3 in both) to 1e-9;
+  the fused key's to the class."""
+  jsem, sem = _sems()
   variant = dataclasses.replace(sem, fast_ops=dataclasses.replace(
       sem.fast_ops, **knobs))
   assert variant.fast_ops.stiffness_key == key
-  got_u, got_p, got_iters = _port_steps(variant,
-                                        *_state(sem, _unwarped_coords()))
-  want_u, want_p, want_iters = _fused_steps()
-  for g, w in zip(got_u, want_u):
-    assert _rel(g.numpy(), w.numpy()) <= 1e-9
-  assert _rel(got_p.numpy(), want_p.numpy()) <= 1e-9
-  for (gv, gp), (wv, wp) in zip(got_iters, want_iters):
-    assert abs(gv - wv) <= 1 and abs(gp - wp) <= 1, (got_iters, want_iters)
+  state = _state(sem, _unwarped_coords())
+  got = _port_steps(variant, *state)
+  with pallas_interpret():
+    want = _jax_steps(jsem, *state, knobs=knobs)
+  _assert_steps_close(got, want)
+  fused = _fused_steps()
+  _assert_steps_close(got, fused, tol=BF16X3_STATE_TOL)
 
 
 @pytest.mark.parametrize('knobs,key', [
@@ -190,19 +238,26 @@ def test_opt_in_keys_give_the_same_steps(knobs, key):
 ])
 def test_congruent_box_certified_steps_under_each_key(knobs, key):
   """The Taylor-Green box with the FDM inverses as CG seeds: every opt-in
-  key certifies the same steps as ``('congruent', 'fused')``."""
+  key certifies its steps in at most 2 viscous iterations.  The dense key
+  gives the fused congruent key's steps exactly; the pair keys the JAX
+  package's steps under the same key (the seed certifies against the
+  bf16x3 operator only after one more iteration, in both packages)."""
   sem = tg.create_tgv(N_EL, ORDER, dtype=torch.float64, device='cpu')
   variant = dataclasses.replace(sem, fast_ops=dataclasses.replace(
       sem.fast_ops, **knobs))
   assert variant.fast_ops.stiffness_key == key
   state = _state(sem, sem.velocity.mesh.node_coords.numpy())
-  want_u, want_p, want_iters = _port_steps(sem, *state, seeded=True)
-  got_u, got_p, got_iters = _port_steps(variant, *state, seeded=True)
-  assert max(v for v, _ in got_iters) <= 2, got_iters
-  assert got_iters == want_iters
-  for g, w in zip(got_u, want_u):
-    assert _rel(g.numpy(), w.numpy()) <= 1e-9
-  assert _rel(got_p.numpy(), want_p.numpy()) <= 1e-9
+  fused = _port_steps(sem, *state, seeded=True)
+  got = _port_steps(variant, *state, seeded=True)
+  assert max(v for v, _ in got[2]) <= 2, got[2]
+  if key == ('congruent', 'dense'):
+    _assert_steps_close(got, fused, iters_exact=True)
+    return
+  jsem = jtg.create_tgv(N_EL, ORDER, dtype=jnp.float64)
+  with pallas_interpret():
+    want = _jax_steps(jsem, *state, knobs=knobs, seeded=True)
+  _assert_steps_close(got, want)
+  _assert_steps_close(got, fused, tol=BF16X3_STATE_TOL)
 
 
 def test_jacobi_diagonal_is_built_once_per_step(monkeypatch):

@@ -180,6 +180,16 @@ def test_stiffness3d_dense_matches_f64_operator(device, n_el, order, num_c,
       dtype, kernel_checks.STIFFNESS_REL_TOL), result
 
 
+def _assert_bf16x3(result, name):
+  """A bf16x3 pair kernel: within its tolerance of its plain version, and
+  inside the pair kernels' band of the float64 operator, whose floor an
+  FP32 kernel would not reach."""
+  low, high = kernel_checks.PAIR_BAND
+  assert result['rel_err_plain'] <= kernel_checks.PAIR_VS_PLAIN_TOL.get(
+      name, kernel_checks.SPLIT_VS_PLAIN_TOL), result
+  assert low < result['rel_err_f64'] <= high, result
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('n_el,order', _CASES_3D)
 @pytest.mark.parametrize('num_c', [1, 3])
@@ -187,26 +197,36 @@ def test_stiffness3d_pair_matches_f64_operator(device, n_el, order, num_c,
                                                dtype):
   del device
   ops = _tgv_ops(n_el, order, dtype)
-  result = kernel_checks.check_stiffness3d_pair(ops, _fields3d(ops, num_c, 1))
-  assert result['rel_err_f64'] <= _variant_tol(
-      dtype, kernel_checks.STIFFNESS_REL_TOL), result
+  us = _fields3d(ops, num_c, 1)
+  if dtype == torch.float64:  # the class is defined on float32
+    with pytest.raises(TypeError, match='float32'):
+      kernel_checks.check_stiffness3d_pair(ops, us)
+    return
+  _assert_bf16x3(kernel_checks.check_stiffness3d_pair(ops, us),
+                 'stiffness3d_pair')
 
 
+@pytest.mark.parametrize('zeta', [False, True], ids=['pair', 'pairz'])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
-@pytest.mark.parametrize('n_el,order', _CASES_3D)
+@pytest.mark.parametrize('n_el,order', _CASES_3D + [(3, 6)])
 @pytest.mark.parametrize('num_c', [1, 3])
 def test_stiffness3d_pair_general_matches_f64_operator(device, n_el, order,
-                                                       num_c, dtype):
+                                                       num_c, dtype, zeta):
   del device
   us = _fields3d(_tgv_ops(n_el, order, dtype), num_c, 1)
-  tol = _variant_tol(dtype, kernel_checks.STIFFNESS_REL_TOL)
-  # The congruent and the affine box's own fields, then random ones.
+  if dtype == torch.float64:
+    with pytest.raises(TypeError, match='float32'):
+      kernel_checks.check_stiffness3d_pair_general(
+          _tgv_ops(n_el, order, dtype), us, zeta=zeta)
+    return
+  # The congruent and the affine box's own fields, then random ones (every
+  # cross term and the fragment's point map count).
   for ops, gs in ((_tgv_ops(n_el, order, dtype), None),
                   (_affine_ops(n_el, order, dtype), None),
                   (_tgv_ops(n_el, order, dtype),
                    _fields3d(_tgv_ops(n_el, order, dtype), 6, 10))):
-    result = kernel_checks.check_stiffness3d_pair_general(ops, us, gs)
-    assert result['rel_err_f64'] <= tol, result
+    _assert_bf16x3(kernel_checks.check_stiffness3d_pair_general(
+        ops, us, gs, zeta=zeta), 'stiffness3d_pair_general')
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
@@ -217,13 +237,17 @@ def test_stiffness3d_pair_affine_matches_f64_operator(device, n_el, order,
   del device
   ops = _affine_ops(n_el, order, dtype)
   us = _fields3d(ops, num_c, 1)
-  tol = _variant_tol(dtype, kernel_checks.STIFFNESS_REL_TOL)
+  if dtype == torch.float64:
+    with pytest.raises(TypeError, match='float32'):
+      kernel_checks.check_stiffness3d_pair_affine(ops, us)
+    return
   random_c = kernel_checks.random_field(tuple(ops.g_affine.shape),
                                         dtype=dtype, device=ops.wmass.device,
                                         seed=20)
   for c_affine in (None, random_c):  # the box's coefficients, random ones
-    result = kernel_checks.check_stiffness3d_pair_affine(ops, us, c_affine)
-    assert result['rel_err_f64'] <= tol, result
+    _assert_bf16x3(kernel_checks.check_stiffness3d_pair_affine(ops, us,
+                                                               c_affine),
+                   'stiffness3d_pair_affine')
 
 
 def test_stiffness3d_variant_wrappers_reject_bad_input(device):
@@ -231,52 +255,67 @@ def test_stiffness3d_variant_wrappers_reject_bad_input(device):
   ops = _affine_ops(3, 3, torch.float32)
   us = _fields3d(ops, 2, 1)
   bad = tuple(u.transpose(0, 1) for u in us)
+  dp = ops.pair_derivative_split()
   with pytest.raises(ValueError, match='contiguous'):
-    cuda_stiffness3d.stiffness3d_pair_general(bad, ops.gs(),
+    cuda_stiffness3d.stiffness3d_pair_general(bad, ops.gs(), dp,
                                               ops.mats['dmat'])
   with pytest.raises(ValueError, match='contiguous'):
     cuda_stiffness3d.stiffness3d_pair_affine(bad, ops.g_affine,
-                                             ops.pair_affine_table())
+                                             *ops.pair_affine_operators())
   with pytest.raises(ValueError, match='components'):
     cuda_stiffness3d.stiffness3d_pair_affine(us * 3, ops.g_affine,
-                                             ops.pair_affine_table())
+                                             *ops.pair_affine_operators())
+  with pytest.raises(ValueError, match='components'):
+    cuda_stiffness3d.stiffness3d_pairz_general(us * 3, ops.gs(), dp,
+                                               ops.mats['dmat'])
   congruent = _tgv_ops(3, 3, torch.float32)
   with pytest.raises(ValueError, match='components'):
     cuda_stiffness3d.stiffness3d_dense(us * 3, congruent.dense_operator_t())
+  a2, table = congruent.pair_operators()
   with pytest.raises(TypeError):
-    cuda_stiffness3d.stiffness3d_pair(
-        tuple(u.half() for u in us), congruent.pair_table().half())
+    cuda_stiffness3d.stiffness3d_pair(tuple(u.half() for u in us), a2,
+                                      table.half())
+  # The bf16x3 pair kernels hold their operators in shared memory: k <= 8.
+  big = _tgv_ops(2, 8, torch.float32)
+  with pytest.raises(ValueError, match='k <= 8'):
+    dataclasses.replace(big, uniform_kernel_impl='pair').stiffness_el_multi(
+        _fields3d(big, 1, 1))
 
 
 def test_cg_solved_step_on_card_matches_cpu(device):
-  """The affine box, Jacobi-CG and projected CG, float64 on both sides,
-  under ('affine', 'pair'): the kernels change only rounding."""
+  """The affine box, Jacobi-CG and projected CG, under ('affine', 'pair'):
+  the bf16x3 kernel in float32 (its class is defined on float32; float64
+  raises) against the plain version in float64 on the CPU."""
   out = []
-  for dev in (device, torch.device('cpu')):
+  for dev, dtype, tol in ((device, torch.float32, 1e-6),
+                          (torch.device('cpu'), torch.float64, 1e-11)):
     sem = StokesSEM.create(
         affine_box(unit_cube_mesh(2, ndim=3, periodic_dims=(0, 1, 2))), {},
-        order=3, device=dev, dtype=torch.float64)
+        order=3, device=dev, dtype=dtype)
     sem = dataclasses.replace(sem, fast_ops=dataclasses.replace(
         sem.fast_ops, use_affine_kernel=True))
     _, conv = tgv.make_advance(sem, mu=0.01, dt=2e-3, steps_per_chunk=1)
     rng = np.random.default_rng(0)
     shape = (4,) * 3 + (2,) * 3
-    u0 = tuple(torch.as_tensor(rng.standard_normal(shape), device=dev)
-               for _ in range(3))
-    p0 = torch.zeros((2,) * 3 + (2,) * 3, dtype=torch.float64, device=dev)
+    u0 = tuple(torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                               device=dev) for _ in range(3))
+    p0 = torch.zeros((2,) * 3 + (2,) * 3, dtype=dtype, device=dev)
     us, ps, cus = (u0, u0), (p0, p0), (conv(u0),) * 2
     for _ in range(3):
       f_el = tuple(-(2.0 * b - a) for a, b in zip(*cus))
       u, p, _ = sem.stokes_one_step_el(
           list(us), list(ps), f_el, mu=0.01, dt=2e-3, time_order=2,
-          alpha=0.05, tol=1e-11, atol=1e-13, maxiter=400,
-          exact_solves=False)
+          alpha=0.05, tol=tol, atol=0.0, maxiter=400, exact_solves=False)
       us, ps, cus = us[1:] + (u,), ps[1:] + (p,), cus[1:] + (conv(u),)
     out.append(u + (p,))
-  for g, c in zip(*out):
-    err = float((g.cpu() - c).abs().max() / c.abs().max())
-    # Both solves stop at a 1e-11 relative residual, each in its own rounding.
-    assert err <= 1e-8, err
+    if dev.type == 'cuda':
+      flat = tuple(c.double().reshape(4, 4, 4, -1) for c in u0)
+      with pytest.raises(TypeError, match='float32'):
+        sem.fast_ops.to(dev, torch.float64).stiffness_el_multi(flat)
+  for i, (g, c) in enumerate(zip(*out)):
+    err = float((g.double().cpu() - c).abs().max() / c.abs().max())
+    # The card's solves stop at a 1e-6 relative residual in float32.
+    assert err <= (5e-4 if i < 3 else 1e-2), (i, err)
 
 
 def test_stiffness3d_launches_and_dispatch(device):
@@ -312,11 +351,20 @@ def test_stiffness3d_launches_and_dispatch(device):
   with pytest.raises(TypeError, match='float32'):
     dense3.to(ops.wmass.device, torch.float64).stiffness_el_multi(
         tuple(u.double() for u in us))
-  # Keys without one raise, naming their ROADMAP item.
-  for impl in ('pairz', 'pairs2', 'pairs4'):
-    with pytest.raises(NotImplementedError, match='Queue 2 item 10'):
-      dataclasses.replace(ops, use_uniform_kernel=False,
-                          general_kernel_impl=impl).stiffness_el_multi(us)
+  # Every key has a kernel: pairz its own, the superslab keys pair's.
+  for impl, wrapper in (
+      ('pairz', cuda_stiffness3d.stiffness3d_pairz_general),
+      ('pairs2', cuda_stiffness3d.stiffness3d_pair_general),
+      ('pairs4', cuda_stiffness3d.stiffness3d_pair_general)):
+    count = wrapper.launches
+    general = dataclasses.replace(ops, use_uniform_kernel=False,
+                                  general_kernel_impl=impl)
+    out = general.stiffness_el_multi(us)
+    assert wrapper.launches == count + 1
+    if impl != 'pairz':
+      pair = dataclasses.replace(general, general_kernel_impl='pair')
+      for a, b in zip(out, pair.stiffness_el_multi(us)):
+        assert torch.equal(a, b)
   with pytest.raises(ValueError, match='components'):
     cuda_stiffness3d.stiffness3d_uniform(us * 3, ops.mats['table'])
   with pytest.raises(ValueError, match='contiguous'):
@@ -392,6 +440,26 @@ def test_stiffness2d_affine_matches_f64_operator(device, n_el, order, num_c,
                                                                  1))
   tol = kernel_checks.STIFFNESS_REL_TOL if dtype == torch.float32 else 1e-13
   assert result['rel_err_f64'] <= tol, result
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n_el,order', _CASES_2D)
+def test_stiffness2d_kron_matches_general_kernel(device, n_el, order, dtype):
+  """The Kronecker-form function launches the general kernel at C = 1: the
+  same bits as `stiffness2d_general` on one component, within the gate of
+  the float64 operator, one launch counted on its own wrapper."""
+  del device
+  ops = _walled_ops('general', n_el, order, dtype)
+  u = _fields2d(ops, 1, 1)[0]
+  before = (cuda_stiffness2d.stiffness2d_kron.launches,
+            cuda_stiffness2d.stiffness2d_general.launches)
+  result = kernel_checks.check_stiffness2d_kron(ops, u)
+  assert result['vs_general_max_abs'] == 0.0, result
+  assert result['rel_err_f64'] <= _variant_tol(
+      dtype, kernel_checks.STIFFNESS_REL_TOL), result
+  assert (cuda_stiffness2d.stiffness2d_kron.launches,
+          cuda_stiffness2d.stiffness2d_general.launches) == (
+              before[0] + 1, before[1] + 1)
 
 
 def test_stiffness2d_launches_and_dispatch(device):

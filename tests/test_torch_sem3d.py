@@ -278,23 +278,26 @@ def test_plain_kernels_match_pallas():
 
 
 def test_dispatch_table_names_every_unported_key():
-  ported = {('congruent', 'fused'), ('general', 'fused'),
-            ('congruent', 'dense'), ('congruent', 'pair'),
-            ('affine', 'pair'), ('general', 'pair')}
-  items = {('general', 'pairz'): 10, ('general', 'pairs2'): 10,
-           ('general', 'pairs4'): 10}
-  assert set(sem3d.STIFFNESS_DISPATCH) == ported | set(items)
+  """Every key has a hand-written kernel: none is left unported.  The
+  superslab keys share the pair-general entry (their TPU kernels compute
+  its products bit for bit); every other key has its own plain version."""
+  keys = {('congruent', 'fused'), ('general', 'fused'),
+          ('congruent', 'dense'), ('congruent', 'pair'),
+          ('affine', 'pair'), ('general', 'pair'), ('general', 'pairz'),
+          ('general', 'pairs2'), ('general', 'pairs4')}
+  assert set(sem3d.STIFFNESS_DISPATCH) == keys
   plains = set()
   for key, entry in sem3d.STIFFNESS_DISPATCH.items():
-    assert entry.plain is not None
-    if key in ported:
-      assert entry.kernel is not None and not entry.todo
-      plains.add(entry.plain)
-    else:
-      assert entry.kernel is None
-      assert f'ROADMAP.md, Queue 2 item {items[key]})' in entry.todo
-  # Every ported key has its own plain version.
-  assert len(plains) == len(ported)
+    assert entry.plain is not None and entry.kernel is not None, key
+    plains.add(entry.plain)
+  pair = sem3d.STIFFNESS_DISPATCH[('general', 'pair')]
+  for impl in ('pairs2', 'pairs4'):
+    assert sem3d.STIFFNESS_DISPATCH[('general', impl)] == pair
+  assert len(plains) == len(keys) - 2
+
+
+def _rel_t(got, want):
+  return float((got - want).abs().max() / want.abs().max())
 
 
 @pytest.mark.parametrize('knobs,key,wrapper', [
@@ -303,33 +306,37 @@ def test_dispatch_table_names_every_unported_key():
     (dict(uniform_kernel_impl='pair'), ('congruent', 'pair'),
      'stiffness3d_pair'),
     (dict(use_uniform_kernel=False, general_kernel_impl='pairz'),
-     ('general', 'pairz'), None),
+     ('general', 'pairz'), 'stiffness3d_pairz_general'),
     (dict(use_uniform_kernel=False, general_kernel_impl='pairs4'),
-     ('general', 'pairs4'), None),
+     ('general', 'pairs4'), 'stiffness3d_pair_general'),
 ])
 def test_unported_keys_run_plain_on_cpu_and_raise_on_cuda(knobs, key,
-                                                          wrapper):
-  """Every opt-in key runs its plain version on the CPU; on CUDA a key
-  without a kernel raises, and a key with one goes to its wrapper."""
+                                                          wrapper,
+                                                          monkeypatch):
+  """Every opt-in key runs its plain version on the CPU, in its class: the
+  dense key exactly, the pair keys in bf16x3 (always, as in the JAX
+  package); on CUDA each key goes to its wrapper, none raises."""
   _, sem = _pair('uniform', 2, 3)
   ops = dataclasses.replace(sem.fast_ops, **knobs)
   assert ops.stiffness_key == key
   u = torch.as_tensor(np.random.default_rng(8).standard_normal(
       ops.g11.shape))
-  if wrapper is not None:
-    before = getattr(cuda_stiffness3d, wrapper).launches
-  torch.testing.assert_close(ops.stiffness_el(u),
-                             sem.fast_ops.stiffness_el(u), rtol=1e-12,
-                             atol=1e-12)
-  entry = sem3d.STIFFNESS_DISPATCH[key]
-  if wrapper is None:
-    # A CUDA field: the dispatch raises before it touches the data.
-    on_card = types.SimpleNamespace(is_cuda=True)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md, Queue 2 item'):
-      ops.stiffness_el_multi((on_card,))
+  before = getattr(cuda_stiffness3d, wrapper).launches
+  err = _rel_t(ops.stiffness_el(u), sem.fast_ops.stiffness_el(u))
+  if key == ('congruent', 'dense'):
+    assert err <= 1e-12, err
   else:
-    assert getattr(cuda_stiffness3d, wrapper).launches == before
-    assert entry.kernel is not None and not entry.todo
+    assert 1e-7 < err <= 1e-4, err
+  assert getattr(cuda_stiffness3d, wrapper).launches == before
+  entry = sem3d.STIFFNESS_DISPATCH[key]
+  assert entry.kernel is not None
+  # A CUDA field goes to the key's wrapper.
+  calls = []
+  monkeypatch.setattr(cuda_stiffness3d, wrapper,
+                      lambda us, *args: calls.append(us) or us)
+  on_card = types.SimpleNamespace(is_cuda=True)
+  assert ops.stiffness_el_multi((on_card,)) == (on_card,)
+  assert calls == [(on_card,)]
 
 
 def test_affine_key_and_knob_validation():
@@ -337,13 +344,13 @@ def test_affine_key_and_knob_validation():
   ops = dataclasses.replace(sem.fast_ops, use_affine_kernel=True)
   assert ops.stiffness_key == ('affine', 'pair')
   # The affine key has its kernel; on the CPU it runs its own plain version,
-  # which agrees with the general operator on the same factor fields.
+  # which agrees with the general operator on the same factor fields within
+  # its class, bf16x3 (three bf16 passes, ~1e-5).
   assert sem3d.STIFFNESS_DISPATCH[ops.stiffness_key].kernel is not None
   u = torch.as_tensor(np.random.default_rng(12).standard_normal(
       ops.g11.shape))
-  torch.testing.assert_close(ops.stiffness_el(u),
-                             sem.fast_ops.stiffness_el(u), rtol=1e-11,
-                             atol=1e-11)
+  err = _rel_t(ops.stiffness_el(u), sem.fast_ops.stiffness_el(u))
+  assert 1e-7 < err <= 1e-4, err
   with pytest.raises(ValueError, match='general_kernel_impl'):
     dataclasses.replace(ops, general_kernel_impl='kron')
   with pytest.raises(ValueError, match='uniform_kernel_impl'):
