@@ -49,7 +49,10 @@ graded and sheared periodic box, all in float32.  Phases:
  16. 20 steps of a 4x4, order-5 heated and lid-driven cavity on the card
      (float32) and through the plain path on the CPU (float64);
  17. time the 2D general, affine and Kronecker-form kernels against their
-     plain versions and one library call;
+     plain versions and one library call (for the affine function one
+     einsum of the same function, beside the GEMM of its stacked operator
+     alone), at the paths' shapes and the datagen shape, and the congruent
+     kernel at the uniform lid-driven shape;
  18. the opt-in 3D stiffness kernels (dense; the bf16x3 pair, pair-general,
      pairz and pair-affine) against their plain versions and the float64
      operator at 16^3 elements, order 7, 3 components: on the Taylor-Green
@@ -888,20 +891,29 @@ def run_walled_phases(torch, device, dtype, kernel_checks, times,
   dmat = general.mats['dmat']
   mstack = affine.mats['mstack']
   k2 = mstack.shape[1]
-  ustack = torch.cat([u.reshape(k2, -1) for u in us_a], dim=1)
+
+  def same_function(ops, us):
+    """One PyTorch call of the affine function (the three operators, the
+    components and the per-element scalars in one einsum), and the GEMM of
+    the stacked operator alone, without the combination: the floor any
+    library route pays."""
+    m3 = ops.mats['mstack'].view(3, k2, k2)
+    u_kce = torch.stack([u.reshape(k2, -1) for u in us], dim=1)
+    u_gemm = u_kce.reshape(k2, -1)
+    return (lambda: torch.einsum('sij,jce,se->ice', m3, u_kce, ops.g_affine),
+            lambda: torch.matmul(ops.mats['mstack'], u_gemm))
+
+  affine_library, affine_gemm = same_function(affine, us_a)
   timed = {
       'stiffness2d_general': (
           lambda: cuda_stiffness2d.stiffness2d_general(us_g, gs, dmat),
           lambda: cuda_stiffness2d.stiffness2d_general_plain(us_g, gs, dmat),
           None),
-      # Library yardstick: one GEMM of the stacked operator on the stacked
-      # components, WITHOUT the per-element combination.
       'stiffness2d_affine': (
-          lambda: cuda_stiffness2d.stiffness2d_affine(us_a, affine.g_affine,
-                                                      mstack),
+          lambda: affine.stiffness_el_multi(us_a),
           lambda: cuda_stiffness2d.stiffness2d_affine_plain(
               us_a, affine.g_affine, mstack),
-          lambda: torch.matmul(mstack, ustack)),
+          affine_library),
       # One component through the Kronecker-form function; its plain
       # version is the Kronecker form itself.
       'stiffness2d_kron': (
@@ -910,6 +922,12 @@ def run_walled_phases(torch, device, dtype, kernel_checks, times,
           None),
   }
   time_kernels(timed, times, kernel_checks, device, '[17]')
+  times['stiffness2d_affine']['gemm_only_ms'] = kernel_checks.time_ms(
+      affine_gemm, device=device)
+  log(f'[17] stiffness2d_affine library floor: the GEMM of the stacked '
+      f'operator alone {times["stiffness2d_affine"]["gemm_only_ms"] * 1e3:.2f}'
+      f' us (the same function in one einsum '
+      f'{times["stiffness2d_affine"]["library_ms"] * 1e3:.2f} us)')
   itemsize = us_g[0].element_size()
   for name, ops, us, is_affine, check in (
       ('stiffness2d_general', general, us_g, False, checks['general C=2']),
@@ -924,14 +942,35 @@ def run_walled_phases(torch, device, dtype, kernel_checks, times,
     log(f'[17] {name} at the path shape {tuple(us[0].shape)} x {len(us)}: '
         f'bound {times[name]["bound_ms"] * 1e3:.3f} us '
         f'({times[name]["bound_by"]}), {rate:.4f} TFLOP/s')
+  # The congruent kernel at the uniform lid-driven shape (16^2, order 7,
+  # C = 2), beside its library GEMM and bound.
+  uniform = cav.make_cavity(16, 7, device=device, dtype=dtype).fast_ops
+  us_u = fields(uniform, 2, 1)
+  lid = kernel_checks.check_stiffness_uniform(uniform, us_u)
+  require(lid['rel_err_f64'] <= kernel_checks.STIFFNESS_REL_TOL, lid)
+  amat = uniform.mats['amat']
+  u_gemm = torch.cat([u.reshape(k2, -1) for u in us_u], dim=1)
+  lid_ms = kernel_checks.time_ms(lambda: uniform.stiffness_el_multi(us_u),
+                                 device=device)
+  lid_lib = kernel_checks.time_ms(lambda: torch.matmul(amat, u_gemm),
+                                  device=device)
+  b = kernel_checks.bound(2 * k2 * k2 * 256 * 2,
+                          (k2 * k2 + 2 * 2 * k2 * 256) * itemsize)
+  times['stiffness_uniform'].update(lid_ms=lid_ms, lid_library_ms=lid_lib,
+                                    lid_bound_ms=b['bound_ms'])
+  log(f'[17] stiffness_uniform at the uniform lid-driven shape (8, 8, 256) '
+      f'x 2: {lid_ms * 1e3:.2f} us (library GEMM {lid_lib * 1e3:.2f} us), '
+      f'bound {b["bound_ms"] * 1e3:.3f} us ({b["bound_by"]}); vs float64 '
+      f'{lid["rel_err_f64"]:.3e}')
   # The datagen shape (64^2, n = 9, C = 2), beside the congruent kernel.
   us64 = fields(general64, 2, 1)
   gs64 = (general64.g11, general64.g12, general64.g22)
+  k2 = 81
+  library64, gemm64 = same_function(affine64, us64)
   at_datagen = {
       'general': lambda: cuda_stiffness2d.stiffness2d_general(
           us64, gs64, general64.mats['dmat']),
-      'affine': lambda: cuda_stiffness2d.stiffness2d_affine(
-          us64, affine64.g_affine, affine64.mats['mstack']),
+      'affine': lambda: affine64.stiffness_el_multi(us64),
       'kron': lambda: cuda_stiffness2d.stiffness2d_kron(
           us64[0], *gs64, general64.mats['dmat'])}
   for name, fn in at_datagen.items():
@@ -939,9 +978,15 @@ def run_walled_phases(torch, device, dtype, kernel_checks, times,
     flops, nbytes = cuda_stiffness2d.stiffness2d_counts(
         8, 4096, num_c, affine=name == 'affine', dtype_bytes=itemsize)
     b = kernel_checks.bound(flops, nbytes)
+    lib = ''
+    if name == 'affine':
+      lib = (f'; the same function in one einsum '
+             f'{kernel_checks.time_ms(library64, device=device) * 1e3:.2f} '
+             f'us, the GEMM alone '
+             f'{kernel_checks.time_ms(gemm64, device=device) * 1e3:.2f} us')
     log(f'[17] stiffness2d_{name} at the datagen shape (9, 9, 4096) x '
         f'{num_c}: {kernel_checks.time_ms(fn, device=device) * 1e3:.2f} us, '
-        f'bound {b["bound_ms"] * 1e3:.3f} us ({b["bound_by"]})')
+        f'bound {b["bound_ms"] * 1e3:.3f} us ({b["bound_by"]}){lib}')
   return {'affine': affine, 'affine64': affine64}
 
 
@@ -1323,10 +1368,11 @@ def main() -> int:
   timed = {
       'exchange2d': (lambda: cuda_exchange.exchange2d(w),
                      lambda: cuda_exchange.exchange2d_plain(w), None),
+      # The kernel through the solver's dispatch, as the path calls it.
       # The library yardstick: one GEMM of the dense operator on the
       # (k^2, C E) stack of the components.
       'stiffness_uniform': (
-          lambda: cuda_stiffness.stiffness_uniform(us, amat),
+          lambda: sem.fast_ops.stiffness_el_multi(us),
           lambda: cuda_stiffness.stiffness_uniform_plain(us, amat),
           lambda: torch.matmul(amat, ustack)),
   }

@@ -30,7 +30,8 @@ _SOURCES = ('exchange2d.cu', 'stiffness_uniform.cu', 'stiffness2d_general.cu',
             'stiffness3d_pair_affine.cu', 'stiffness_split.cu',
             'stiffness2d_affine_split.cu')
 # Headers the sources include; part of the build's hash.
-_HEADERS = ('stiffness3d_pair_slab.cuh', 'split_bf16_mma.cuh')
+_HEADERS = ('stiffness3d_pair_slab.cuh', 'split_bf16_mma.cuh',
+            'stiffness2d_fp32.cuh')
 _FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
           '-Xcompiler', '-fPIC')
 
@@ -41,15 +42,19 @@ _SIGNATURES = {
     # (w, out, k, n0, n1, stream)
     'exchange2d_f32': (_P, _P, _I, _I, _I, _P),
     'exchange2d_f64': (_P, _P, _I, _I, _I, _P),
-    # (amat, us[], outs[], num_c, k2, num_e, stream)
-    'stiffness_uniform_f32': (_P, _PP, _PP, _I, _I, _I, _P),
-    'stiffness_uniform_f64': (_P, _PP, _PP, _I, _I, _I, _P),
+    # (amat layout, us[], outs[], num_c, k2, num_e, panels, rows, splits,
+    #  blocks, stream)
+    'stiffness_uniform_f32': (_P, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _P),
+    'stiffness_uniform_f64': (_P, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _P),
     # (dmat, us[], gs[3], outs[], num_c, k, num_e, stream)
     'stiffness2d_general_f32': (_P, _PP, _PP, _PP, _I, _I, _I, _P),
     'stiffness2d_general_f64': (_P, _PP, _PP, _PP, _I, _I, _I, _P),
-    # (mstack, c_aff, us[], outs[], num_c, k2, num_e, stream)
-    'stiffness2d_affine_f32': (_P, _P, _PP, _PP, _I, _I, _I, _P),
-    'stiffness2d_affine_f64': (_P, _P, _PP, _PP, _I, _I, _I, _P),
+    # (mstack layout, c_aff, us[], outs[], num_c, k2, num_e, panels, rows,
+    #  splits, blocks, stream)
+    'stiffness2d_affine_f32': (_P, _P, _PP, _PP, _I, _I, _I, _I, _I, _I, _I,
+                               _P),
+    'stiffness2d_affine_f64': (_P, _P, _PP, _PP, _I, _I, _I, _I, _I, _I, _I,
+                               _P),
     # (table, us[], outs[], num_c, k, num_e, stream)
     'stiffness3d_uniform_f32': (_P, _PP, _PP, _I, _I, _I, _P),
     'stiffness3d_uniform_f64': (_P, _PP, _PP, _I, _I, _I, _P),

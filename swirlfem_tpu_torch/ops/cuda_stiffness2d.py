@@ -15,27 +15,24 @@ Replaces three Pallas kernels of ``swirlfem_tpu/ops/pallas_stiffness.py``:
   cast once to the working dtype).
 
 Fields are E-last ``(k, k, E)``.  The kernels (``csrc/stiffness2d_general.cu``,
-``csrc/stiffness2d_affine.cu``) run in FP32 (or FP64) FFMA, no TF32; their
-source notes give the bound on the card.  Each wrapper takes the plain
-version only for CPU tensors; for CUDA tensors it launches its kernel or
-raises, and counts the launch in ``<wrapper>.launches``.
+``csrc/stiffness2d_affine.cu`` on the static-operator design of
+``csrc/stiffness2d_fp32.cuh``, shared with the congruent kernel) run in FP32
+(or FP64) FFMA, no TF32; their source notes give the bound on the card.
+Each wrapper takes the plain version only for CPU tensors; for CUDA tensors
+it launches its kernel or raises, and counts the launch in
+``<wrapper>.launches``.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
 
 from swirlfem_tpu_torch.ops import cuda_build
+from swirlfem_tpu_torch.ops import cuda_stiffness
 
-MAX_COMPONENTS = 4
 # The general kernel is instantiated for k = order + 1 in [2, MAX_K].
 MAX_K = 10
-# The affine kernel takes k^2 <= MAX_K2 and stages mstack in shared memory.
-MAX_K2 = 100
-_SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 NUM_FACTORS = 3
 
 
@@ -81,20 +78,6 @@ def _check_fields(what, us, like: torch.Tensor, k2: int):
   return us
 
 
-def _check_launchable(what, tensors, num_c, dtype):
-  if dtype not in (torch.float32, torch.float64):
-    raise TypeError(f'{what} kernel takes float32/float64, got {dtype}')
-  if not 1 <= num_c <= MAX_COMPONENTS:
-    raise ValueError(f'{what} kernel takes 1..{MAX_COMPONENTS} components, '
-                     f'got {num_c}')
-  if not all(t.is_contiguous() for t in tensors):
-    raise ValueError(f'{what} kernel needs contiguous tensors')
-
-
-def _ptrs(tensors):
-  return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
-
-
 _SUFFIX = {torch.float32: 'f32', torch.float64: 'f64'}
 
 
@@ -137,8 +120,8 @@ def _launch_general(us, gs, dmat: torch.Tensor):
   k = dmat.shape[0]
   if dmat.device.type != 'cuda':
     raise ValueError(f'stiffness2d_general: unsupported device {dmat.device}')
-  _check_launchable('stiffness2d_general', us + gs + (dmat,), len(us),
-                    dmat.dtype)
+  cuda_stiffness.check_launchable('stiffness2d_general', us + gs + (dmat,),
+                                  len(us), dmat.dtype)
   if not 2 <= k <= MAX_K:
     raise ValueError(f'stiffness2d_general kernel takes 2 <= k <= {MAX_K}, '
                      f'got {k}')
@@ -147,7 +130,8 @@ def _launch_general(us, gs, dmat: torch.Tensor):
   fn = getattr(cuda_build.library(),
                f'stiffness2d_general_{_SUFFIX[dmat.dtype]}')
   stream = torch.cuda.current_stream(dmat.device).cuda_stream
-  cuda_build.check(fn(dmat.data_ptr(), _ptrs(us), _ptrs(gs), _ptrs(outs),
+  cuda_build.check(fn(dmat.data_ptr(), cuda_stiffness.ptrs(us),
+                      cuda_stiffness.ptrs(gs), cuda_stiffness.ptrs(outs),
                       len(us), k, num_e, stream), 'stiffness2d_general')
   return outs
 
@@ -211,19 +195,16 @@ def stiffness2d_kron(u: torch.Tensor, g11: torch.Tensor, g12: torch.Tensor,
 stiffness2d_kron.launches = 0
 
 
-def affine_smem_bytes(k2: int, itemsize: int) -> int:
-  """Shared memory of one block of the affine kernel (``smem_bytes``): two
-  (k^2, 32) u tiles and the three operators at an odd row stride."""
-  return (2 * k2 * 32 + 3 * k2 * (k2 | 1)) * itemsize
-
-
-def stiffness2d_affine(us, c_aff: torch.Tensor, mstack: torch.Tensor):
+def stiffness2d_affine(us, c_aff: torch.Tensor, mstack: torch.Tensor,
+                       layout: torch.Tensor):
   """Affine-element 2D stiffness of C components.
 
   Args:
     us: tuple of C component fields, each ``(k, k, E)`` or ``(k^2, E)``.
     c_aff: per-element metric scalars ``[c11; c12; c22]``, shape (3, E).
     mstack: ``[M11; M12; M22]``, shape ``(3 k^2, k^2)``, in the working dtype.
+    layout: ``cuda_stiffness.operator_layout(mstack, 3)``, as the kernel
+      reads it, built once with the operator (``Sem2DOps.mats['mstack_t']``).
 
   CPU tensors: `stiffness2d_affine_plain`.  CUDA tensors: one launch of the
   hand-written kernel for all components, counted in
@@ -239,25 +220,14 @@ def stiffness2d_affine(us, c_aff: torch.Tensor, mstack: torch.Tensor):
       or c_aff.dtype != mstack.dtype):
     raise ValueError(f'c_aff must be (3, {num_e}) on the fields\' device and '
                      f'dtype, got {tuple(c_aff.shape)}')
+  cuda_stiffness.check_layout(mstack, layout, 3)
   if mstack.device.type == 'cpu':
     return stiffness2d_affine_plain(us, c_aff, mstack)
   if mstack.device.type != 'cuda':
     raise ValueError(f'stiffness2d_affine: unsupported device '
                      f'{mstack.device}')
-  _check_launchable('stiffness2d_affine', us + (c_aff, mstack), len(us),
-                    mstack.dtype)
-  if (k2 > MAX_K2
-      or affine_smem_bytes(k2, mstack.element_size()) > _SMEM_LIMIT):
-    raise ValueError(f'stiffness2d_affine kernel takes k^2 <= {MAX_K2} with '
-                     f'its operators in shared memory; got k^2 = {k2} in '
-                     f'{mstack.dtype}')
-  outs = tuple(torch.empty_like(u) for u in us)
-  fn = getattr(cuda_build.library(),
-               f'stiffness2d_affine_{_SUFFIX[mstack.dtype]}')
-  stream = torch.cuda.current_stream(mstack.device).cuda_stream
-  cuda_build.check(fn(mstack.data_ptr(), c_aff.data_ptr(), _ptrs(us),
-                      _ptrs(outs), len(us), k2, num_e, stream),
-                   'stiffness2d_affine')
+  outs = cuda_stiffness.launch_static('stiffness2d_affine', layout, c_aff,
+                                      us, 3)
   stiffness2d_affine.launches += 1
   return outs
 

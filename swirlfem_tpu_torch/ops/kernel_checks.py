@@ -88,7 +88,7 @@ def check_stiffness_uniform(ops, us) -> dict:
   ``(k, k, E)`` fields in its dtype.
   """
   amat = ops.mats['amat']
-  got = cuda_stiffness.stiffness_uniform(us, amat)
+  got = cuda_stiffness.stiffness_uniform(us, amat, ops.mats['amat_t'])
   plain = cuda_stiffness.stiffness_uniform_plain(us, amat)
   a64 = torch.as_tensor(
       cuda_stiffness.uniform_amat_np(ops.c_uniform, ops.wq2d, ops.dmat),
@@ -117,7 +117,8 @@ def check_stiffness2d_affine(ops, us) -> dict:
   """stiffness2d_affine kernel vs its plain version and the float64
   operator (the stacked operator built in float64 on the same scalars)."""
   mstack = ops.mats['mstack']
-  got = cuda_stiffness2d.stiffness2d_affine(us, ops.g_affine, mstack)
+  got = cuda_stiffness2d.stiffness2d_affine(us, ops.g_affine, mstack,
+                                            ops.mats['mstack_t'])
   plain = cuda_stiffness2d.stiffness2d_affine_plain(us, ops.g_affine, mstack)
   m64 = torch.as_tensor(cuda_stiffness.affine_mstack_np(ops.wq2d, ops.dmat),
                         dtype=torch.float64, device=mstack.device)

@@ -117,7 +117,8 @@ def _uniform_plain(ops, us):
 
 
 def _uniform_kernel(ops, us):
-  return cuda_stiffness.stiffness_uniform(us, ops.mats['amat'])
+  return cuda_stiffness.stiffness_uniform(us, ops.mats['amat'],
+                                          ops.mats['amat_t'])
 
 
 def _affine_plain(ops, us):
@@ -127,7 +128,8 @@ def _affine_plain(ops, us):
 
 def _affine_kernel(ops, us):
   return cuda_stiffness2d.stiffness2d_affine(us, ops.g_affine,
-                                             ops.mats['mstack'])
+                                             ops.mats['mstack'],
+                                             ops.mats['mstack_t'])
 
 
 def _general_plain(ops, us):
@@ -215,8 +217,9 @@ class Sem2DOps:
   # relative) or 'default' (one bf16 pass, ~1e-3: preconditioner grade).
   kernel_precision: str = 'highest'
   # Device copies of the 1D matrices (and of the congruent-element operator
-  # 'amat' and the affine operator stack 'mstack'), in the working dtype;
-  # filled in __post_init__; `const` adds others at first use.
+  # 'amat' and the affine operator stack 'mstack', each beside its kernel
+  # layout 'amat_t' / 'mstack_t', `cuda_stiffness.operator_layout`), in the
+  # working dtype; filled in __post_init__; `const` adds others at first use.
   mats: dict = dataclasses.field(default_factory=dict, repr=False,
                                  compare=False)
 
@@ -231,9 +234,11 @@ class Sem2DOps:
       mats['amat'] = torch.as_tensor(
           cuda_stiffness.uniform_amat_np(self.c_uniform, self.wq2d,
                                          self.dmat), **dev)
+      mats['amat_t'] = cuda_stiffness.operator_layout(mats['amat'])
     if self.g_affine is not None:
       mats['mstack'] = torch.as_tensor(
           cuda_stiffness.affine_mstack_np(self.wq2d, self.dmat), **dev)
+      mats['mstack_t'] = cuda_stiffness.operator_layout(mats['mstack'], 3)
     # A fresh dict: `dataclasses.replace` would otherwise share the old one.
     object.__setattr__(self, 'mats', mats)
 

@@ -15,6 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+from swirlfem_tpu_torch.core.quadrature import differentiation_matrix_1d
+from swirlfem_tpu_torch.core.quadrature import NodeType
+from swirlfem_tpu_torch.core.quadrature import Quadrature1D
 from swirlfem_tpu_torch.examples import cavity as cav
 from swirlfem_tpu_torch.examples import natural_convection as nc
 from swirlfem_tpu_torch.examples import taylor_green_3d as tgv
@@ -53,17 +56,67 @@ def test_exchange2d_bitwise_equals_plain(device, shape, dtype):
   assert result['bitwise_equal'], result
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
-@pytest.mark.parametrize('order,num_e', [(8, 4096), (8, 37), (3, 100)])
-def test_stiffness_uniform_matches_f64_operator(device, order, num_e, dtype):
-  _, sem = _solver(device, dtype, resolution=4, order=order)
-  k = order + 1
-  us = tuple(kernel_checks.random_field((k, k, num_e), dtype=dtype,
-                                        device=device, seed=s)
-             for s in (1, 2))
-  result = kernel_checks.check_stiffness_uniform(sem.fast_ops, us)
+# The static-operator 2D kernels (congruent and affine, 'highest'): the
+# datagen shape, the lid-driven shape, E not a multiple of 4 and ragged last
+# tiles (37, 257, 9), the heated cavity's E = 144, orders 1 to 9.
+_CASES_STATIC = [(8, 4096), (8, 37), (7, 256), (7, 257), (7, 144), (4, 9),
+                 (3, 100), (1, 37), (9, 37)]
+
+
+def _static_case(order, num_e, num_c, offset, dtype, device, affine):
+  """(operator, its float64 original, scalars or None, fields) on the card:
+  the operator of GLL order `order` (`uniform_amat_np` on fixed metric
+  scalars, or the affine stack), C fields (k^2, E) as views `offset` values
+  into a larger buffer (not 16-byte aligned for an odd offset), positive
+  random per-element scalars."""
+  quad = Quadrature1D.create(order + 1, NodeType.GAUSS_LOBATTO_LEGENDRE)
+  wq = np.outer(quad.weights, quad.weights)
+  dmat = differentiation_matrix_1d(quad.nodes)
+  m64 = (cuda_stiffness.affine_mstack_np(wq, dmat) if affine else
+         cuda_stiffness.uniform_amat_np((1.3, 0.2, 0.8), wq, dmat))
+  k2 = (order + 1) ** 2
+  rng = np.random.default_rng(order * 1000 + num_e)
+  us = []
+  for _ in range(num_c):
+    buf = torch.as_tensor(rng.standard_normal(k2 * num_e + offset),
+                          dtype=dtype, device=device)
+    us.append(buf[offset:].view(k2, num_e))
+  caff = torch.as_tensor(np.stack([1.0 + rng.random(num_e),
+                                   0.3 * rng.standard_normal(num_e),
+                                   1.0 + rng.random(num_e)]),
+                         dtype=dtype, device=device) if affine else None
+  return torch.as_tensor(m64, dtype=dtype, device=device), m64, caff, tuple(us)
+
+
+def _check_static(got, plain, ref, dtype):
+  """Within the gate of the float64 operator, and within the same bound
+  of the plain version (bitwise where the sums fall alike)."""
   tol = kernel_checks.STIFFNESS_REL_TOL if dtype == torch.float32 else 1e-13
-  assert result['rel_err_f64'] <= tol, result
+  scale = max(float(r.abs().max()) for r in ref)
+  for g, p, r in zip(got, plain, ref):
+    assert g.shape == r.shape and g.is_contiguous()
+    assert float((g.double() - r).abs().max()) <= tol * scale
+    assert float((g - p).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('offset', [0, 1], ids=['aligned', 'unaligned'])
+@pytest.mark.parametrize('num_c', [1, 2, 3, 4])
+@pytest.mark.parametrize('order,num_e', _CASES_STATIC)
+def test_stiffness_uniform_matches_f64_operator(device, order, num_e, num_c,
+                                                offset, dtype):
+  amat, a64, _, us = _static_case(order, num_e, num_c, offset, dtype, device,
+                                  affine=False)
+  assert (us[0].data_ptr() % 16 == 0) == (offset == 0)
+  before = cuda_stiffness.stiffness_uniform.launches
+  got = cuda_stiffness.stiffness_uniform(
+      us, amat, cuda_stiffness.operator_layout(amat))
+  assert cuda_stiffness.stiffness_uniform.launches == before + 1
+  plain = cuda_stiffness.stiffness_uniform_plain(us, amat)
+  ref = cuda_stiffness.stiffness_uniform_plain(
+      tuple(u.double() for u in us), torch.as_tensor(a64, device=device))
+  torch.cuda.synchronize(device)
+  _check_static(got, plain, ref, dtype)
 
 
 def test_launches_are_counted(device):
@@ -87,7 +140,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(device):
     cuda_exchange.exchange2d(w.half())
   with pytest.raises(ValueError, match='components'):
     cuda_stiffness.stiffness_uniform((w.reshape(5, 5, 16),) * 5,
-                                     sem.fast_ops.mats['amat'])
+                                     sem.fast_ops.mats['amat'],
+                                     sem.fast_ops.mats['amat_t'])
   # The split classes launch the tensor-core kernel, float32 only.
   for precision in ('bf16x3', 'default'):
     split = dataclasses.replace(sem.fast_ops, kernel_precision=precision)
@@ -430,16 +484,33 @@ def test_stiffness2d_general_matches_f64_operator(device, n_el, order,
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('offset', [0, 1], ids=['aligned', 'unaligned'])
+@pytest.mark.parametrize('num_c', [1, 2, 3, 4])
+@pytest.mark.parametrize('order,num_e', _CASES_STATIC)
+def test_stiffness2d_affine_matches_f64_operator(device, order, num_e, num_c,
+                                                 offset, dtype):
+  mstack, m64, caff, us = _static_case(order, num_e, num_c, offset, dtype,
+                                       device, affine=True)
+  before = cuda_stiffness2d.stiffness2d_affine.launches
+  got = cuda_stiffness2d.stiffness2d_affine(
+      us, caff, mstack, cuda_stiffness.operator_layout(mstack, 3))
+  assert cuda_stiffness2d.stiffness2d_affine.launches == before + 1
+  plain = cuda_stiffness2d.stiffness2d_affine_plain(us, caff, mstack)
+  ref = cuda_stiffness2d.stiffness2d_affine_plain(
+      tuple(u.double() for u in us), caff.double(),
+      torch.as_tensor(m64, device=device))
+  torch.cuda.synchronize(device)
+  _check_static(got, plain, ref, dtype)
+
+
 @pytest.mark.parametrize('n_el,order', _CASES_2D)
-@pytest.mark.parametrize('num_c', [1, 2])
-def test_stiffness2d_affine_matches_f64_operator(device, n_el, order, num_c,
-                                                 dtype):
+def test_stiffness2d_affine_on_the_boxes(device, n_el, order):
+  """The vertex-graded boxes' own scalars, through the solver's dispatch
+  (the layout built with the operator)."""
   del device
-  ops = _walled_ops('affine', n_el, order, dtype)
-  result = kernel_checks.check_stiffness2d_affine(ops, _fields2d(ops, num_c,
-                                                                 1))
-  tol = kernel_checks.STIFFNESS_REL_TOL if dtype == torch.float32 else 1e-13
-  assert result['rel_err_f64'] <= tol, result
+  ops = _walled_ops('affine', n_el, order, torch.float32)
+  result = kernel_checks.check_stiffness2d_affine(ops, _fields2d(ops, 2, 1))
+  assert result['rel_err_f64'] <= kernel_checks.STIFFNESS_REL_TOL, result
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
@@ -489,7 +560,8 @@ def test_stiffness2d_launches_and_dispatch(device):
   with pytest.raises(ValueError, match='contiguous'):
     cuda_stiffness2d.stiffness2d_affine(tuple(u.transpose(0, 1) for u in us),
                                         affine.g_affine,
-                                        affine.mats['mstack'])
+                                        affine.mats['mstack'],
+                                        affine.mats['mstack_t'])
 
 
 def test_walled_cavities_on_card_match_cpu(device):

@@ -7,6 +7,7 @@ of the Hopper kernels against the JAX Pallas kernels run in interpret mode.
 
 import dataclasses
 import functools
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -188,7 +189,7 @@ def test_stiffness_uniform_plain_matches_pallas(uniform_ops):
       tuple(torch.as_tensor(u) for u in us), amat)
   before = cuda_stiffness.stiffness_uniform.launches
   got_wrapped = cuda_stiffness.stiffness_uniform(
-      tuple(torch.as_tensor(u) for u in us), amat)
+      tuple(torch.as_tensor(u) for u in us), amat, ops.mats['amat_t'])
   assert cuda_stiffness.stiffness_uniform.launches == before
   for g, gw, w in zip(got, got_wrapped, want):
     np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-10)
@@ -282,7 +283,8 @@ def test_stiffness2d_affine_plain_matches_pallas():
   got = cuda_stiffness2d.stiffness2d_affine_plain(tus, ops.g_affine,
                                                   ops.mats['mstack'])
   wrapped = cuda_stiffness2d.stiffness2d_affine(tus, ops.g_affine,
-                                                ops.mats['mstack'])
+                                                ops.mats['mstack'],
+                                                ops.mats['mstack_t'])
   for g, gw, w in zip(got, wrapped, want):
     assert _rel(g.numpy(), w) <= 1e-12
     np.testing.assert_array_equal(gw.numpy(), g.numpy())
@@ -294,12 +296,16 @@ def test_wrappers_validate_their_inputs():
   gs = (ops.g11, ops.g12, ops.g22)
   with pytest.raises(ValueError, match='factor fields'):
     cuda_stiffness2d.stiffness2d_general(tus, gs[:2], ops.mats['dmat'])
+  layout = ops.mats['mstack_t']
   with pytest.raises(ValueError, match='c_aff'):
     cuda_stiffness2d.stiffness2d_affine(tus, ops.g_affine[:, :3],
-                                        ops.mats['mstack'])
+                                        ops.mats['mstack'], layout)
   with pytest.raises(ValueError, match='mstack'):
     cuda_stiffness2d.stiffness2d_affine(tus, ops.g_affine,
-                                        ops.mats['mstack'][:5])
+                                        ops.mats['mstack'][:5], layout)
+  with pytest.raises(ValueError, match='operator_layout'):
+    cuda_stiffness2d.stiffness2d_affine(tus, ops.g_affine,
+                                        ops.mats['mstack'], layout[:2])
 
 
 @pytest.mark.parametrize('geometry', ['graded', 'warped'])
@@ -319,3 +325,91 @@ def test_interop_carries_the_operator_class(geometry):
       tuple(ops.wmass.shape)))
   assert _rel(moved.stiffness_el(u).numpy(),
               jops.stiffness_el(jnp.asarray(u.numpy()))) <= 1e-12
+
+
+# -- the static-operator kernels' host side ------------------------------------
+
+def _plan_coverage(plan, num_e, k2, num_c):
+  """The kernel's index arithmetic under `plan` (csrc/stiffness2d_fp32.cuh),
+  written out: how often the blocks write each output value, (C, k^2, E),
+  and how often a block's slices sum each contraction index, (k^2,)."""
+  tile_e = cuda_stiffness.TILE_E
+  tiles = -(-num_e // tile_e)
+  outputs = np.zeros((num_c, k2, num_e), dtype=np.int64)
+  for panel in range(plan.panels):
+    rows = slice(panel * plan.rows, min(k2, (panel + 1) * plan.rows))
+    for block in range(plan.blocks):
+      for n in range(block, num_c * tiles, plan.blocks):
+        comp, tile = divmod(n, tiles)
+        outputs[comp, rows, tile * tile_e:(tile + 1) * tile_e] += 1
+  depth = np.zeros(k2, dtype=np.int64)
+  slice_len = -(-k2 // plan.splits)
+  for kq in range(plan.splits):
+    depth[kq * slice_len:(kq + 1) * slice_len] += 1
+  return outputs, depth
+
+
+def _threads(plan):
+  return 8 * (plan.rows // 4) * plan.splits
+
+
+@pytest.mark.parametrize('num_ops,itemsize', [(1, 4), (3, 4), (1, 8), (3, 8)])
+@pytest.mark.parametrize('num_sms', [132, 7])
+def test_work_plan_covers_every_output_once(num_ops, itemsize, num_sms):
+  """Every (row, element, component) is written by one block and every
+  contraction index summed by one slice, over a sweep of shapes; each plan
+  fits a block's threads and shared memory."""
+  for k2, num_e, num_c in itertools.product((4, 9, 25, 64, 81, 100),
+                                            (1, 9, 37, 256, 257),
+                                            (1, 2, 4)):
+    plan = cuda_stiffness.work_plan(num_e, k2, num_c, num_ops, itemsize,
+                                    num_sms)
+    outputs, depth = _plan_coverage(plan, num_e, k2, num_c)
+    assert (outputs == 1).all() and (depth == 1).all(), (k2, num_e, plan)
+    assert plan.rows % 4 == 0 and plan.panels * plan.rows >= k2
+    assert _threads(plan) <= (256 if (itemsize, num_ops) == (8, 3) else 512)
+    assert cuda_stiffness.smem_bytes(num_ops, k2, plan.rows, plan.splits,
+                                     itemsize) <= 232448
+
+
+@pytest.mark.parametrize('num_ops', [1, 3])
+def test_work_plan_fills_the_card_at_the_path_shapes(num_ops):
+  """The lid-driven cavity (16^2, order 7, C = 2) gets at least 128 blocks
+  of four warps; at the datagen box (64^2, order 8) the congruent kernel
+  gets one block per (component, tile) pair over the whole contraction,
+  the affine kernel one block per SM walking its tiles."""
+  lid = cuda_stiffness.work_plan(256, 64, 2, num_ops, 4, 132)
+  assert lid.panels * lid.blocks >= 128 and _threads(lid) == 128, lid
+  datagen = cuda_stiffness.work_plan(4096, 81, 2, num_ops, 4, 132)
+  assert datagen.panels == 1, datagen
+  if num_ops == 1:
+    assert (datagen.blocks, datagen.splits) == (2 * 4096 // 32, 1), datagen
+  else:
+    assert datagen.blocks == 132, datagen
+
+
+@pytest.mark.parametrize('geometry', ['uniform', 'graded'])
+def test_operator_layout_is_built_with_the_operator(geometry):
+  """`Sem2DOps` keeps the kernels' layout beside the operator: each
+  operator transposed, rows padded with zeros to a multiple of 4, so that a
+  row panel is one contiguous run per contraction index."""
+  _, ops = _pair(geometry, 3, 4)
+  name = 'amat' if geometry == 'uniform' else 'mstack'
+  op, layout = ops.mats[name], ops.mats[name + '_t']
+  k2 = op.shape[1]
+  num_ops = op.shape[0] // k2
+  k2p = 4 * -(-k2 // 4)
+  assert tuple(layout.shape) == (num_ops, k2, k2p) and k2p > k2
+  for s in range(num_ops):
+    np.testing.assert_array_equal(layout[s, :, :k2].numpy(),
+                                  op[s * k2:(s + 1) * k2].T.numpy())
+  assert not layout[..., k2:].any()
+  # A panel of rows r0 .. r0 + 4 of operator s: contiguous per j.
+  panel = layout[num_ops - 1, :, 4:8]
+  np.testing.assert_array_equal(panel.numpy(),
+                                op[(num_ops - 1) * k2 + 4:(num_ops - 1) * k2
+                                   + 8].T.numpy())
+  np.testing.assert_array_equal(
+      cuda_stiffness.operator_layout(op, num_ops).numpy(), layout.numpy())
+  with pytest.raises(ValueError, match='stack'):
+    cuda_stiffness.operator_layout(op[:-1], num_ops)
