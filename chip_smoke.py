@@ -32,7 +32,8 @@ graded and sheared periodic box, all in float32.  Phases:
      operator (stiffness3d_general on the path): the dissipation series
      must agree;
  11. 20 TGV steps at 8^3 on the card and through the plain path on the CPU;
- 12. time the 3D kernels against their plain versions and one library call;
+ 12. time the 3D kernels against their plain versions and one library call
+     (a GEMM of the dense operator; for the general operator one einsum);
  13. the 2D general and affine kernels against their plain versions and the
      float64 operator: general at n = 8, E = 144, C = 1 and 2 on the Ra 1e6
      box's own and on random factor fields, affine at n = 8, E = 256, C = 2
@@ -53,9 +54,10 @@ graded and sheared periodic box, all in float32.  Phases:
      einsum of the same function, beside the GEMM of its stacked operator
      alone), at the paths' shapes and the datagen shape, and the congruent
      kernel at the uniform lid-driven shape;
- 18. the opt-in 3D stiffness kernels (dense; the bf16x3 pair, pair-general,
-     pairz and pair-affine) against their plain versions and the float64
-     operator at 16^3 elements, order 7, 3 components: on the Taylor-Green
+ 18. the opt-in 3D stiffness kernels (dense, 3xTF32 within 1e-6; the
+     bf16x3 pair, pair-general, pairz and pair-affine) against their plain
+     versions and the float64 operator at 16^3 elements, order 7, 3
+     components: on the Taylor-Green
      box, on the graded and sheared (affine) periodic box, and on random
      factor fields and coefficients; the superslab keys (pairs2, pairs4)
      bitwise the pair-general kernel's output;
@@ -73,7 +75,8 @@ graded and sheared periodic box, all in float32.  Phases:
      the general-pair and the pairz key;
  22. time the 3D kernels against their plain versions and their bound (the
      dense and the pair one also against one library GEMM of the same
-     operator);
+     operator; the dense one's bound is its three TF32 passes over the
+     TF32 tensor-core rate, its FP32-rate figure kept beside it);
  23. the split-bf16 classes ('bf16x3', 'default') of the static-operator
      stiffness on the tensor cores, against their plain versions and the
      float64 operator: the congruent kernel at the datagen shape (through
@@ -88,13 +91,15 @@ graded and sheared periodic box, all in float32.  Phases:
  26. 10 certified TGV-box steps under ('congruent', 'dense') at 'bf16x3'
      against the same steps under the fused key;
  27. time the split kernels against their plain versions, their
-     tensor-core bound and one FP32 library GEMM of the same operator.
+     tensor-core bound and one FP32 library GEMM of the same operator (the
+     affine ones also at the datagen shape).
 
 Each kernel's count is set to 0 just before the path that launches it and
 read just after.  Every kernel's bound is the larger of its bytes (each
 input read once, each output written once) over 3.35 TB/s and its
 operations over 67 TFLOP/s (H100 SXM, FP32), or over 989 TFLOP/s (dense
-bf16 tensor cores) for the split-bf16 and the bf16x3 pair kernels.
+bf16 tensor cores) for the split-bf16 and the bf16x3 pair kernels, or over
+495 TFLOP/s (dense TF32 tensor cores) for the dense 3D kernel's passes.
 
 Prints a JSON line of the kernels, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -311,10 +316,12 @@ def run_tgv_phases(torch, device, dtype, tgv, cuda_stiffness3d,
           # One GEMM of the dense (k^3, k^3) operator on the (k^3, C E)
           # stack: the same function, by the library.
           lambda: torch.matmul(a_dense, ustack)),
+      # One einsum of the axis derivatives, the factor fields and the
+      # components: the same function, by the library.
       'stiffness3d_general': (
           lambda: cuda_stiffness3d.stiffness3d_general(us3, gs, dmat),
           lambda: cuda_stiffness3d.stiffness3d_general_plain(us3, gs, dmat),
-          None),
+          kernel_checks.library_general(us3, gs, dmat)),
   }
   time_kernels(timed, times, kernel_checks, device, '[12]')
   dofs = len(us3) * k ** 3 * num_e  # bench.py:394 counts 3 k^3 E
@@ -486,8 +493,13 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
   for name, results in checks.items():
     for result in results:
       log(f'[18] {name} 3 x {tuple(us3[0].shape)} f32: {result}')
-      if name == 'stiffness3d_dense':  # FP32 FFMA, the exact class's gate
+      if name == 'stiffness3d_dense':
+        # 'highest' as 3xTF32: the class's gate, and the FP32 class's
+        # reading (~3e-7), which a kernel that lost a TF32 pass (~5e-4)
+        # misses.
         require(result['rel_err_f64'] <= kernel_checks.STIFFNESS_REL_TOL,
+                (name, result))
+        require(result['rel_err_f64'] <= kernel_checks.DENSE_REL_TOL,
                 (name, result))
         continue
       # The bf16x3 pair kernels: their plain version within 1e-6 (the
@@ -674,9 +686,17 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
   # (k^3, k^3) matrix on the (k^3, C E) stack of the components.  The dense
   # and the pair kernel both compute this function.
   library_gemm = lambda: torch.matmul(a_dense, ustack)
+  # The general and affine functions by the library: one einsum of the
+  # axis derivatives, the factor fields (or the per-element coefficients
+  # and the weights) and the components.
+  library_general = kernel_checks.library_general(us3, gs_a, dmat)
+  library_affine = kernel_checks.library_pair_affine(
+      us3, ops_a.g_affine, torch.as_tensor(ops_a.w1, dtype=dtype,
+                                           device=device), dmat)
+  tf32 = ops3.dense_tf32()
   timed = {
       'stiffness3d_dense': (
-          lambda: cs3.stiffness3d_dense(us3, amat_t),
+          lambda: cs3.stiffness3d_dense(us3, amat_t, tf32),
           lambda: cs3.stiffness3d_dense_plain(us3, amat_t), library_gemm),
       'stiffness3d_pair': (
           lambda: cs3.stiffness3d_pair(us3, a2, ptab),
@@ -684,16 +704,17 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
       'stiffness3d_pair_general': (
           lambda: cs3.stiffness3d_pair_general(us3, gs_a, dp, dmat),
           lambda: cs3.stiffness3d_pair_general_plain(us3, gs_a, dp, dmat),
-          None),
+          library_general),
       'stiffness3d_pairz_general': (
           lambda: cs3.stiffness3d_pairz_general(us3, gs_a, dp, dmat),
           lambda: cs3.stiffness3d_pairz_general_plain(us3, gs_a, dp,
-                                                      dmat), None),
+                                                      dmat), library_general),
       'stiffness3d_pair_affine': (
           lambda: cs3.stiffness3d_pair_affine(us3, ops_a.g_affine, dp_a, at_w,
                                               atab),
           lambda: cs3.stiffness3d_pair_affine_plain(us3, ops_a.g_affine, dp_a,
-                                                    at_w, atab), None),
+                                                    at_w, atab),
+          library_affine),
   }
   time_kernels(timed, times, kernel_checks, device, '[22]')
   itemsize = us3[0].element_size()
@@ -707,6 +728,20 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
     if variant != 'dense':
       nbytes += dmat.numel() * itemsize
     times[name].update(kernel_checks.bound(flops, nbytes))
+    if variant == 'dense':
+      # 3xTF32 on the tensor cores: every pass over the TF32 rate; the FP32
+      # FFMA yardstick of its first version kept beside it.
+      fp32_ms = times[name]['bound_ms']
+      times[name].update(kernel_checks.bound(
+          3 * flops, nbytes, kernel_checks.H100_TF32_TC_FLOP_PER_S))
+      times[name]['fp32_bound_ms'] = fp32_ms
+      log(f'[22] {name}: 3xTF32 bound {times[name]["bound_ms"] * 1e3:.2f} us '
+          f'({times[name]["bound_by"]}: 3 x {flops / 1e9:.3f} GFLOP over '
+          f'495 TFLOP/s; {nbytes / 1e6:.1f} MB over 3.35 TB/s); at the FP32 '
+          f'FFMA rate {fp32_ms * 1e3:.2f} us; vs float64 '
+          f'{max(c["rel_err_f64"] for c in checks[name]):.3e}')
+      require(all(c['rel_err_f64'] <= kernel_checks.DENSE_REL_TOL
+                  for c in checks[name]), checks[name])
     times[name]['max_abs_err'] = max(c['max_abs_err'] for c in checks[name])
     t = times[name]['ms'] * 1e-3
     issued = ''
@@ -905,10 +940,12 @@ def run_walled_phases(torch, device, dtype, kernel_checks, times,
 
   affine_library, affine_gemm = same_function(affine, us_a)
   timed = {
+      # One einsum of the axis derivatives, the factor fields and the
+      # components (for the Kronecker form, of its one component).
       'stiffness2d_general': (
           lambda: cuda_stiffness2d.stiffness2d_general(us_g, gs, dmat),
           lambda: cuda_stiffness2d.stiffness2d_general_plain(us_g, gs, dmat),
-          None),
+          kernel_checks.library_general(us_g, gs, dmat)),
       'stiffness2d_affine': (
           lambda: affine.stiffness_el_multi(us_a),
           lambda: cuda_stiffness2d.stiffness2d_affine_plain(
@@ -919,7 +956,7 @@ def run_walled_phases(torch, device, dtype, kernel_checks, times,
       'stiffness2d_kron': (
           lambda: cuda_stiffness2d.stiffness2d_kron(us_g[0], *gs, dmat),
           lambda: cuda_stiffness2d.stiffness2d_kron_plain(us_g[0], *gs, dmat),
-          None),
+          kernel_checks.library_general(us_g[:1], gs, dmat)),
   }
   time_kernels(timed, times, kernel_checks, device, '[17]')
   times['stiffness2d_affine']['gemm_only_ms'] = kernel_checks.time_ms(
@@ -1196,12 +1233,16 @@ def run_split_phases(torch, device, dtype, tgv, kernel_checks, times,
   amat = dg['sem'].fast_ops.mats['amat']
   hi2, lo2 = at(dg['sem'].fast_ops, 'bf16x3').split_operator()
   hia, loa = at(affine, 'bf16x3').split_operator()
+  fra = at(affine, 'bf16x3').split_fragments()
   hi3, lo3 = ops3.dense_split()
   mstack = affine.mats['mstack']
   a_dense = ops3.dense_operator_t().T.contiguous()
   stack = lambda us, rows: torch.cat([u.reshape(rows, -1) for u in us], 1)
   us2 = dg['us']
   k2, k3 = amat.shape[0], a_dense.shape[0]
+  # The library yardsticks' operands, stacked once outside the timed call.
+  u2_cat, lid_cat, u3_cat = (stack(us2, k2), stack(us_lid, k16 ** 2),
+                             stack(us3, k3))
   cases = {}
   for precision, passes in cuda_split.PASSES.items():
     cases[f'stiffness_uniform_{precision}'] = (
@@ -1210,20 +1251,21 @@ def run_split_phases(torch, device, dtype, tgv, kernel_checks, times,
             us2, hi2, lo2, p),
         # The library yardstick: one FP32 GEMM of the operator on the
         # stacked components (the finest class of the same function).
-        lambda: torch.matmul(amat, stack(us2, k2)),
+        lambda: torch.matmul(amat, u2_cat),
         cuda_split.split_counts(k2, k2, us2[0].shape[-1], len(us2),
                                 passes=passes))
     cases[f'stiffness2d_affine_{precision}'] = (
-        lambda p=passes: affine_split(us_lid, affine.g_affine, hia, loa, p),
+        lambda p=passes: affine_split(us_lid, affine.g_affine, hia, loa, p,
+                                      fra),
         lambda p=passes: cuda_split.stiffness2d_affine_split_plain(
             us_lid, affine.g_affine, hia, loa, p),
-        lambda: torch.matmul(mstack, stack(us_lid, k16 ** 2)),
+        lambda: torch.matmul(mstack, lid_cat),
         cuda_split.split_counts(k16 ** 2, k16 ** 2, us_lid[0].shape[-1],
                                 len(us_lid), passes=passes, num_blocks=3))
   cases['stiffness3d_dense_bf16x3'] = (
       lambda: uniform_split(us3, hi3, lo3, 3),
       lambda: cuda_split.stiffness_uniform_split_plain(us3, hi3, lo3, 3),
-      lambda: torch.matmul(a_dense, stack(us3, k3)),
+      lambda: torch.matmul(a_dense, u3_cat),
       cuda_split.split_counts(k3, k3, us3[0].shape[-1], len(us3), passes=3))
   time_kernels({name: c[:3] for name, c in cases.items()}, times,
                kernel_checks, device, '[27]')
@@ -1235,15 +1277,25 @@ def run_split_phases(torch, device, dtype, tgv, kernel_checks, times,
         f'{nbytes / t / 1e12:.3f} TB/s; bound '
         f'{times[name]["bound_ms"] * 1e3:.3f} us ({times[name]["bound_by"]},'
         f' tensor cores)')
-  # The affine kernels at the datagen shape, beside the congruent ones.
+  # The affine kernels at the datagen shape, beside the congruent ones,
+  # and the library GEMM of the stacked operator there.
   hi64, lo64 = at(affine64, 'bf16x3').split_operator()
+  fr64 = at(affine64, 'bf16x3').split_fragments()
+  mstack64 = affine64.mats['mstack']
+  library64 = kernel_checks.time_ms(
+      lambda: torch.matmul(mstack64, u2_cat), device=device)
   for precision, passes in cuda_split.PASSES.items():
-    fn = lambda p=passes: affine_split(us2, affine64.g_affine, hi64, lo64, p)
+    fn = lambda p=passes: affine_split(us2, affine64.g_affine, hi64, lo64, p,
+                                       fr64)
     b = kernel_checks.bound(*cuda_split.split_counts(
         k2, k2, us2[0].shape[-1], len(us2), passes=passes, num_blocks=3), tc)
+    ms = kernel_checks.time_ms(fn, device=device)
+    times[f'stiffness2d_affine_{precision}']['datagen_shape'] = {
+        'ms': ms, 'library_ms': library64, **b}
     log(f'[27] stiffness2d_affine_{precision} at the datagen shape (9, 9, '
-        f'4096) x 2: {kernel_checks.time_ms(fn, device=device) * 1e3:.2f} '
-        f'us, bound {b["bound_ms"] * 1e3:.3f} us ({b["bound_by"]})')
+        f'4096) x 2: {ms * 1e3:.2f} us (library GEMM of the stacked '
+        f'operator {library64 * 1e3:.2f} us), bound '
+        f'{b["bound_ms"] * 1e3:.3f} us ({b["bound_by"]})')
 
 
 def main() -> int:

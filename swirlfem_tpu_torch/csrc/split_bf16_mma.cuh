@@ -1,7 +1,8 @@
 // Split-bf16 products on Hopper tensor cores, shared by the kernels of the
 // 'bf16x3' and 'default' stiffness classes: the block-tile product of
-// stiffness_split.cu and stiffness2d_affine_split.cu, and the fragment-level
-// product (`fragment_product`, at its definition) of the bf16x3 pair kernels.
+// stiffness_split.cu, the fragment-level product (`fragment_product`, at its
+// definition) of the bf16x3 pair kernels, and the fragment primitives of
+// stiffness2d_affine_split.cu.
 //
 // The TPU kernels of these classes (swirlfem_tpu/ops/pallas_stiffness.py:
 // _kernel_uniform_mm3, _kernel_affine_mm3, and _kernel_uniform_mm /

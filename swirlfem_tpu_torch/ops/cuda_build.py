@@ -76,10 +76,10 @@ _SIGNATURES = {
     #  passes, stream)
     'stiffness_uniform_split_f32': (_P, _P, _PP, _PP, _I, _I, _I, _I, _I, _I,
                                     _P),
-    # (hi, lo, c_aff, us[], outs[], num_c, rows, rows_pad, depth_pad, num_e,
-    #  passes, stream)
-    'stiffness2d_affine_split_f32': (_P, _P, _P, _PP, _PP, _I, _I, _I, _I, _I,
-                                     _I, _P),
+    # (frags, c_aff, us[], outs[], num_c, rows, rows_pad, depth_pad, num_e,
+    #  passes, panels, panel_rows, tile, splits, blocks, stream)
+    'stiffness2d_affine_split_f32': (_P, _P, _PP, _PP, _I, _I, _I, _I, _I, _I,
+                                     _I, _I, _I, _I, _I, _P),
 }
 
 _library: ctypes.CDLL | None = None

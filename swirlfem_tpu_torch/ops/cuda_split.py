@@ -25,7 +25,8 @@ sums.
 
 The kernels (``csrc/stiffness_split.cu``, ``csrc/stiffness2d_affine_split.cu``,
 on ``csrc/split_bf16_mma.cuh``) run ``mma.sync`` bf16 tensor-core products
-and take float32 only: the classes are defined on float32.  Each wrapper
+and take float32 only: the classes are defined on float32.  The affine one
+cuts its work by `affine_work_plan`.  Each wrapper
 takes its plain version only for CPU tensors; for CUDA tensors it launches
 its kernel or raises, and counts the launch in ``<wrapper>.launches``.
 """
@@ -33,6 +34,9 @@ its kernel or raises, and counts the launch in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,8 +48,16 @@ PASSES = {'bf16x3': 3, 'default': 1}
 MAX_COMPONENTS = 4
 # Rows and depth of the split operator are padded to multiples of this.
 PAD = 16
-# The affine kernel holds every row of each operator block in one tile.
+# The affine kernel's row panels hold at most this many rows of each
+# operator block, and its operators at most this many padded rows.
 MAX_AFFINE_ROWS_PAD = 128
+# Column tiles of the affine kernel, widest first.
+AFFINE_TILES = (32, 16)
+# A warp of the affine kernel holds the operator fragments of at most this
+# many 16-deep steps in registers; the plan gives an SM at most two blocks.
+AFFINE_MAX_STEPS = 4
+_AFFINE_BLOCKS_PER_SM = 2
+_SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 
 
 def _ceil_pad(n: int) -> int:
@@ -262,8 +274,95 @@ def stiffness_uniform_split(us, hi: torch.Tensor, lo: torch.Tensor,
 stiffness_uniform_split.launches = 0
 
 
+class AffinePlan(NamedTuple):
+  """How the affine split kernel cuts its work
+  (``csrc/stiffness2d_affine_split.cu``): `panels` row panels of `rows`
+  rows; the `blocks` blocks of a panel walk its (component, `tile`-column
+  tile) pairs, block b taking pairs b, b + blocks, ... with the next tile
+  in flight; a block has ``rows / 16`` warps for each of its `splits`
+  slices of the depth."""
+  panels: int
+  rows: int
+  tile: int
+  splits: int
+  blocks: int
+
+
+_MAX_WARPS = 8  # a block's warps, at most
+
+
+def affine_smem_bytes(rows: int, depth_pad: int, tile: int,
+                      splits: int) -> int:
+  """Shared memory of one block of the affine split kernel (``smem_bytes``
+  there): the ring of four u tiles and c tiles, and the partial sums of the
+  depth slices past the first."""
+  return (4 * (depth_pad * (tile + 4) + 3 * tile) * 4
+          + (splits - 1) * 3 * rows * tile * 4)
+
+
+def affine_work_plan(num_e: int, k2: int, num_c: int, num_sms: int
+                     ) -> AffinePlan:
+  """The work decomposition of one affine split launch on `num_sms` SMs.
+
+  The widest column tile and the fewest row panels whose (panel, component,
+  tile) items give every SM a block; where none does, 16-row panels of
+  16-column tiles.  The depth is split among a block's warps until it has up
+  to 8, and at least until a warp holds `AFFINE_MAX_STEPS` steps of
+  fragments.  The blocks of a panel are at most two per SM shared among the
+  panels, so that at a large E a block walks several tiles and two blocks'
+  tile loads and barriers overlap on an SM.
+  """
+  m_pad = _ceil_pad(k2)
+  mtiles = ksteps = m_pad // 16
+  plan = None
+  for tile in AFFINE_TILES:
+    pairs = num_c * max(1, math.ceil(num_e / tile))
+    for split in range(1, mtiles + 1):
+      mwarps = math.ceil(mtiles / split)
+      panels = math.ceil(mtiles / mwarps)
+      splits = min(ksteps, max(math.ceil(ksteps / AFFINE_MAX_STEPS),
+                               _MAX_WARPS // mwarps))
+      if (mwarps * splits > _MAX_WARPS or affine_smem_bytes(
+          16 * mwarps, m_pad, tile, splits) > _SMEM_LIMIT):
+        continue
+      plan = AffinePlan(panels, 16 * mwarps, tile, splits, min(
+          pairs, max(1, _AFFINE_BLOCKS_PER_SM * num_sms // panels)))
+      if panels * pairs >= num_sms:
+        return plan
+  if plan is None:
+    raise ValueError(f'no work plan fits k^2 = {k2} in one block')
+  return plan
+
+
+def affine_fragments(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+  """The split stack as the affine kernel holds it: the mma.m16n8k16 A
+  fragments, ``(M_pad / 16, K_pad / 16, 3, 2, 32, 4)`` int32 (two bf16
+  each, the lower column in the low half).  Entry ``[mt, ks, o, part,
+  4 g + t, q]`` is register q of lane (g, t) for rows ``16 mt + g (+8)``,
+  columns ``16 ks + 2t, 2t + 1 (+8)`` of operator block o, hi (part 0) or
+  lo (part 1): q = 0 (row g), 1 (g + 8), 2 (g, columns + 8), 3 (g + 8,
+  columns + 8).
+  """
+  rows_pad, depth_pad = hi.shape[0] // 3, hi.shape[1]
+  x = torch.stack([hi, lo]).reshape(2, 3, rows_pad // 16, 2, 8,
+                                    depth_pad // 16, 2, 4, 2)
+  # [part, o, mt, h, g, ks, c, t, pair] -> [mt, ks, o, part, g, t, c, h, pair]
+  x = x.permute(2, 5, 1, 0, 4, 7, 6, 3, 8).contiguous()
+  return x.view(torch.int32).reshape(rows_pad // 16, depth_pad // 16, 3, 2,
+                                     32, 4)
+
+
+@functools.lru_cache(maxsize=256)
+def _affine_plan(device_index: int, num_e: int, k2: int,
+                 num_c: int) -> AffinePlan:
+  """`affine_work_plan` of one launch shape on a device, made once: the
+  steps that launch the kernel are host-bound."""
+  sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+  return affine_work_plan(num_e, k2, num_c, sms)
+
+
 def stiffness2d_affine_split(us, c_aff: torch.Tensor, hi: torch.Tensor,
-                             lo: torch.Tensor, passes: int):
+                             lo: torch.Tensor, passes: int, frags=None):
   """Affine-element 2D stiffness of C components in a split-bf16 class.
 
   Args:
@@ -273,6 +372,9 @@ def stiffness2d_affine_split(us, c_aff: torch.Tensor, hi: torch.Tensor,
     hi, lo: the bf16 split of ``[M11; M12; M22]``
       (``split_operator_np(mstack, num_blocks=3)``).
     passes: 3 ('bf16x3') or 1 ('default').
+    frags: `affine_fragments` of `hi`, `lo` on their device
+      (``Sem2DOps.split_fragments``, made once with the split); the kernel
+      reads them, and needs them.
 
   CPU tensors: `stiffness2d_affine_split_plain`.  CUDA tensors: one launch
   of the tensor-core kernel for all components, counted in
@@ -291,11 +393,21 @@ def stiffness2d_affine_split(us, c_aff: torch.Tensor, hi: torch.Tensor,
   if hi.shape[0] // 3 > MAX_AFFINE_ROWS_PAD:
     raise ValueError(f'stiffness2d_affine_split kernel takes k^2 <= '
                      f'{MAX_AFFINE_ROWS_PAD}; got {rows}')
+  if tuple(hi.shape) != (3 * _ceil_pad(rows), _ceil_pad(rows)):
+    raise ValueError(f'stiffness2d_affine_split kernel takes the padding of '
+                     f'split_operator_np, got {tuple(hi.shape)}')
+  shape = (hi.shape[0] // 48, hi.shape[1] // 16, 3, 2, 32, 4)
+  if (frags is None or tuple(frags.shape) != shape
+      or frags.dtype != torch.int32
+      or frags.device != hi.device or not frags.is_contiguous()):
+    raise ValueError(f'frags must be affine_fragments of the split, '
+                     f'int32 {shape} on {hi.device}')
+  plan = _affine_plan(hi.device.index or 0, num_e, rows, len(us))
   outs = tuple(torch.empty_like(u) for u in us)
   stream = torch.cuda.current_stream(hi.device).cuda_stream
   cuda_build.check(cuda_build.library().stiffness2d_affine_split_f32(
-      hi.data_ptr(), lo.data_ptr(), c_aff.data_ptr(), _ptrs(us), _ptrs(outs),
-      len(us), rows, hi.shape[0] // 3, hi.shape[1], num_e, passes, stream),
+      frags.data_ptr(), c_aff.data_ptr(), _ptrs(us), _ptrs(outs), len(us),
+      rows, hi.shape[0] // 3, hi.shape[1], num_e, passes, *plan, stream),
                    'stiffness2d_affine_split')
   stiffness2d_affine_split.launches += 1
   return outs

@@ -14,7 +14,9 @@ Replaces the eight Pallas kernels of ``swirlfem_tpu/ops/pallas_stiffness3d.py``
   which are read once for all components of a call.
 * `stiffness3d_dense` (``stiffness3d_el_pallas_dense``, class 'highest'):
   the congruent operator as ONE static ``(k^3, k^3)`` matrix applied to the
-  ``(k^3, E)`` field of each component.
+  ``(k^3, E)`` field of each component; in float32 as 3xTF32 on the tensor
+  cores (the operator's TF32 split `dense_tf32_layout_np`, the field split
+  in the kernel), in float64 by FP64 FFMA.
 
 and, in the class the JAX package always runs them in, bf16x3 (three bf16
 tensor-core products of split operator and split field, float32 sums; the
@@ -35,7 +37,7 @@ chains along the third axis stay FP32):
   xi-slab pipeline on affine elements, ``G_ab(q, e) = w(q) C_ab(e)`` with six
   scalars per element and the quadrature weight folded into the tables.
 
-Fields are E-last ``(k, k, k, E)``.  The first three kernels run in FP32 (or
+Fields are E-last ``(k, k, k, E)``.  The first two kernels run in FP32 (or
 FP64) FFMA, no TF32; the pair kernels take float32 only.  Their source
 notes (``csrc/stiffness3d_*.cu``) give the bound on the card.  Every static
 table and split is built in float64 on the host (``ops.cuda_split``).  The
@@ -117,6 +119,55 @@ def pair_affine_table_np(w1, dmat) -> np.ndarray:
   d = np.asarray(dmat, dtype=np.float64)
   return np.concatenate([d.reshape(-1), (d * w[:, None]).reshape(-1), w,
                          np.kron(w, w)])
+
+
+# The dense kernel's TF32 operator layout: panels of 256 operator rows, the
+# depth padded to a multiple of its 16-deep chunks
+# (``csrc/stiffness3d_dense.cu``).
+TF32_PANEL = 256
+TF32_DEPTH = 16
+
+
+def tf32_round_np(x) -> np.ndarray:
+  """Rounds float32 values to TF32 (10 mantissa bits), to nearest with ties
+  away from zero, as ``cvt.rna.tf32.f32`` does; float32 results."""
+  bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+  return ((bits + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(np.float32)
+
+
+def tf32_split_np(a64) -> tuple[np.ndarray, np.ndarray]:
+  """``(hi, lo)`` of the float64 operator rounded to float32:
+  ``hi = rna_tf32(a32)``, ``lo = rna_tf32(a32 - hi)``, float32."""
+  a32 = np.asarray(a64, dtype=np.float64).astype(np.float32)
+  hi = tf32_round_np(a32)
+  return hi, tf32_round_np(a32 - hi)
+
+
+def dense_tf32_layout_shape(k3: int) -> tuple:
+  """Shape of `dense_tf32_layout_np` for a ``(k3, k3)`` operator."""
+  return (-(-k3 // TF32_PANEL), -(-k3 // TF32_DEPTH), 2, 2, 2,
+          TF32_PANEL // 8, 8, 4)
+
+
+def dense_tf32_layout_np(a64) -> np.ndarray:
+  """The dense kernel's float32 operand: the TF32 split of the ``(k^3,
+  k^3)`` operator as ``wgmma`` reads a K-major B operand without swizzle.
+
+  Shape `dense_tf32_layout_shape`, ``[p, c, part, s, h, n, r, q]``: panel
+  p of 256 operator rows, depth chunk c of 16, ``hi`` (part 0) or ``lo``
+  (part 1) of `tf32_split_np`, 8-deep step s, 4-deep half h, 8-row group n:
+  the core matrix of rows ``256 p + 8 n + r`` and depths ``16 c + 8 s +
+  4 h + q``.  Rows are padded to a multiple of 256 and the depth to one of
+  16, with zeros.
+  """
+  rows, depth = np.shape(a64)
+  shape = dense_tf32_layout_shape(rows)
+  m_pad, k_pad = shape[0] * TF32_PANEL, shape[1] * TF32_DEPTH
+  parts = np.zeros((2, m_pad, k_pad), dtype=np.float32)
+  parts[:, :rows, :depth] = tf32_split_np(a64)
+  # [part, p, n, r, c, s, h, q] -> [p, c, part, s, h, n, r, q]
+  blocks = parts.reshape(2, shape[0], TF32_PANEL // 8, 8, shape[1], 2, 2, 4)
+  return np.ascontiguousarray(blocks.transpose(1, 4, 0, 5, 6, 2, 3, 7))
 
 
 def stiffness3d_uniform_plain(us, table: torch.Tensor):
@@ -445,17 +496,20 @@ def stiffness3d_general(us, gs, dmat: torch.Tensor):
 stiffness3d_general.launches = 0
 
 
-def stiffness3d_dense(us, amat_t: torch.Tensor):
+def stiffness3d_dense(us, amat_t: torch.Tensor, tf32=None):
   """Congruent-element 3D stiffness as one dense ``(k^3, k^3)`` operator.
 
   Args:
     us: tuple of C component fields, each ``(k, k, k, E)``.
     amat_t: the TRANSPOSE of `uniform_amat3d_np` in the working dtype, on
       the fields' device.
+    tf32: `dense_tf32_layout_np` of the same operator, float32 on the
+      fields' device (``Sem3DOps.dense_tf32``); the float32 kernel reads
+      it, and needs it.
 
   CPU tensors: `stiffness3d_dense_plain`.  CUDA tensors: one launch of the
-  hand-written kernel for all components, counted in
-  ``stiffness3d_dense.launches``.
+  hand-written kernel for all components (float32: 3xTF32 on `tf32`;
+  float64: FFMA on `amat_t`), counted in ``stiffness3d_dense.launches``.
   """
   us = tuple(us)
   k = us[0].shape[0] if us else 0
@@ -467,9 +521,18 @@ def stiffness3d_dense(us, amat_t: torch.Tensor):
     return stiffness3d_dense_plain(us, amat_t)
   _check_launchable('stiffness3d_dense', us + (amat_t,), len(us), k,
                     amat_t.dtype)
+  op = amat_t
+  if amat_t.dtype == torch.float32:
+    shape = dense_tf32_layout_shape(k ** 3)
+    if (tf32 is None or tuple(tf32.shape) != shape
+        or tf32.dtype != torch.float32 or tf32.device != amat_t.device
+        or not tf32.is_contiguous()):
+      raise ValueError(f'the float32 dense kernel needs the TF32 layout '
+                       f'(dense_tf32_layout_np), contiguous float32 {shape} '
+                       f'on {amat_t.device}')
+    op = tf32
   outs = _launch('stiffness3d_dense',
-                 lambda pu, po: (amat_t.data_ptr(), pu, po), us, amat_t,
-                 k ** 3)
+                 lambda pu, po: (op.data_ptr(), pu, po), us, amat_t, k ** 3)
   stiffness3d_dense.launches += 1
   return outs
 

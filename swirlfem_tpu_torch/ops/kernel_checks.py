@@ -22,6 +22,11 @@ from swirlfem_tpu_torch.ops import cuda_stiffness3d
 # Gate of the stiffness kernel against the float64 operator, relative to
 # the largest output entry (the JAX bench's gate, bench.py:602-611).
 STIFFNESS_REL_TOL = 1e-5
+# The dense 3D kernel ('highest', 3xTF32 in float32) against the float64
+# operator: FP32 reads ~2e-7 and 3xTF32 ~3e-7, one TF32 pass ~5e-4, so
+# this tighter check, beside the class's gate, fails a kernel that lost a
+# pass.
+DENSE_REL_TOL = 1e-6
 # The split-bf16 classes against the float64 operator: 'bf16x3' at the JAX
 # bench's gate (bench.py:639, 464), 'default' (one bf16 pass; JAX measured
 # ~3e-3, swirlfem_tpu/ops/sem2d.py:179).  Each error must also exceed its
@@ -45,12 +50,13 @@ PAIR_VS_PLAIN_TOL = {'stiffness3d_pair': 1e-6}
 PAIR_BAND = (1e-6, SPLIT_REL_TOL)
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
-# HBM3 bandwidth, FP32 (non-tensor-core) rate and dense bf16 tensor-core
-# rate.  A kernel's bound is the larger of its bytes over the first and its
+# HBM3 bandwidth, FP32 (non-tensor-core) rate and dense bf16 and TF32
+# tensor-core rates.  A kernel's bound is the larger of its bytes over the first and its
 # operations over the rate of their type.
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_FLOP_PER_S = 67e12
 H100_BF16_TC_FLOP_PER_S = 989e12
+H100_TF32_TC_FLOP_PER_S = 495e12
 
 
 def bound(flops: float, nbytes: float,
@@ -58,12 +64,60 @@ def bound(flops: float, nbytes: float,
   """The least time the card could take: ``bound_ms`` and ``bound_by``.
 
   `flop_per_s` is the peak rate of the operations' type: FP32 by default,
-  `H100_BF16_TC_FLOP_PER_S` for the split-bf16 tensor-core kernels.
+  `H100_BF16_TC_FLOP_PER_S` for the split-bf16 tensor-core kernels,
+  `H100_TF32_TC_FLOP_PER_S` for the 3xTF32 dense one.
   """
   t_bytes = nbytes / H100_BYTES_PER_S
   t_ops = flops / flop_per_s
   return {'bound_ms': max(t_bytes, t_ops) * 1e3,
           'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
+
+
+def _kron_derivatives(dmat: torch.Tensor, ndim: int) -> torch.Tensor:
+  """``(ndim, k^d, k^d)``: the 1D derivative along each axis of the
+  flattened element, ``I (x) .. (x) D (x) .. (x) I``."""
+  eye = torch.eye(dmat.shape[0], dtype=dmat.dtype, device=dmat.device)
+  mats = []
+  for a in range(ndim):
+    m = torch.ones((1, 1), dtype=dmat.dtype, device=dmat.device)
+    for b in range(ndim):
+      m = torch.kron(m, dmat if a == b else eye)
+    mats.append(m)
+  return torch.stack(mats)
+
+
+def _symmetric(factors, ndim: int):
+  """The ``(ndim, ndim, ...)`` stack of the symmetric factors, given in the
+  order (11, 12, 22) or (11, 12, 13, 22, 23, 33)."""
+  idx = [[0, 1], [1, 2]] if ndim == 2 else [[0, 1, 2], [1, 3, 4], [2, 4, 5]]
+  return torch.stack([torch.stack([factors[j] for j in row]) for row in idx])
+
+
+def library_general(us, gs, dmat: torch.Tensor):
+  """One PyTorch call of the general 2D or 3D stiffness, ``sum_ab D_a^T
+  (G_ab D_b u)``: a zero-argument callable of ONE `torch.einsum` of the
+  axis derivatives (as ``(k^d, k^d)`` Kronecker matrices), the factor
+  fields and the stacked components, returning ``(k^d, C, E)``.  The
+  operands are stacked here, outside the call."""
+  ndim = us[0].ndim - 1
+  kd = dmat.shape[0] ** ndim
+  ds = _kron_derivatives(dmat, ndim)
+  g = _symmetric([f.reshape(kd, -1) for f in gs], ndim)
+  u = torch.stack([x.reshape(kd, -1) for x in us], dim=1)
+  return lambda: torch.einsum('bpj,jce,abpe,api->ice', ds, u, g, ds)
+
+
+def library_pair_affine(us, c_affine: torch.Tensor, w1: torch.Tensor,
+                        dmat: torch.Tensor):
+  """One PyTorch call of the affine 3D stiffness, ``G_ab(q, e) = w(q)
+  C_ab(e)``: ONE `torch.einsum` of the axis derivatives, the per-element
+  coefficients, the quadrature weights and the stacked components."""
+  kd = dmat.shape[0] ** 3
+  ds = _kron_derivatives(dmat, 3)
+  c = _symmetric(list(c_affine), 3)
+  w3 = torch.einsum('i,j,k->ijk', w1, w1, w1).reshape(kd)
+  u = torch.stack([x.reshape(kd, -1) for x in us], dim=1)
+  return lambda: torch.einsum('bpj,jce,abe,p,api->ice', ds, u, c, w3, ds)
 
 
 def random_field(shape, *, dtype, device, seed=0) -> torch.Tensor:
@@ -249,7 +303,7 @@ def check_stiffness3d_dense(ops, us) -> dict:
   """stiffness3d_dense kernel vs its plain version and the float64 dense
   operator of the congruent box."""
   amat_t = ops.dense_operator_t()
-  got = cuda_stiffness3d.stiffness3d_dense(us, amat_t)
+  got = cuda_stiffness3d.stiffness3d_dense(us, amat_t, ops.dense_tf32())
   plain = cuda_stiffness3d.stiffness3d_dense_plain(us, amat_t)
   ref = _uniform_ref64(ops, us)
   torch.cuda.synchronize(amat_t.device)

@@ -161,7 +161,7 @@ def _affine_split_plain(ops, us):
 def _affine_split_kernel(ops, us):
   return cuda_split.stiffness2d_affine_split(
       us, ops.g_affine, *ops.split_operator(),
-      cuda_split.PASSES[ops.kernel_precision])
+      cuda_split.PASSES[ops.kernel_precision], ops.split_fragments())
 
 
 STIFFNESS_DISPATCH = {
@@ -278,6 +278,14 @@ class Sem2DOps:
           cuda_stiffness.affine_mstack_np(self.wq2d, self.dmat),
           num_blocks=3), torch.bfloat16)
     return split[0], split[1]
+
+  def split_fragments(self) -> torch.Tensor:
+    """`cuda_split.affine_fragments` of the affine stack's split, as the
+    affine split kernel holds it, made once."""
+    if 'mstack_frags' not in self.mats:
+      self.mats['mstack_frags'] = cuda_split.affine_fragments(
+          *self.split_operator())
+    return self.mats['mstack_frags']
 
   # -- 1D contractions (axis 0 = xi, axis 1 = eta; E last) ----------------
 

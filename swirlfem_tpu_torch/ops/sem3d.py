@@ -146,7 +146,8 @@ def _dense_kernel(ops, us):
   if ops.kernel_precision in cuda_split.PASSES:
     return cuda_split.stiffness_uniform_split(
         us, *ops.dense_split(), cuda_split.PASSES[ops.kernel_precision])
-  return cuda_stiffness3d.stiffness3d_dense(us, ops.dense_operator_t())
+  return cuda_stiffness3d.stiffness3d_dense(us, ops.dense_operator_t(),
+                                            ops.dense_tf32())
 
 
 def _pair_plain(ops, us):
@@ -194,7 +195,8 @@ def _pair_affine_kernel(ops, us):
 # their plain versions emulate the class in either dtype).
 STIFFNESS_DISPATCH = {
     (CONGRUENT, 'fused'): _Entry(_uniform_plain, _uniform_kernel),
-    # 'highest' (FP32 FFMA) or 'bf16x3' (tensor cores), by kernel_precision.
+    # 'highest' (3xTF32 in float32, FP64 FFMA in float64) or 'bf16x3'
+    # (tensor cores), by kernel_precision.
     (CONGRUENT, 'dense'): _Entry(_dense_plain, _dense_kernel),
     (CONGRUENT, 'pair'): _Entry(_pair_plain, _pair_kernel),
     # The affine kernel is the 'pair' layout of the affine operator.
@@ -321,6 +323,14 @@ class Sem3DOps:
     """The transposed dense ``(k^3, k^3)`` operator of a congruent box."""
     return self.const('amat3d_t', lambda: cuda_stiffness3d.uniform_amat3d_np(
         self.c_uniform, self.w1, self.dmat).T)
+
+  def dense_tf32(self) -> torch.Tensor:
+    """The TF32 split of the dense ``(k^3, k^3)`` operator of a congruent
+    box in the float32 dense kernel's layout
+    (`cuda_stiffness3d.dense_tf32_layout_np`), made once."""
+    return self.const('amat3d_tf32', lambda: cuda_stiffness3d
+                      .dense_tf32_layout_np(cuda_stiffness3d.uniform_amat3d_np(
+                          self.c_uniform, self.w1, self.dmat)), torch.float32)
 
   def dense_split(self):
     """``(hi, lo)``: the bf16 split (`cuda_split.split_operator_np`) of the

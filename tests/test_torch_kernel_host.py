@@ -1,0 +1,194 @@
+"""The host side of two tensor-core kernels, on the CPU.
+
+The dense 3D kernel ('highest', 3xTF32): the operator's TF32 split is a
+round to nearest, ties away from zero, to 10 mantissa bits; its layout is
+the order of ``wgmma``'s K-major core matrices; and three TF32 passes stay in the
+FP32 class where one pass does not.  The affine split kernel: its work plan
+writes every (component, row, column) once and fits a block.
+"""
+
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+from swirlfem_tpu_torch.core.quadrature import differentiation_matrix_1d
+from swirlfem_tpu_torch.core.quadrature import NodeType
+from swirlfem_tpu_torch.core.quadrature import Quadrature1D
+from swirlfem_tpu_torch.ops import cuda_split
+from swirlfem_tpu_torch.ops import cuda_stiffness3d
+from swirlfem_tpu_torch.utils.box import unit_cube_mesh
+from swirlfem_tpu_torch.nse.solver import StokesSEM
+
+
+def _amat3d(order, c=(1.3, 0.8, 0.5)):
+  quad = Quadrature1D.create(order + 1, NodeType.GAUSS_LOBATTO_LEGENDRE)
+  return cuda_stiffness3d.uniform_amat3d_np(
+      c, quad.weights, differentiation_matrix_1d(quad.nodes))
+
+
+def _rna11(x32):
+  """Round to 11 significant bits (TF32), ties away from zero, by frexp in
+  float64: an independent spelling of ``cvt.rna.tf32.f32``."""
+  x = np.asarray(x32, dtype=np.float64)
+  m, e = np.frexp(x)                       # |m| in [0.5, 1)
+  scaled = np.abs(m) * 2.0 ** 11           # in [1024, 2048)
+  r = np.copysign(np.floor(scaled + 0.5) / 2.0 ** 11, x)  # keeps -0.0
+  return np.ldexp(r, e).astype(np.float32)
+
+
+@pytest.mark.parametrize('order', [2, 7])
+def test_tf32_split_rounds_to_nearest_away(order):
+  a64 = _amat3d(order)
+  a32 = a64.astype(np.float32)
+  hi, lo = cuda_stiffness3d.tf32_split_np(a64)
+  np.testing.assert_array_equal(hi.view(np.uint32), _rna11(a32).view(np.uint32))
+  np.testing.assert_array_equal(lo.view(np.uint32),
+                                _rna11(a32 - hi).view(np.uint32))
+  assert not (hi.view(np.uint32) & 0x1fff).any()
+  assert not (lo.view(np.uint32) & 0x1fff).any()
+  # hi + lo carries 22 significant bits of the float32 operator.
+  scale = np.abs(a32).max()
+  assert np.abs(hi.astype(np.float64) + lo - a32).max() <= 2.0 ** -21 * scale
+  # Ties go away from zero: 1 + 2^-11 is halfway between TF32 neighbours.
+  ties = np.array([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 3 * 2.0 ** -11],
+                  dtype=np.float32)
+  np.testing.assert_array_equal(
+      cuda_stiffness3d.tf32_round_np(ties),
+      np.array([1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1 + 2 * 2.0 ** -10],
+               dtype=np.float32))
+
+
+@pytest.mark.parametrize('order', [2, 7, 9])
+def test_tf32_layout_is_the_wgmma_core_matrix_order(order):
+  """Entry [p, c, part, s, h, n, r, q] holds row 256 p + 8 n + r, depth
+  16 c + 8 s + 4 h + q of hi (part 0) or lo (part 1): 8 x 4 core matrices
+  of a K-major operand, one contiguous 32 KB run per (panel, chunk)."""
+  a64 = _amat3d(order)
+  k3 = a64.shape[0]
+  layout = cuda_stiffness3d.dense_tf32_layout_np(a64)
+  m_pad, k_pad = -(-k3 // 256) * 256, -(-k3 // 16) * 16
+  assert layout.shape == (m_pad // 256, k_pad // 16, 2, 2, 2, 32, 8, 4)
+  assert layout.shape == cuda_stiffness3d.dense_tf32_layout_shape(k3)
+  assert layout.dtype == np.float32 and layout.flags.c_contiguous
+  assert layout[0, 0].nbytes == 32768
+  parts = np.zeros((2, m_pad, k_pad), np.float32)
+  parts[:, :k3, :k3] = cuda_stiffness3d.tf32_split_np(a64)
+  rng = np.random.default_rng(order)
+  for idx in zip(*(rng.integers(0, n, 300) for n in layout.shape)):
+    p, c, part, s, h, n, r, q = idx
+    assert layout[idx] == parts[part, 256 * p + 8 * n + r,
+                                16 * c + 8 * s + 4 * h + q], idx
+  # Every entry, and the zero padding.
+  back = layout.transpose(2, 0, 5, 6, 1, 3, 4, 7).reshape(2, m_pad, k_pad)
+  np.testing.assert_array_equal(back, parts)
+
+
+def _emulate(a64, u32, passes):
+  """``lo u_hi + hi u_lo + hi u_hi`` (three passes) or ``hi u_hi`` (one),
+  TF32 operands, float32 sums."""
+  hi, lo = cuda_stiffness3d.tf32_split_np(a64)
+  u_hi = cuda_stiffness3d.tf32_round_np(u32)
+  u_lo = cuda_stiffness3d.tf32_round_np(u32 - u_hi)
+  if passes == 1:
+    return hi @ u_hi
+  return (lo @ u_hi + hi @ u_lo) + hi @ u_hi
+
+
+def test_3xtf32_reads_the_fp32_class():
+  """At k = 8 (order 7) three TF32 passes read <= 1e-6 of the largest
+  output from the float64 operator, as FP32 does; one pass reads > 1e-5."""
+  a64 = _amat3d(7)
+  u32 = np.random.default_rng(0).standard_normal((a64.shape[0], 64)).astype(
+      np.float32)
+  ref = a64 @ u32.astype(np.float64)
+  scale = np.abs(ref).max()
+  err = lambda y: np.abs(y.astype(np.float64) - ref).max() / scale
+  three, one = err(_emulate(a64, u32, 3)), err(_emulate(a64, u32, 1))
+  fp32 = err(a64.astype(np.float32) @ u32)
+  assert three <= 1e-6 and fp32 <= 1e-6, (three, fp32)
+  assert one > 1e-5, one
+
+
+def test_sem3d_ops_keep_the_tf32_layout():
+  """The congruent box's dense operator and its TF32 layout, made once."""
+  sem = StokesSEM.create(unit_cube_mesh(2, ndim=3, periodic_dims=(0, 1, 2)),
+                         {}, order=3, device='cpu', dtype=torch.float32)
+  ops = sem.fast_ops
+  layout = ops.dense_tf32()
+  assert layout is ops.dense_tf32() and layout.dtype == torch.float32
+  a64 = cuda_stiffness3d.uniform_amat3d_np(ops.c_uniform, ops.w1, ops.dmat)
+  np.testing.assert_array_equal(layout.numpy(),
+                                cuda_stiffness3d.dense_tf32_layout_np(a64))
+
+
+def _affine_coverage(plan, num_e, k2, num_c):
+  """The affine split kernel's index arithmetic under `plan`
+  (csrc/stiffness2d_affine_split.cu), written out: how often the blocks
+  write each output value, (C, k^2, E)."""
+  tiles = -(-num_e // plan.tile)
+  out = np.zeros((num_c, k2, num_e), dtype=np.int64)
+  for panel in range(plan.panels):
+    r0 = panel * plan.rows
+    for block in range(plan.blocks):
+      for n in range(block, num_c * tiles, plan.blocks):
+        comp, tile = divmod(n, tiles)
+        for warp in range(plan.rows // 16):
+          rows = slice(r0 + 16 * warp, min(k2, r0 + 16 * warp + 16))
+          out[comp, rows, tile * plan.tile:(tile + 1) * plan.tile] += 1
+  return out
+
+
+@pytest.mark.parametrize('num_sms', [132, 7])
+def test_affine_work_plan_covers_every_output_once(num_sms):
+  for num_e, k2, num_c in itertools.product((1, 37, 256, 257, 4096),
+                                            (4, 64, 81, 100), (1, 2, 3, 4)):
+    plan = cuda_split.affine_work_plan(num_e, k2, num_c, num_sms)
+    assert (_affine_coverage(plan, num_e, k2, num_c) == 1).all(), (
+        num_e, k2, num_c, plan)
+    m_pad = -(-k2 // 16) * 16
+    assert plan.rows % 16 == 0 and 16 <= plan.rows <= 128
+    assert plan.panels * plan.rows >= m_pad and plan.tile in (16, 32)
+    # Every depth step in one slice, a warp's steps in its registers.
+    assert 1 <= plan.splits <= m_pad // 16
+    assert -(-(m_pad // 16) // plan.splits) <= cuda_split.AFFINE_MAX_STEPS
+    assert (plan.rows // 16) * plan.splits <= 8  # warps of a block
+    assert cuda_split.affine_smem_bytes(plan.rows, m_pad, plan.tile,
+                                        plan.splits) <= 232448
+
+
+def test_affine_work_plan_fills_the_card_at_the_path_shapes():
+  """The lid-driven cavity (16^2, order 7, C = 2): 128 blocks of 16 rows x
+  16 columns, four warps splitting the depth; the datagen box (64^2, order
+  8): two blocks of six warps per SM on two 48-row panels, each walking
+  about two 32-column tiles."""
+  lid = cuda_split.affine_work_plan(256, 64, 2, 132)
+  assert lid == cuda_split.AffinePlan(4, 16, 16, 4, 32), lid
+  datagen = cuda_split.affine_work_plan(4096, 81, 2, 132)
+  assert datagen == cuda_split.AffinePlan(2, 48, 32, 2, 132), datagen
+
+
+@pytest.mark.parametrize('k2', [4, 64, 81])
+def test_affine_fragments_are_the_mma_a_fragments(k2):
+  """Register q of lane (g, t) at [mt, ks, o, part] packs the two bf16 of
+  rows 16 mt + g (+8 for q = 1, 3), columns 16 ks + 2t, 2t + 1 (+8 for
+  q = 2, 3) of block o of hi or lo, the lower column in the low half."""
+  rng = np.random.default_rng(k2)
+  m64 = rng.standard_normal((3 * k2, k2))
+  split = torch.as_tensor(cuda_split.split_operator_np(m64, num_blocks=3))
+  hi, lo = split.to(torch.bfloat16)
+  frags = cuda_split.affine_fragments(hi, lo)
+  r_pad, d_pad = hi.shape[0] // 3, hi.shape[1]
+  assert tuple(frags.shape) == (r_pad // 16, d_pad // 16, 3, 2, 32, 4)
+  assert frags.dtype == torch.int32 and frags.is_contiguous()
+  bits = torch.stack([hi, lo]).view(torch.int16).numpy().astype(np.uint16)
+  words = frags.numpy().view(np.uint32)
+  for mt, ks, o, part, lane, q in itertools.product(
+      range(r_pad // 16), range(d_pad // 16), range(3), range(2),
+      range(0, 32, 5), range(4)):
+    g, t = divmod(lane, 4)
+    row = o * r_pad + 16 * mt + g + 8 * (q & 1)
+    col = 16 * ks + 2 * t + 8 * (q >> 1)
+    want = int(bits[part, row, col]) | (int(bits[part, row, col + 1]) << 16)
+    assert int(words[mt, ks, o, part, lane, q]) == want

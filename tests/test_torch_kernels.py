@@ -231,7 +231,44 @@ def test_stiffness3d_dense_matches_f64_operator(device, n_el, order, num_c,
   ops = _tgv_ops(n_el, order, dtype)
   result = kernel_checks.check_stiffness3d_dense(ops, _fields3d(ops, num_c, 1))
   assert result['rel_err_f64'] <= _variant_tol(
-      dtype, kernel_checks.STIFFNESS_REL_TOL), result
+      dtype, kernel_checks.DENSE_REL_TOL), result
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('offset', [0, 1], ids=['aligned', 'unaligned'])
+@pytest.mark.parametrize('num_c', [1, 2, 3, 4])
+@pytest.mark.parametrize('order,num_e', [(7, 37), (7, 257), (3, 37),
+                                         (2, 257)])
+def test_stiffness3d_dense_ragged_matches_f64_operator(device, order, num_e,
+                                                       num_c, offset, dtype):
+  """The dense kernel on an operator of GLL order `order` at ragged E, the
+  fields views `offset` values into a larger buffer: float32 (3xTF32)
+  within 1e-6 of the float64 operator and of the FP32 plain version,
+  float64 within 1e-13."""
+  quad = Quadrature1D.create(order + 1, NodeType.GAUSS_LOBATTO_LEGENDRE)
+  a64 = cuda_stiffness3d.uniform_amat3d_np(
+      (1.3, 0.8, 0.5), quad.weights, differentiation_matrix_1d(quad.nodes))
+  k = order + 1
+  rng = np.random.default_rng(order * 1000 + num_e)
+  us = tuple(torch.as_tensor(rng.standard_normal(k ** 3 * num_e + offset),
+                             dtype=dtype, device=device)[offset:].view(
+                                 k, k, k, num_e) for _ in range(num_c))
+  amat_t = torch.as_tensor(a64.T, dtype=dtype, device=device).contiguous()
+  tf32 = torch.as_tensor(cuda_stiffness3d.dense_tf32_layout_np(a64),
+                         device=device)
+  before = cuda_stiffness3d.stiffness3d_dense.launches
+  got = cuda_stiffness3d.stiffness3d_dense(us, amat_t, tf32)
+  assert cuda_stiffness3d.stiffness3d_dense.launches == before + 1
+  plain = cuda_stiffness3d.stiffness3d_dense_plain(us, amat_t)
+  ref = cuda_stiffness3d.stiffness3d_dense_plain(
+      tuple(u.double() for u in us), torch.as_tensor(a64.T, device=device))
+  torch.cuda.synchronize(device)
+  tol = kernel_checks.DENSE_REL_TOL if dtype == torch.float32 else 1e-13
+  scale = max(float(r.abs().max()) for r in ref)
+  for g, p, r in zip(got, plain, ref):
+    assert g.shape == r.shape and g.is_contiguous()
+    assert float((g.double() - r).abs().max()) <= tol * scale
+    assert float((g - p).abs().max()) <= tol * scale
 
 
 def _assert_bf16x3(result, name):
@@ -610,6 +647,44 @@ def test_stiffness2d_affine_split_matches_plain(device, n_el, order, num_c,
   low, high = kernel_checks.CLASS_BANDS[precision]
   assert result['rel_err_plain'] <= kernel_checks.SPLIT_VS_PLAIN_TOL, result
   assert low < result['rel_err_f64'] <= high, result
+
+
+@pytest.mark.parametrize('precision', ['bf16x3', 'default'])
+@pytest.mark.parametrize('offset', [0, 1], ids=['aligned', 'unaligned'])
+@pytest.mark.parametrize('num_c', [1, 2, 3, 4])
+@pytest.mark.parametrize('order,num_e', _CASES_STATIC)
+def test_stiffness2d_affine_split_static_cases(device, order, num_e, num_c,
+                                               offset, precision):
+  """The affine split kernel over the static kernels' shape set (ragged E,
+  unaligned views, orders 1 to 9) on random positive scalars: within
+  `SPLIT_VS_PLAIN_TOL` of its plain version and inside its class's band of
+  the float64 operator."""
+  mstack, m64, caff, us = _static_case(order, num_e, num_c, offset,
+                                       torch.float32, device, affine=True)
+  del mstack
+  split = torch.as_tensor(cuda_split.split_operator_np(m64, num_blocks=3),
+                          device=device).to(torch.bfloat16)
+  passes = cuda_split.PASSES[precision]
+  before = cuda_split.stiffness2d_affine_split.launches
+  got = cuda_split.stiffness2d_affine_split(
+      us, caff, split[0], split[1], passes,
+      cuda_split.affine_fragments(split[0], split[1]))
+  assert cuda_split.stiffness2d_affine_split.launches == before + 1
+  plain = cuda_split.stiffness2d_affine_split_plain(us, caff, split[0],
+                                                    split[1], passes)
+  ref = cuda_stiffness2d.stiffness2d_affine_plain(
+      tuple(u.double() for u in us), caff.double(),
+      torch.as_tensor(m64, device=device))
+  torch.cuda.synchronize(device)
+  scale = max(float(r.abs().max()) for r in ref)
+  plain_scale = max(float(p.abs().max()) for p in plain)
+  low, high = kernel_checks.CLASS_BANDS[precision]
+  for g, p, r in zip(got, plain, ref):
+    assert g.shape == r.shape and g.is_contiguous()
+    assert float((g - p).abs().max()) <= (kernel_checks.SPLIT_VS_PLAIN_TOL
+                                          * plain_scale)
+  err = max(float((g.double() - r).abs().max()) for g, r in zip(got, ref))
+  assert low < err / scale <= high, err / scale
 
 
 @pytest.mark.parametrize('n_el,order', _CASES_3D)

@@ -13,8 +13,16 @@ Prints each step's (viscous, pressure) iterations of both and the final
 velocities' relative difference as one JSON line.  Not a test: a check
 run by hand, a minute or two at the path's size.
 
+Both sides get the port's set-up (`jax_solver`): the operators built in
+float64 and cast once to float32, the FDM seeds' per-axis Jacobians taken
+from the float64 node coordinates.  With ``--jax-seed-coords float32`` the
+JAX seeds read the node coordinates rounded to float32, as a float32 run of
+the JAX package holds them: the viscous seed then leaves a residual ~4x the
+port's against the same float32 operator, and the JAX viscous solves take
+one to four more iterations (`tests/test_torch_lid_iterations.py`).
+
     python tests/torch_port_lid_iterations.py [--n-el 16] [--order 7]
-        [--steps 30] [--precision bf16x3]
+        [--steps 30] [--precision bf16x3] [--jax-seed-coords float64]
 """
 
 import argparse
@@ -44,21 +52,45 @@ from swirlfem_tpu_torch.examples.natural_convection import sine_grading
 RE, DT, GRADING = 100.0, 1e-3, 0.5
 
 
-def jax_iterations(n_el, order, steps, precision):
-  pallas_stiffness.stiffness_el_pallas_affine = functools.partial(
-      pallas_stiffness.stiffness_el_pallas_affine, interpret=True)
+def interpreted_affine_kernel():
+  """`stiffness_el_pallas_affine` in interpret mode (the CPU has no Pallas
+  backend); the JAX solver looks it up at each call."""
+  return functools.partial(pallas_stiffness.stiffness_el_pallas_affine,
+                           interpret=True)
+
+
+def jax_solver(n_el, order, precision, seed_coords='float64'):
+  """The JAX solver of the graded cavity in float32 and its FDM seeds.
+
+  Returns ``(sem, vprecond, precond)``.  The solver is built in float64
+  and its arrays cast to float32 (the port's set-up; needs
+  ``jax_enable_x64``).  The seeds' transforms are float32; their per-axis
+  Jacobians come from the node coordinates in `seed_coords`: 'float64' as
+  the port's, or 'float32' as a float32 run of the JAX package holds them.
+  On the CPU, `interpreted_affine_kernel` must stand in for the kernel.
+  """
   pm = junit_cube_mesh(n_el, ndim=2)
   pm = pm.replace(node_coords=sine_grading(
-      np.asarray(pm.node_coords, dtype=np.float64), GRADING).astype(
-          np.float32))
+      np.asarray(pm.node_coords, dtype=np.float64), GRADING))
   sem = JStokesSEM.create(pm, {'boundary': (JBCType.DIRICHLET, 0.0)},
                           order=order, use_pallas_kernels=True,
                           kernel_precision=precision)
-  dtype = sem.velocity.mesh.node_coords.dtype
+  to32 = lambda a: (a.astype(jnp.float32) if getattr(a, 'dtype', None)
+                    in (jnp.float64, np.float64) else a)
+  sem32 = jax.tree_util.tree_map(to32, sem)
+  # The seeds take their transforms' dtype from the mass diagonal and
+  # their geometry from the node coordinates.
+  seed_sem = (sem.replace(velocity_mass_diag=sem32.velocity_mass_diag)
+              if seed_coords == 'float64' else sem32)
+  return (sem32, seed_sem.fdm_viscous_preconditioner(1.0 / RE, DT, 2),
+          seed_sem.best_pressure_preconditioner(DT, 2))
+
+
+def jax_iterations(n_el, order, steps, precision, seed_coords='float64'):
+  sem, vprecond, precond = jax_solver(n_el, order, precision, seed_coords)
+  dtype = jnp.float32
   ub = jcavity.lid_boundary_field(sem).astype(dtype)
   ext = [float(c) for c in extk_coeffs(k=1)]
-  precond = sem.best_pressure_preconditioner(DT, 2)
-  vprecond = sem.fdm_viscous_preconditioner(1.0 / RE, DT, 2)
 
   @jax.jit
   def step(us, ps, cus):
@@ -103,15 +135,20 @@ def main(argv=None):
   parser.add_argument('--steps', type=int, default=30)
   parser.add_argument('--precision', default='bf16x3',
                       choices=('highest', 'bf16x3'))
+  parser.add_argument('--jax-seed-coords', default='float64',
+                      choices=('float64', 'float32'))
   args = parser.parse_args(argv)
   jax.config.update('jax_platforms', 'cpu')
+  jax.config.update('jax_enable_x64', True)
+  pallas_stiffness.stiffness_el_pallas_affine = interpreted_affine_kernel()
   jax_counts, ju = jax_iterations(args.n_el, args.order, args.steps,
-                                  args.precision)
+                                  args.precision, args.jax_seed_coords)
   port_counts, pu = port_iterations(args.n_el, args.order, args.steps,
                                     args.precision)
   print(json.dumps({
       'n_el': args.n_el, 'order': args.order, 'steps': args.steps,
-      'precision': args.precision, 'jax_iterations': jax_counts,
+      'precision': args.precision, 'jax_seed_coords': args.jax_seed_coords,
+      'jax_iterations': jax_counts,
       'port_iterations': port_counts,
       'u_rel': float(np.abs(pu - ju).max() / np.abs(ju).max())}))
 
