@@ -60,7 +60,8 @@ graded and sheared periodic box, all in float32.  Phases:
      components: on the Taylor-Green
      box, on the graded and sheared (affine) periodic box, and on random
      factor fields and coefficients; the superslab keys (pairs2, pairs4)
-     bitwise the pair-general kernel's output;
+     bitwise the pair-general kernel's output; the pair-general and pairz
+     kernels also at k = 10 (order 9) on a 3^3 box;
  19. the Taylor-Green box: certified steps (`exact_solves=False`, the FDM
      inverses as CG seeds) under the dense and the congruent pair key and,
      with `use_uniform_kernel=False`, under each general key (pair, pairz,
@@ -76,7 +77,8 @@ graded and sheared periodic box, all in float32.  Phases:
  22. time the 3D kernels against their plain versions and their bound (the
      dense and the pair one also against one library GEMM of the same
      operator; the dense one's bound is its three TF32 passes over the
-     TF32 tensor-core rate, its FP32-rate figure kept beside it);
+     TF32 tensor-core rate, its FP32-rate figure kept beside it; the
+     pair-general and pairz kernels' counted bytes beside the bound's);
  23. the split-bf16 classes ('bf16x3', 'default') of the static-operator
      stiffness on the tensor cores, against their plain versions and the
      float64 operator: the congruent kernel at the datagen shape (through
@@ -524,6 +526,23 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
       log(f'[18] {impl} on {"random" if gs_ is not None else "the box"}\'s '
           f'factor fields: bitwise pair_general\'s output: {same}')
       require(same, f'{impl} differs from pair_general')
+  # k = 10 (order 9), the largest order the general pair kernels take, on a
+  # 3^3 box (E = 27, ragged against their 8-element tiles), under the same
+  # gates: the box's own and random factor fields.
+  ops10 = tgv.create_tgv(3, 9, dtype=dtype, device=device).fast_ops
+  us10 = tuple(field(30 + s, (10,) * 3 + (27,)) for s in range(3))
+  gs10 = tuple(field(40 + s, (10,) * 3 + (27,)) for s in range(6))
+  for name, zeta in (('stiffness3d_pair_general', False),
+                     ('stiffness3d_pairz_general', True)):
+    for gs_ in (None, gs10):
+      result = kernel_checks.check_stiffness3d_pair_general(ops10, us10, gs_,
+                                                            zeta=zeta)
+      which = 'random' if gs_ is not None else "the box's"
+      log(f'[18] {name} k = 10, 3 x {tuple(us10[0].shape)} f32, {which} '
+          f'factor fields: {result}')
+      require(result['rel_err_plain'] <= kernel_checks.SPLIT_VS_PLAIN_TOL,
+              (name, 'k = 10', result))
+      require(low < result['rel_err_f64'] <= high, (name, 'k = 10', result))
 
   # -- 19. the Taylor-Green box: certified steps under each key -------------
   count = 10
@@ -753,6 +772,21 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
     log(f'[22] {name}: {flops / t / 1e12:.3f} TFLOP/s of the function\'s '
         f'work{issued}, {nbytes / t / 1e12:.3f} TB/s; bound '
         f'{times[name]["bound_ms"] * 1e3:.2f} us ({times[name]["bound_by"]})')
+    if variant in ('pair_general', 'pairz_general'):
+      # The bytes the kernel's design moves, beside the bound's.
+      grid = cs3.pair_columns_grid(
+          num_e, k, torch.cuda.get_device_properties(device
+                                                     ).multi_processor_count,
+          cs3._pair_columns_blocks_per_sm(k, variant == 'pairz_general',  # pylint: disable=protected-access
+                                          device))
+      traffic = cs3.pair_columns_traffic(order, num_e, len(us3), grid,
+                                         dtype_bytes=itemsize)
+      log(f'[22] {name}: counted bytes: {traffic["device"] / 1e6:.1f} MB '
+          f'from and to device memory (the bound\'s {nbytes / 1e6:.1f} MB, '
+          f'{traffic["device"] / kernel_checks.H100_BYTES_PER_S * 1e6:.2f} '
+          f'us), {traffic["factor_rereads"] / 1e6:.1f} MB of factor-field '
+          f're-reads and {traffic["operators"] / 1e6:.2f} MB of operator '
+          f'staging from the L1/L2 ({grid} persistent blocks)')
   return certified
 
 

@@ -13,12 +13,15 @@
 //   stiffness3d_el_pallas_pairz_general (_kernel_3d_pairz_general):
 //     zeta-slabs of the (xi, eta) pair, the zeta derivative and its
 //     transpose as FP32 chains.
-// The slab pipeline, its design and its barriers are described in
-// stiffness3d_pair_slab.cuh; here the metric is the six symmetric factor
-// fields G_ab = w |J| (J^-1 J^-T)_ab, each (k, k, k, E) float32, and the
-// table is the (k, k) differentiation matrix D in float32.  Both layouts
-// take the same split operator DP = [D (x) I; I (x) D]; the transposed
-// stage reads its two transposes from it.
+// The pipeline, its design and its counts are described in
+// stiffness3d_pair_columns.cuh (every slab of an element as columns of one
+// product; k = order + 1 in [2, 10]); the metric is the six symmetric
+// factor fields G_ab = w |J| (J^-1 J^-T)_ab, each (k, k, k, E) float32, and
+// the table is the (k, k) differentiation matrix D in float32.  Both
+// layouts take the same split operator DP = [D (x) I; I (x) D]; the
+// transposed stage reads its two transposes from it.  The superslab
+// kernels' k % S == 0 is the caller's to hold (ops/sem3d.py), as the JAX
+// package asserts it.
 //
 // Bound on an H100 SXM (3.35 TB/s; 989 TFLOP/s dense bf16) at 16^3
 // elements, order 7, C = 3, float32: (2 C + 6) k^3 E 4 B = 100.7 MB,
@@ -26,17 +29,18 @@
 // of the (2k^2, k^2) and two (k^2, k^2) products), 9.8 us.  Memory sets
 // the bound.
 
-#include "stiffness3d_pair_slab.cuh"
+#include "stiffness3d_pair_columns.cuh"
 
 // dp: (2, 2 Mp, Mp) bf16; dmat: (k, k) float32; us, gs (6), outs:
-// (k, k, k, num_e) float32.
+// (k, k, k, num_e) float32; grid: persistent blocks.
 extern "C" int stiffness3d_pair_general_f32(const void* dp, const void* dmat,
                                             const void* const* us,
                                             const void* const* gs,
                                             void* const* outs, int num_c,
-                                            int k, int num_e, void* stream) {
-  return pair_slab::launch<false, false>(dp, nullptr, dmat, us, gs, outs,
-                                         num_c, k, num_e, stream);
+                                            int k, int num_e, int grid,
+                                            void* stream) {
+  return pair_columns::launch<false>(dp, dmat, us, gs, outs, num_c, k, num_e,
+                                     grid, stream);
 }
 
 extern "C" int stiffness3d_pairz_general_f32(const void* dp,
@@ -44,7 +48,17 @@ extern "C" int stiffness3d_pairz_general_f32(const void* dp,
                                              const void* const* us,
                                              const void* const* gs,
                                              void* const* outs, int num_c,
-                                             int k, int num_e, void* stream) {
-  return pair_slab::launch<true, false>(dp, nullptr, dmat, us, gs, outs,
-                                        num_c, k, num_e, stream);
+                                             int k, int num_e, int grid,
+                                             void* stream) {
+  return pair_columns::launch<true>(dp, dmat, us, gs, outs, num_c, k, num_e,
+                                    grid, stream);
+}
+
+// The kernels' geometry at k (zeta: the pairz kernel): out = [tile_e,
+// threads, shared bytes, resident blocks per SM on the current device].
+extern "C" int stiffness3d_pair_columns_layout(int k, int zeta, int* out) {
+  return zeta ? pair_columns::dispatch<true>(k, nullptr, nullptr, nullptr, 0,
+                                             0, false, 0, nullptr, out)
+              : pair_columns::dispatch<false>(k, nullptr, nullptr, nullptr,
+                                              0, 0, false, 0, nullptr, out);
 }

@@ -1,5 +1,7 @@
-// The bf16x3 slab pipeline of the pair-layout general and affine 3D
-// stiffness kernels (stiffness3d_pair_general.cu, stiffness3d_pair_affine.cu).
+// The bf16x3 slab pipeline of the pair-layout affine 3D stiffness kernel
+// (stiffness3d_pair_affine.cu).  The general kernels that it also served
+// run on stiffness3d_pair_columns.cuh, which the affine flux is to join;
+// the general (kAffine = false) paths below are no longer instantiated.
 //
 // A field (k, k, k, E) is viewed as k slabs along a chain axis, the other
 // two axes merged into one pair axis of M = k^2 entries p: xi-slabs of the

@@ -60,8 +60,9 @@ from swirlfem_tpu_torch.ops import cuda_split
 MAX_COMPONENTS = 4
 # The kernels are instantiated for k = order + 1 in [2, MAX_K].
 MAX_K = 10
-# The bf16x3 pair kernels hold their split operators in shared memory:
-# k = order + 1 in [2, MAX_K_SPLIT].
+# The congruent and affine bf16x3 pair kernels hold their split operators
+# and a float32 tile in shared memory: k = order + 1 in [2, MAX_K_SPLIT].
+# The general pair kernels take k in [2, MAX_K] (`pair_columns_layout`).
 MAX_K_SPLIT = 8
 NUM_FACTORS = 6
 
@@ -418,12 +419,12 @@ def _ptrs(tensors):
 _SUFFIX = {torch.float32: 'f32', torch.float64: 'f64'}
 
 
-def _launch(name, args_of, us, like: torch.Tensor, k: int):
+def _launch(name, args_of, us, like: torch.Tensor, k: int, extra=()):
   """Launches kernel `name` on the CUDA fields `us`; returns the outputs.
 
   `args_of(us_ptrs, outs_ptrs)` gives the C arguments before
-  ``(num_c, k or k^3, num_e, stream)``; `like` is a coefficient tensor on
-  the fields' device in their dtype.
+  ``(num_c, k or k^3, num_e, *extra, stream)``; `like` is a coefficient
+  tensor on the fields' device in their dtype.
   """
   if like.device.type != 'cuda':
     raise ValueError(f'{name}: unsupported device {like.device}')
@@ -431,7 +432,7 @@ def _launch(name, args_of, us, like: torch.Tensor, k: int):
   fn = getattr(cuda_build.library(), f'{name}_{_SUFFIX[like.dtype]}')
   stream = torch.cuda.current_stream(like.device).cuda_stream
   cuda_build.check(fn(*args_of(_ptrs(us), _ptrs(outs)), len(us), k,
-                      us[0].shape[-1], stream), name)
+                      us[0].shape[-1], *extra, stream), name)
   return outs
 
 
@@ -548,15 +549,16 @@ def _check_split(what, split: torch.Tensor, shape, device):
                      f'{tuple(split.shape)} on {split.device}')
 
 
-def _check_split_launchable(what, tensors, num_c, k, dtype):
+def _check_split_launchable(what, tensors, num_c, k, dtype, max_k):
   """The bf16x3 pair kernels: float32 only (the class is defined on
-  float32), k <= MAX_K_SPLIT (their operators live in shared memory)."""
+  float32), 2 <= k <= `max_k` (MAX_K_SPLIT for the congruent and affine
+  kernels, MAX_K for the general ones)."""
   if dtype != torch.float32:
     raise TypeError(f'{what} kernel takes float32 (the bf16x3 class is '
                     f'defined on float32), got {dtype}')
-  if not 1 <= num_c <= MAX_COMPONENTS or not 2 <= k <= MAX_K_SPLIT:
+  if not 1 <= num_c <= MAX_COMPONENTS or not 2 <= k <= max_k:
     raise ValueError(f'{what} kernel takes 1..{MAX_COMPONENTS} components and '
-                     f'2 <= k <= {MAX_K_SPLIT}; got {num_c}, {k}')
+                     f'2 <= k <= {max_k}; got {num_c}, {k}')
   if not all(t.is_contiguous() for t in tensors):
     raise ValueError(f'{what} kernel needs contiguous tensors')
 
@@ -588,7 +590,7 @@ def stiffness3d_pair(us, a2: torch.Tensor, table: torch.Tensor):
   if table.device.type == 'cpu':
     return stiffness3d_pair_plain(us, a2, table)
   _check_split_launchable('stiffness3d_pair', us + (a2, table), len(us), k,
-                          table.dtype)
+                          table.dtype, MAX_K_SPLIT)
   outs = _launch('stiffness3d_pair',
                  lambda pu, po: (a2.data_ptr(), table.data_ptr(), pu, po), us,
                  table, k)
@@ -599,7 +601,70 @@ def stiffness3d_pair(us, a2: torch.Tensor, table: torch.Tensor):
 stiffness3d_pair.launches = 0
 
 
-def _general_pair(name, plain, us, gs, dp, dmat):
+# The general pair kernels' column groups: n8 fragments of 8 elements
+# (csrc/stiffness3d_pair_columns.cuh), and the shared memory of one block.
+PAIR_COLUMN_GROUP = 8
+SMEM_LIMIT = 232448
+
+
+def pair_columns_layout(k: int) -> dict:
+  """The general pair kernels' block at ``k = order + 1``, as
+  ``csrc/stiffness3d_pair_columns.cuh:Layout`` computes it.
+
+  The pair axis, ``k^2`` padded to ``m_pad`` (a multiple of 16), is cut
+  into ``m_pad / 16`` row tiles; a block holds ``groups`` column groups of
+  8 elements (``tile_e`` in all) and one warp per (row tile, group), so
+  that a block has 6 to 8 warps.  Its operands' rows are `ld_b` bf16 wide
+  (every slab of every group, padded to an odd number of 16-byte units),
+  DP's ``m_pad + 8``.  `smem_bytes`: D in float32, the (hi, lo) split of
+  DP ``(2 m_pad, m_pad)``, and of the field ``(m_pad, k tile_e)`` and the
+  fluxes ``(2 m_pad, k tile_e)``.
+  """
+  m_pad = _pad(k)
+  tiles = m_pad // 16
+  groups = 1 if tiles >= 8 else 8 // tiles
+  tile_e = PAIR_COLUMN_GROUP * groups
+  cols = k * tile_e
+  ld_b = cols if (cols // 8) % 2 == 1 else cols + 8
+  ld_dp = m_pad + 8
+  table = -(-k * k // 4) * 4
+  smem = 4 * table + 4 * (2 * m_pad * ld_dp + 3 * m_pad * ld_b)
+  return dict(m_pad=m_pad, tile_e=tile_e, groups=groups,
+              threads=32 * tiles * groups, ld_b=ld_b, smem_bytes=smem)
+
+
+def pair_columns_grid(num_e: int, k: int, num_sms: int,
+                      blocks_per_sm: int) -> int:
+  """Persistent blocks of the general pair kernels: one per tile of
+  ``tile_e`` elements, at most as many as the card holds at once."""
+  tiles = -(-num_e // pair_columns_layout(k)['tile_e'])
+  return max(1, min(tiles, num_sms * blocks_per_sm))
+
+
+_PAIR_COLUMNS_OCCUPANCY = {}
+
+
+def _pair_columns_blocks_per_sm(k: int, zeta: bool, device) -> int:
+  """Resident blocks per SM of the kernel at `k` (the C side's occupancy
+  query, which also checks its layout against `pair_columns_layout`);
+  cached per kernel and device."""
+  key = (k, zeta, device.index)
+  if key not in _PAIR_COLUMNS_OCCUPANCY:
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+      cuda_build.check(cuda_build.library().stiffness3d_pair_columns_layout(
+          k, int(zeta), out), 'stiffness3d_pair_columns_layout')
+    want = pair_columns_layout(k)
+    got = dict(tile_e=out[0], threads=out[1], smem_bytes=out[2])
+    if any(want[name] != got[name] for name in got) or out[3] < 1:
+      raise RuntimeError(f'pair-columns layout at k = {k}: the kernel has '
+                         f'{got} and {out[3]} blocks per SM, the host '
+                         f'expects {want}')
+    _PAIR_COLUMNS_OCCUPANCY[key] = out[3]
+  return _PAIR_COLUMNS_OCCUPANCY[key]
+
+
+def _general_pair(name, plain, us, gs, dp, dmat, zeta):
   """Checks and runs one of the two general pair-layout kernels."""
   k = dmat.shape[0]
   if dmat.ndim != 2 or dmat.shape[1] != k:
@@ -611,10 +676,16 @@ def _general_pair(name, plain, us, gs, dp, dmat):
   if dmat.device.type == 'cpu':
     return plain(us, gs, dp, dmat)
   _check_split_launchable(name, us + gs + (dp, dmat), len(us), k,
-                          dmat.dtype)
+                          dmat.dtype, MAX_K)
+  device = dmat.device
+  grid = pair_columns_grid(
+      us[0].shape[-1], k,
+      torch.cuda.get_device_properties(device).multi_processor_count,
+      _pair_columns_blocks_per_sm(k, zeta, device))
   # The kernel reads the transposed stage from DP's split, transposed.
   return _launch(name, lambda pu, po: (dp.data_ptr(), dmat.data_ptr(), pu,
-                                       _ptrs(gs), po), us, dmat, k)
+                                       _ptrs(gs), po), us, dmat, k,
+                 extra=(grid,))
 
 
 def stiffness3d_pair_general(us, gs, dp: torch.Tensor, dmat: torch.Tensor):
@@ -634,7 +705,8 @@ def stiffness3d_pair_general(us, gs, dp: torch.Tensor, dmat: torch.Tensor):
   ``stiffness3d_pair_general.launches``.
   """
   outs = _general_pair('stiffness3d_pair_general',
-                       stiffness3d_pair_general_plain, us, gs, dp, dmat)
+                       stiffness3d_pair_general_plain, us, gs, dp, dmat,
+                       False)
   if dmat.device.type != 'cpu':
     stiffness3d_pair_general.launches += 1
   return outs
@@ -654,7 +726,8 @@ def stiffness3d_pairz_general(us, gs, dp: torch.Tensor,
   ``stiffness3d_pairz_general.launches``.
   """
   outs = _general_pair('stiffness3d_pairz_general',
-                       stiffness3d_pairz_general_plain, us, gs, dp, dmat)
+                       stiffness3d_pairz_general_plain, us, gs, dp, dmat,
+                       True)
   if dmat.device.type != 'cpu':
     stiffness3d_pairz_general.launches += 1
   return outs
@@ -699,7 +772,7 @@ def stiffness3d_pair_affine(us, c_affine: torch.Tensor, dp: torch.Tensor,
     return stiffness3d_pair_affine_plain(us, c_affine, dp, at, table)
   _check_split_launchable('stiffness3d_pair_affine',
                           us + (c_affine, dp, at, table), len(us), k,
-                          table.dtype)
+                          table.dtype, MAX_K_SPLIT)
   outs = _launch('stiffness3d_pair_affine',
                  lambda pu, po: (dp.data_ptr(), at.data_ptr(),
                                  table.data_ptr(), c_affine.data_ptr(), pu,
@@ -746,6 +819,23 @@ def stiffness3d_counts(order, num_elems, num_components, *, variant,
                       fields + NUM_FACTORS * num_elems),
   }[variant]
   return flops, words * dtype_bytes
+
+
+def pair_columns_traffic(order, num_elems, num_components, grid, *,
+                         dtype_bytes=4) -> dict:
+  """The bytes the general pair kernels move, as their design counts them
+  (``csrc/stiffness3d_pair_columns.cuh``): `device`, from and to device
+  memory, each field, factor field and output once (the bound's bytes);
+  `factor_rereads`, the factor fields read again for every component past
+  the first, which the L1 and L2 serve; `operators`, DP's split and D
+  staged by each of the `grid` blocks from the L2."""
+  k = order + 1
+  pts = k ** 3 * num_elems
+  m_pad = _pad(k)
+  return {'device': (2 * num_components + NUM_FACTORS) * pts * dtype_bytes,
+          'factor_rereads': ((num_components - 1) * NUM_FACTORS * pts
+                             * dtype_bytes),
+          'operators': grid * (2 * 2 * m_pad * m_pad * 2 + k * k * 4)}
 
 
 def stiffness3d_tensor_core_flops(order, num_elems, num_components, *,

@@ -158,12 +158,26 @@ def _pair_kernel(ops, us):
   return cuda_stiffness3d.stiffness3d_pair(us, *ops.pair_operators())
 
 
+def _check_superslab(ops):
+  """The superslab keys stack S = 2 or 4 slabs, so k must be a multiple of
+  S: the JAX package's ``stiffness3d_el_pallas_pairs_general`` asserts it
+  and gives no result otherwise, and neither does the port."""
+  impl = ops.general_kernel_impl
+  if impl in ('pairs2', 'pairs4'):
+    s, k = int(impl[-1]), ops.mats['dmat'].shape[0]
+    if k % s:
+      raise ValueError(f'general_kernel_impl {impl!r} stacks {s} slabs: '
+                       f'k = order + 1 must be a multiple of {s}, got {k}')
+
+
 def _pair_general_plain(ops, us):
+  _check_superslab(ops)
   return cuda_stiffness3d.stiffness3d_pair_general_plain(
       us, ops.gs(), ops.pair_derivative_split(), ops.mats['dmat'])
 
 
 def _pair_general_kernel(ops, us):
+  _check_superslab(ops)
   return cuda_stiffness3d.stiffness3d_pair_general(
       us, ops.gs(), ops.pair_derivative_split(), ops.mats['dmat'])
 
@@ -206,7 +220,8 @@ STIFFNESS_DISPATCH = {
     (GENERAL, 'pairz'): _Entry(_pairz_general_plain, _pairz_general_kernel),
     # The superslab layouts stack S slabs into block-diagonal operators for
     # the TPU's matrix unit: their off-diagonal blocks add exact zeros, so
-    # they compute pair's products bit for bit, and run its kernel.
+    # they compute pair's products bit for bit, and run its kernel (where S
+    # divides k, as the JAX package requires: `_check_superslab`).
     (GENERAL, 'pairs2'): _Entry(_pair_general_plain, _pair_general_kernel),
     (GENERAL, 'pairs4'): _Entry(_pair_general_plain, _pair_general_kernel),
 }

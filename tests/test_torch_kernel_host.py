@@ -7,6 +7,7 @@ FP32 class where one pass does not.  The affine split kernel: its work plan
 writes every (component, row, column) once and fits a block.
 """
 
+import dataclasses
 import itertools
 
 import numpy as np
@@ -192,3 +193,128 @@ def test_affine_fragments_are_the_mma_a_fragments(k2):
     col = 16 * ks + 2 * t + 8 * (q >> 1)
     want = int(bits[part, row, col]) | (int(bits[part, row, col + 1]) << 16)
     assert int(words[mt, ks, o, part, lane, q]) == want
+
+
+# The general bf16x3 pair kernels (csrc/stiffness3d_pair_columns.cuh): the
+# block layout the host mirrors, the persistent blocks' walk, the zero tiles
+# they skip, and the orders they take.
+
+
+@pytest.mark.parametrize('k', range(2, cuda_stiffness3d.MAX_K + 1))
+def test_pair_columns_layout_fits_one_block_an_sm(k):
+  """Every order up to 9 (k = 10): the block fits the card's shared memory
+  at 6 to 8 warps, one warp per (16-row tile, 8-element group), its
+  operand rows an odd number of 16-byte units (no bank conflicts)."""
+  lay = cuda_stiffness3d.pair_columns_layout(k)
+  m_pad = -(-k * k // 16) * 16
+  assert lay['m_pad'] == m_pad
+  assert lay['tile_e'] == 8 * lay['groups']
+  assert lay['threads'] == 32 * (m_pad // 16) * lay['groups']
+  assert 192 <= lay['threads'] <= 256
+  assert lay['smem_bytes'] <= cuda_stiffness3d.SMEM_LIMIT
+  assert lay['ld_b'] >= k * lay['tile_e'] and (lay['ld_b'] // 8) % 2 == 1
+  if k == 8:  # the path's order 7: 16 elements, 8 warps, 138 KB
+    assert (lay['tile_e'], lay['threads'], lay['smem_bytes']) == (
+        16, 256, 141568)
+
+
+def _pair_columns_walk(num_e, num_c, k, grid):
+  """The (tile, component) units each persistent block walks, in its order
+  (csrc/stiffness3d_pair_columns.cuh: tiles b, b + grid, ..., each through
+  its components), written out."""
+  tiles = -(-num_e // cuda_stiffness3d.pair_columns_layout(k)['tile_e'])
+  return [[(tile, comp) for tile in range(b, tiles, grid)
+           for comp in range(num_c)] for b in range(grid)]
+
+
+@pytest.mark.parametrize('num_sms,blocks_per_sm', [(132, 1), (7, 2)])
+def test_pair_columns_blocks_cover_every_element_once(num_sms, blocks_per_sm):
+  """Each (element, component) in exactly one block's walk, ragged E
+  included; at the path's shape (16^3 elements, order 7) one block per SM
+  and none idle."""
+  for num_e, k, num_c in itertools.product((1, 7, 8, 27, 257, 4096),
+                                           (2, 5, 8, 9, 10), (1, 3, 4)):
+    grid = cuda_stiffness3d.pair_columns_grid(num_e, k, num_sms,
+                                              blocks_per_sm)
+    tile_e = cuda_stiffness3d.pair_columns_layout(k)['tile_e']
+    seen = np.zeros((num_c, -(-num_e // tile_e) * tile_e), dtype=np.int64)
+    for units in _pair_columns_walk(num_e, num_c, k, grid):
+      for tile, comp in units:
+        seen[comp, tile * tile_e:(tile + 1) * tile_e] += 1
+    assert (seen == 1).all(), (num_e, k, num_c, grid)
+    assert 1 <= grid <= num_sms * blocks_per_sm
+  assert cuda_stiffness3d.pair_columns_grid(4096, 8, 132, 1) == 132
+
+
+def _eye_tile_live(k, ri, ci):
+  """The kernel's test of a 16 x 16 tile of I (x) D, written out."""
+  m = k * k
+  r0, r1 = 16 * ri // k, (min(16 * ri + 16, m) - 1) // k
+  c0, c1 = 16 * ci // k, (min(16 * ci + 16, m) - 1) // k
+  return max(r0, c0) <= min(r1, c1)
+
+
+@pytest.mark.parametrize('k', range(2, cuda_stiffness3d.MAX_K + 1))
+def test_pair_columns_skip_only_zero_tiles(k):
+  """The kernels skip the tiles of I (x) D (and of its transpose) that the
+  test calls dead: each is zero in DP's split; D (x) I has no zero tile."""
+  rng = np.random.default_rng(k)
+  d = rng.uniform(0.5, 1.5, (k, k))  # no zero entry
+  dp = cuda_split.pair_derivative_split_np(d)  # (2, 2 m_pad, m_pad)
+  m_pad = dp.shape[2]
+  assert dp.shape[1] == 2 * m_pad and m_pad % 16 == 0
+  tiles = m_pad // 16
+  dead = 0
+  for ri, ci in itertools.product(range(tiles), repeat=2):
+    rows, cols = slice(16 * ri, 16 * ri + 16), slice(16 * ci, 16 * ci + 16)
+    assert dp[0, rows, cols].any()  # D (x) I
+    eye = dp[:, m_pad:][:, rows, cols]
+    if _eye_tile_live(k, ri, ci):
+      assert eye[0].any()
+    else:
+      dead += 1
+      assert not eye.any()
+    assert _eye_tile_live(k, ri, ci) == _eye_tile_live(k, ci, ri)
+  if k == 8:  # off the block diagonal of 4 x 4 tiles
+    assert dead == 12
+
+
+def test_general_pair_kernels_take_k_up_to_10():
+  """The launch check: the general pair kernels take 2 <= k <= 10, the
+  congruent and affine ones k <= 8; all float32 only."""
+  check = cuda_stiffness3d._check_split_launchable  # pylint: disable=protected-access
+  for k in range(2, 11):
+    us = (torch.zeros(k, k, k, 3),)
+    check('stiffness3d_pair_general', us, 1, k, torch.float32,
+          cuda_stiffness3d.MAX_K)
+    with pytest.raises(TypeError, match='float32'):
+      check('stiffness3d_pair_general', us, 1, k, torch.float64,
+            cuda_stiffness3d.MAX_K)
+  with pytest.raises(ValueError, match='k <= 10'):
+    check('stiffness3d_pairz_general', us, 1, 11, torch.float32,
+          cuda_stiffness3d.MAX_K)
+  with pytest.raises(ValueError, match='k <= 8'):
+    check('stiffness3d_pair_affine', us, 1, 9, torch.float32,
+          cuda_stiffness3d.MAX_K_SPLIT)
+
+
+@pytest.mark.parametrize('order,impl,refused', [
+    (5, 'pairs4', True), (5, 'pairs2', False), (8, 'pairs2', True),
+    (3, 'pairs4', False)])
+def test_superslab_keys_refuse_what_the_reference_refuses(order, impl,
+                                                          refused):
+  """pairs2 / pairs4 stack 2 / 4 slabs: where that does not divide k, the
+  JAX package's kernel asserts and the port raises, on every device."""
+  sem = StokesSEM.create(unit_cube_mesh(1, ndim=3, periodic_dims=(0, 1, 2)),
+                         {}, order=order, device='cpu', dtype=torch.float64)
+  ops = dataclasses.replace(sem.fast_ops, use_uniform_kernel=False,
+                            general_kernel_impl=impl)
+  k = order + 1
+  us = (torch.ones(k, k, k, 1, dtype=torch.float64),)
+  if refused:
+    with pytest.raises(ValueError, match='multiple of'):
+      ops.stiffness_el_multi(us)
+  else:
+    pair = dataclasses.replace(ops, general_kernel_impl='pair')
+    torch.testing.assert_close(ops.stiffness_el_multi(us)[0],
+                               pair.stiffness_el_multi(us)[0], rtol=0, atol=0)

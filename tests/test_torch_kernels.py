@@ -299,10 +299,13 @@ def test_stiffness3d_pair_matches_f64_operator(device, n_el, order, num_c,
 
 @pytest.mark.parametrize('zeta', [False, True], ids=['pair', 'pairz'])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
-@pytest.mark.parametrize('n_el,order', _CASES_3D + [(3, 6)])
-@pytest.mark.parametrize('num_c', [1, 3])
+@pytest.mark.parametrize('n_el,order',
+                         _CASES_3D + [(3, 6), (2, 8), (3, 8), (3, 9)])
+@pytest.mark.parametrize('num_c', [1, 2, 3, 4])
 def test_stiffness3d_pair_general_matches_f64_operator(device, n_el, order,
                                                        num_c, dtype, zeta):
+  """Orders 3-9 (k up to 10; tiles of 64, 16 and 8 elements, E = 8, 27
+  and 4096: ragged where the tile does not divide E), C = 1-4."""
   del device
   us = _fields3d(_tgv_ops(n_el, order, dtype), num_c, 1)
   if dtype == torch.float64:
@@ -318,6 +321,39 @@ def test_stiffness3d_pair_general_matches_f64_operator(device, n_el, order,
                    _fields3d(_tgv_ops(n_el, order, dtype), 6, 10))):
     _assert_bf16x3(kernel_checks.check_stiffness3d_pair_general(
         ops, us, gs, zeta=zeta), 'stiffness3d_pair_general')
+
+
+def _misaligned(t):
+  """A contiguous copy of `t` 4 bytes past an 8-byte boundary."""
+  buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+  out = buf[1:].view(t.shape)
+  out.copy_(t)
+  return out
+
+
+@pytest.mark.parametrize('zeta', [False, True], ids=['pair', 'pairz'])
+@pytest.mark.parametrize('n_el,order', [(2, 7), (2, 9)])
+def test_stiffness3d_pair_general_takes_unaligned_fields(device, n_el, order,
+                                                         zeta):
+  """Fields and factor fields off their 8-byte alignment at an even E: the
+  kernel's element-wise loads."""
+  del device
+  ops = _tgv_ops(n_el, order, torch.float32)
+  us = tuple(_misaligned(u) for u in _fields3d(ops, 3, 1))
+  gs = tuple(_misaligned(g) for g in _fields3d(ops, 6, 10))
+  assert us[0].data_ptr() % 8 == 4 and us[0].shape[-1] % 2 == 0
+  _assert_bf16x3(kernel_checks.check_stiffness3d_pair_general(
+      ops, us, gs, zeta=zeta), 'stiffness3d_pair_general')
+
+
+def test_pair_columns_layout_matches_the_kernel(device):
+  """The host's mirror of the general pair kernels' layout (the grid
+  depends on it) is the kernel's, at every k; each fits one block an SM."""
+  for k in range(2, cuda_stiffness3d.MAX_K + 1):
+    for zeta in (False, True):
+      # Raises where the C side's tile, threads or shared memory differ.
+      assert cuda_stiffness3d._pair_columns_blocks_per_sm(  # pylint: disable=protected-access
+          k, zeta, device) >= 1
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
@@ -366,11 +402,23 @@ def test_stiffness3d_variant_wrappers_reject_bad_input(device):
   with pytest.raises(TypeError):
     cuda_stiffness3d.stiffness3d_pair(tuple(u.half() for u in us), a2,
                                       table.half())
-  # The bf16x3 pair kernels hold their operators in shared memory: k <= 8.
+  # The congruent and affine bf16x3 pair kernels hold their operators and a
+  # float32 tile in shared memory: k <= 8.  The general ones take k <= 10.
   big = _tgv_ops(2, 8, torch.float32)
+  big9 = _tgv_ops(2, 9, torch.float32)
   with pytest.raises(ValueError, match='k <= 8'):
     dataclasses.replace(big, uniform_kernel_impl='pair').stiffness_el_multi(
         _fields3d(big, 1, 1))
+  for ops, impl in ((big, 'pair'), (big, 'pairz'), (big9, 'pair'),
+                    (big9, 'pairz'), (big9, 'pairs2')):
+    general = dataclasses.replace(ops, use_uniform_kernel=False,
+                                  general_kernel_impl=impl)
+    assert general.stiffness_el_multi(_fields3d(ops, 1, 1))[0].isfinite().all()
+  # pairs4 stacks 4 slabs: k = 10 is refused, as the JAX package refuses it.
+  with pytest.raises(ValueError, match='multiple of 4'):
+    dataclasses.replace(big9, use_uniform_kernel=False,
+                        general_kernel_impl='pairs4').stiffness_el_multi(
+                            _fields3d(big9, 1, 1))
 
 
 def test_cg_solved_step_on_card_matches_cpu(device):

@@ -252,6 +252,28 @@ def test_plain_versions_match_jax_on_random_inputs(k, dtype):
     assert err <= tol, (name, err)
 
 
+@pytest.mark.parametrize('zeta', [False, True], ids=['pair', 'pairz'])
+def test_general_plain_versions_match_jax_at_k10(zeta):
+  """(b) at k = 10 (order 9), the largest order the general pair kernels
+  take on the card: random fields and factor fields of 8 elements, two
+  components, float64."""
+  k = 10
+  _, d, _ = _operators(k)
+  us, gs, _ = _random(k, 8, seed=k)
+  dp = _bf16(cuda_split.pair_derivative_split_np(d))
+  tu = tuple(torch.as_tensor(u) for u in us)
+  tg = tuple(torch.as_tensor(g) for g in gs)
+  ju = tuple(jnp.asarray(u) for u in us)
+  jg = tuple(jnp.asarray(g) for g in gs)
+  if zeta:
+    got = cs3.stiffness3d_pairz_general_plain(tu, tg, dp, torch.as_tensor(d))
+    want = jp3.stiffness3d_el_pallas_pairz_general(ju, jg, d, interpret=True)
+  else:
+    got = cs3.stiffness3d_pair_general_plain(tu, tg, dp, torch.as_tensor(d))
+    want = jp3.stiffness3d_el_pallas_pair_general(ju, jg, d, interpret=True)
+  assert _rel([g.numpy() for g in got], want) <= TOL[torch.float64]
+
+
 @functools.lru_cache(maxsize=None)
 def _affine_box():
   periodic = dict(ndim=3, periodic_dims=(0, 1, 2))
