@@ -24,7 +24,8 @@ graded and sheared periodic box, all in float32.  Phases:
   7. time each kernel against its plain version (CUDA events): device
      time alone ("ms") and per eager call, dispatch included ("call_ms");
   8. the 3D kernels against their plain versions and the float64 operator
-     at 16^3 elements, order 7, 3 components;
+     at 16^3 elements, order 7, 3 components; the general one also at
+     k = 10 (order 9) on a 3^3 box;
   9. one 250-step TGV chunk through `run_tgv` (stiffness3d_uniform on every
      step, for the resolved dissipation), checked against the flow's
      known start (KE 1/8, dissipation 0.75/Re) and monotone decay;
@@ -61,7 +62,8 @@ graded and sheared periodic box, all in float32.  Phases:
      box, on the graded and sheared (affine) periodic box, and on random
      factor fields and coefficients; the superslab keys (pairs2, pairs4)
      bitwise the pair-general kernel's output; the pair-general and pairz
-     kernels also at k = 10 (order 9) on a 3^3 box;
+     kernels also at k = 10 (order 9), the congruent pair and pair-affine
+     kernels at k = 9 and 10 (orders 8 and 9), on 3^3 boxes;
  19. the Taylor-Green box: certified steps (`exact_solves=False`, the FDM
      inverses as CG seeds) under the dense and the congruent pair key and,
      with `use_uniform_kernel=False`, under each general key (pair, pairz,
@@ -225,10 +227,26 @@ def run_tgv_phases(torch, device, dtype, tgv, cuda_stiffness3d,
   su = kernel_checks.check_stiffness3d_uniform(ops3, us3)
   sg = kernel_checks.check_stiffness3d_general(ops3, us3)
   sr = kernel_checks.check_stiffness3d_general(ops3, us3, gs_rand)
+  log(f'[8] stiffness3d_general layout at k = {k}: '
+      f'{cuda_stiffness3d.general3d_layout(k, us3[0].element_size())}')
   log(f'[8] stiffness3d_uniform 3 x {tuple(us3[0].shape)} f32: {su}')
   log(f'[8] stiffness3d_general, the box\'s factor fields: {sg}')
   log(f'[8] stiffness3d_general, random factor fields: {sr}')
-  for check in (su, sg, sr):
+  # k = 10 (order 9), the largest order, on a 3^3 box (E = 27, ragged
+  # against the 8-element tiles): the box's own and random factor fields.
+  ops10 = tgv.create_tgv(3, 9, dtype=dtype, device=device).fast_ops
+  us10 = tuple(kernel_checks.random_field((10,) * 3 + (27,), dtype=dtype,
+                                          device=device, seed=30 + s)
+               for s in range(3))
+  gs10 = tuple(kernel_checks.random_field((10,) * 3 + (27,), dtype=dtype,
+                                          device=device, seed=40 + s)
+               for s in range(6))
+  checks10 = [kernel_checks.check_stiffness3d_general(ops10, us10, gs_)
+              for gs_ in (None, gs10)]
+  for which, check in zip(("the box's", 'random'), checks10):
+    log(f'[8] stiffness3d_general k = 10, 3 x {tuple(us10[0].shape)} f32, '
+        f'{which} factor fields: {check}')
+  for check in (su, sg, sr, *checks10):
     require(check['rel_err_f64'] <= kernel_checks.STIFFNESS_REL_TOL, check)
 
   # -- 9. one TGV chunk (the 3D main path) ----------------------------------
@@ -451,10 +469,10 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
     for wrapper in wrappers.values():
       wrapper.launches = 0
 
-  def periodic_affine(n, dev, dt_):
+  def periodic_affine(n, dev, dt_, order_=order):
     return StokesSEM.create(
         affine_box(unit_cube_mesh(n, ndim=3, periodic_dims=(0, 1, 2))), {},
-        order=order, device=dev, dtype=dt_)
+        order=order_, device=dev, dtype=dt_)
 
   # -- 18. the kernels vs plain and the float64 operator --------------------
   t0 = time.perf_counter()
@@ -543,6 +561,24 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
       require(result['rel_err_plain'] <= kernel_checks.SPLIT_VS_PLAIN_TOL,
               (name, 'k = 10', result))
       require(low < result['rel_err_f64'] <= high, (name, 'k = 10', result))
+  # The congruent pair and the pair-affine kernel at k = 9 and 10 (orders 8
+  # and 9), on 3^3 boxes: the Taylor-Green box, and the affine box's own and
+  # random coefficients.
+  for order_k in (8, 9):
+    kk = order_k + 1
+    ops_k = tgv.create_tgv(3, order_k, dtype=dtype, device=device).fast_ops
+    ops_ak = periodic_affine(3, device, dtype, order_k).fast_ops
+    us_k = tuple(field(50 + s, (kk,) * 3 + (27,)) for s in range(3))
+    for name, result in (
+        ('stiffness3d_pair', kernel_checks.check_stiffness3d_pair(ops_k,
+                                                                  us_k)),
+        *(('stiffness3d_pair_affine',
+           kernel_checks.check_stiffness3d_pair_affine(ops_ak, us_k, c_))
+          for c_ in (None, field(60, (6, 27))))):
+      log(f'[18] {name} k = {kk}, 3 x {tuple(us_k[0].shape)} f32: {result}')
+      require(result['rel_err_plain'] <= kernel_checks.PAIR_VS_PLAIN_TOL.get(
+          name, kernel_checks.SPLIT_VS_PLAIN_TOL), (name, kk, result))
+      require(low < result['rel_err_f64'] <= high, (name, kk, result))
 
   # -- 19. the Taylor-Green box: certified steps under each key -------------
   count = 10
@@ -729,8 +765,9 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
           lambda: cs3.stiffness3d_pairz_general_plain(us3, gs_a, dp,
                                                       dmat), library_general),
       'stiffness3d_pair_affine': (
-          lambda: cs3.stiffness3d_pair_affine(us3, ops_a.g_affine, dp_a, at_w,
-                                              atab),
+          lambda: cs3.stiffness3d_pair_affine(
+              us3, ops_a.g_affine, dp_a, at_w, atab,
+              at_frags=ops_a.pair_affine_fragments()),
           lambda: cs3.stiffness3d_pair_affine_plain(us3, ops_a.g_affine, dp_a,
                                                     at_w, atab),
           library_affine),
@@ -777,8 +814,8 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
       grid = cs3.pair_columns_grid(
           num_e, k, torch.cuda.get_device_properties(device
                                                      ).multi_processor_count,
-          cs3._pair_columns_blocks_per_sm(k, variant == 'pairz_general',  # pylint: disable=protected-access
-                                          device))
+          cs3._pair_columns_blocks_per_sm(  # pylint: disable=protected-access
+              k, 'zeta' if variant == 'pairz_general' else 'xi', device))
       traffic = cs3.pair_columns_traffic(order, num_e, len(us3), grid,
                                          dtype_bytes=itemsize)
       log(f'[22] {name}: counted bytes: {traffic["device"] / 1e6:.1f} MB '

@@ -316,8 +316,7 @@ __device__ __forceinline__ void block_product(const Operator& op,
 }
 
 // The fragment-level split product, for kernels that keep both operands in
-// shared memory (the bf16x3 pair kernels, stiffness3d_pair.cu and
-// stiffness3d_pair_slab.cuh):
+// shared memory (the congruent bf16x3 pair kernel, stiffness3d_pair.cu):
 //
 //   acc[o][j] += A_o[row[j] : row[j] + 16, 0 : depth] B[0 : depth,
 //                col[j] : col[j] + 8]

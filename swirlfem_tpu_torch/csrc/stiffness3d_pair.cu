@@ -22,7 +22,10 @@
 // (blockIdx.y); 8 warps.  It splits the component's (k M, TE) tile once into
 // bf16 hi / lo in shared memory (80 KB at order 7), beside the split A2
 // (18 KB; M padded with zeros to Mp, a multiple of 16): 99 KB, two blocks
-// per SM.  Per slab the (Mp, TE) product A2 u[a] runs as mma.sync m16n8k16
+// per SM.  At k = 10 a 32-element tile needs 234,208 B, past the 232,448 a
+// block may use, so the tile is 16 elements wherever 32 does not fit
+// (`Layout::kTE`, chosen per k: 162 KB at k = 10, one block per SM).  Per
+// slab the (Mp, TE) product A2 u[a] runs as mma.sync m16n8k16
 // fragments (split_bf16_mma.cuh: fragment_product), each warp owning the
 // same fragments in every slab, so a thread holds A2 u[a] for all k slabs
 // at its points (p, e); there it forms W2 u[b] from the split tile and the
@@ -41,9 +44,9 @@ namespace {
 
 constexpr int kMaxComponents = 4;
 constexpr int kMinK = 2;
-constexpr int kMaxK = 8;
-constexpr int kTE = 32;
+constexpr int kMaxK = 10;
 constexpr int kWarps = 8;
+constexpr int kSmemLimit = 232448;
 constexpr int kThreads = 32 * kWarps;
 
 struct Pointers {
@@ -51,10 +54,12 @@ struct Pointers {
   float* out[kMaxComponents];
 };
 
-template <int K>
-struct Layout {
+// Written out in tests/test_torch_kernel_host.py (_pair_smem).
+template <int K, int TE>
+struct TileLayout {
   static constexpr int M = K * K;
   static constexpr int Mp = (M + 15) / 16 * 16;
+  static constexpr int kTE = TE;        // elements per block
   static constexpr int kLdA = Mp + 8;   // bf16 rows of A2
   static constexpr int kLdB = kTE + 8;  // bf16 rows of the split tile
   static constexpr int kTable = K * K + K + 2 * M;
@@ -66,11 +71,19 @@ struct Layout {
       static_cast<size_t>(2 * (kA + kU)) * 2;
   static constexpr int kFrags = (Mp / 16) * (kTE / 8);
   static constexpr int NF = (kFrags + kWarps - 1) / kWarps;
-  static_assert(kSmem <= 232448, "shared memory");
+  // Two blocks per SM where shared memory allows it (k <= 8); else the
+  // compiler may give a thread all 255 registers.
+  static constexpr int kMinBlocks = 2 * (kSmem + 1024) <= 233472 ? 2 : 1;
+};
+
+// 32 elements a block where that fits, else 16.
+template <int K>
+struct Layout : TileLayout<K, (TileLayout<K, 32>::kSmem <= kSmemLimit ? 32
+                                                                       : 16)> {
 };
 
 template <int K>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, Layout<K>::kMinBlocks)
 stiffness3d_pair_kernel(const __nv_bfloat16* __restrict__ a2,
                         const float* __restrict__ table, Pointers ptrs,
                         int num_e, bool vec) {
@@ -78,6 +91,8 @@ stiffness3d_pair_kernel(const __nv_bfloat16* __restrict__ a2,
   constexpr int M = L::M;
   constexpr int Mp = L::Mp;
   constexpr int NF = L::NF;
+  constexpr int kTE = L::kTE;
+  static_assert(L::kSmem <= kSmemLimit, "shared memory");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* tab = reinterpret_cast<float*>(smem_raw);
   __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(tab + L::kTablePadded);
@@ -200,7 +215,7 @@ int launch_k(const __nv_bfloat16* a2, const float* table,
   const int err = split_bf16::allow_smem(stiffness3d_pair_kernel<K>,
                                          static_cast<int>(L::kSmem));
   if (err != 0) return err;
-  const dim3 grid((num_e + kTE - 1) / kTE, num_c);
+  const dim3 grid((num_e + L::kTE - 1) / L::kTE, num_c);
   stiffness3d_pair_kernel<K>
       <<<grid, kThreads, L::kSmem, stream>>>(a2, table, ptrs, num_e, vec);
   return static_cast<int>(cudaGetLastError());
@@ -221,7 +236,7 @@ int dispatch(int k, const __nv_bfloat16* a2, const float* table,
 }  // namespace
 
 // a2: (2, Mp, Mp) bf16 [hi, lo]; table: float32 (3 k^2 + k); us, outs:
-// (k, k, k, num_e) float32.
+// (k, k, k, num_e) float32; k = order + 1 in [2, 10].
 extern "C" int stiffness3d_pair_f32(const void* a2, const void* table,
                                     const void* const* us, void* const* outs,
                                     int num_c, int k, int num_e,

@@ -1,26 +1,33 @@
-// The bf16x3 pipeline of the general 3D stiffness in pair-axis form, with
-// every slab of an element as columns of one product
+// The bf16x3 pipeline of the 3D stiffness in pair-axis form, with every
+// slab of an element as columns of one product: the general kernels
 // (stiffness3d_pair_general.cu: the xi-slab kernel that pair, pairs2 and
-// pairs4 run, and the zeta-slab kernel of pairz).
+// pairs4 run, and the zeta-slab kernel of pairz) and the affine one
+// (stiffness3d_pair_affine.cu).
 //
 // A field (k, k, k, E) is viewed as k slabs along a chain axis, the other
 // two axes merged into one pair axis of M = k^2 entries p: xi-slabs of the
 // (eta, zeta) pair, or zeta-slabs of the (xi, eta) pair.  Per slab a, as
 // the TPU kernel bodies compute it (swirlfem_tpu/ops/pallas_stiffness3d.py:
-// _kernel_3d_pair_general, _kernel_3d_pairz_general):
+// _kernel_3d_pair_general, _kernel_3d_pairz_general, _kernel_3d_pair_affine):
 //
 //   [P1; P2] = mm3(DP, u[a]),  DP = [D (x) I; I (x) D]     (2M x M)
 //   C        = sum_m D[a, m] u[m]                  (FP32 chain, FFMA)
-//   (Q1, Q2, Qc) = flux of the six factor fields on (P1, P2, C)
-//   pair[a]  = mm3(DP^T, [Q1; Q2])
-//   out[m]   = pair[m] + sum_a D[a, m] Qc[a]       (FP32, FFMA)
+//   (Q1, Q2, Qc) = flux of (P1, P2, C)             (pointwise)
+//   pair[a]  = mm3(T, [Q1; Q2])                    (T = [T1, T2], M x 2M)
+//   out[m]   = pair[m] + (w2 *) sum_a Ct[a, m] Qc[a]   (FP32, FFMA)
 //
 // where mm3 is the class bf16x3: the host split of the float64 operator
 // (hi, lo) times the in-kernel split of the float32 operand (bf16(x),
 // bf16(x - hi), both RNE), hi xhi + hi xlo + lo xhi with float32 sums.  On
 // xi-slabs (r, s, t) = (C, P1, P2) and (Q1, Q2, Qc) = (fb, fc, fa); on
-// zeta-slabs (r, s, t) = (P1, P2, C) and (Q1, Q2, Qc) = (fa, fb, fc); the
-// flux is (fa, fb, fc) = G (r, s, t) on the symmetric factor fields.
+// zeta-slabs (r, s, t) = (P1, P2, C) and (Q1, Q2, Qc) = (fa, fb, fc).  The
+// general flux is (fa, fb, fc) = G (r, s, t) on the six symmetric factor
+// fields, T is DP's transpose and Ct is D.  The affine flux (xi-slabs) reads
+// six coefficients per element, fa = c11 r + c12 s + c13 t weight-free,
+// fb = w_a (c12 r + c22 s + c23 t), fc = w_a (c13 r + c23 s + c33 t); its T
+// is [(D (x) I)^T W2, (I (x) D)^T W2] with W2 = diag(w (x) w) folded in
+// float64 before its own split (not DP's split times W2: another rounding),
+// Ct is Dw[a][m] = D[a][m] w_a, and the chain term takes the factor w2[p].
 //
 // Design.  The products of all k slabs of an element are one product, the
 // slabs side by side as columns (the JAX pairz kernel's "lane width
@@ -44,27 +51,35 @@
 // cuda_stiffness3d.pair_columns_grid) and load the next component's field
 // during the transposed product.
 //
+// The affine T.  DP's split and the field's and fluxes' operands take 226
+// KB of shared memory at k = 10 (163 KB at k = 9), and T's split would add
+// 104 KB (77 KB): it does not fit beside them.  So the affine kernel reads
+// T's A fragments from device memory in mma.sync fragment order
+// (cuda_split.mma_a_fragments: per 16 x 16 tile and part, 16 contiguous
+// bytes a lane, one 512-byte request a warp), the way the 2D affine split
+// kernel holds its operator (stiffness2d_affine_split.cu).  T is at most
+// 104 KB and every block reads it once per component, so the L1 and the L2
+// serve it; each warp reads only the tiles its products use (the live ones
+// of the I (x) D half), one tile ahead of its products, and the first before
+// the barrier that ends the flux.  At every k the affine kernel has the
+// general kernels' layout and grid.
+//
 // Device memory: the factor fields are read once per component of a tile;
 // the other resident blocks read ~26 MB between a block's reads of them
 // (132 tiles of 16 elements, order 7), so the L1 and the 50 MB L2 serve the
 // re-reads, and the fields and outputs stream past them with evict-first
 // loads and stores (__ldcs, __stcs): the device memory sees (2 C + 6) k^3 E
-// floats, the bound's bytes.  What holds the kernel (H100, order 7, C = 3;
+// floats, the bound's bytes (the affine kernel: 2 C k^3 E + 6 E).  What
+// holds the general kernels (H100, order 7, C = 3;
 // tests/torch_port_pair_columns_variants.py): the loads at each thread's
 // own points, 32 bytes of each of 8 rows a warp request; without the
 // factor-field loads it takes half the time, while the same loads served
 // from a small footprint in cache take as long, and a smaller L1 costs.  A
 // ring of factor-field slabs in shared memory (cp.async, or TMA with
 // mbarriers) was slower: it takes the L1 the re-reads use.  Shared memory
-// (bytes): D (k^2 floats), DP's split 4 (2 Mp)(Mp + 8), B1 4 Mp ldB, B2
-// 8 Mp ldB: 138 KB at k = 8, one block of 8 warps per SM (246 registers);
-// 221 KB at k = 10 (7 warps, TE = 8).
-//
-// The affine operator (stiffness3d_pair_affine.cu, still on
-// stiffness3d_pair_slab.cuh) differs only in its flux, its transposed
-// operator (the weights folded in: a split of its own in place of DP's
-// transpose) and its chain table: `flux_general` and the A fragments of
-// the transposed product are where it joins.
+// (bytes): the table (D; affine: D, Dw, w, w2, float32), DP's split
+// 4 (2 Mp)(Mp + 8), B1 4 Mp ldB, B2 8 Mp ldB: 138 KB at k = 8, one block of
+// 8 warps per SM (246 registers); 221 KB at k = 10 (7 warps, TE = 8).
 
 #ifndef SWIRLFEM_STIFFNESS3D_PAIR_COLUMNS_CUH_
 #define SWIRLFEM_STIFFNESS3D_PAIR_COLUMNS_CUH_
@@ -82,12 +97,18 @@ constexpr int kSmemLimit = 232448;
 
 struct Pointers {
   const float* u[kMaxComponents];
-  const float* g[kFactors];  // g11, g12, g13, g22, g23, g33
+  // General: g11, g12, g13, g22, g23, g33.  Affine: g[0] is the (6, E)
+  // coefficient array, rows c11, c12, c13, c22, c23, c33.
+  const float* g[kFactors];
   float* out[kMaxComponents];
 };
 
+// The three kernels: xi-slabs and zeta-slabs on six factor fields, and
+// xi-slabs on affine elements.
+enum Variant : int { kXi = 0, kZetaSlabs = 1, kAffine = 2 };
+
 // Mirrored by cuda_stiffness3d.pair_columns_layout (tested on the CPU).
-template <int K>
+template <int K, int V>
 struct Layout {
   static constexpr int M = K * K;
   static constexpr int Mp = (M + 15) / 16 * 16;
@@ -99,7 +120,9 @@ struct Layout {
   static constexpr int kCols = K * kTE;  // operand columns: (group, slab, e)
   static constexpr int kLdB = (kCols / 8) % 2 == 1 ? kCols : kCols + 8;
   static constexpr int kLdDP = Mp + 8;
-  static constexpr int kTable = (K * K + 3) / 4 * 4;  // D, float32
+  // General: D; affine: D, Dw, w, w2 (float32).
+  static constexpr int kTableUsed = V == kAffine ? 3 * K * K + K : K * K;
+  static constexpr int kTable = (kTableUsed + 3) / 4 * 4;
   static constexpr int kDPPart = 2 * Mp * kLdDP;      // bf16, hi or lo
   static constexpr int kB1Part = Mp * kLdB;
   static constexpr int kB2Part = 2 * Mp * kLdB;
@@ -202,18 +225,39 @@ __device__ __forceinline__ void flux_general(const float (&gm)[kFactors],
   qc = kZeta ? fc : fa;
 }
 
-template <int K, bool kZeta>
-__global__ void __launch_bounds__(Layout<K>::kThreads, 1)
+// The affine flux at one point (xi-slabs): (Q1, Q2, Qc) = (fb, fc, fa)
+// from (P1, P2, C), the element's six coefficients and the slab's weight.
+__device__ __forceinline__ void flux_affine(const float (&cm)[kFactors],
+                                            float wa, float p1, float p2,
+                                            float chain, float& q1, float& q2,
+                                            float& qc) {
+  const float r = chain, s = p1, t = p2;
+  qc = cm[0] * r + cm[1] * s + cm[2] * t;
+  q1 = wa * (cm[1] * r + cm[3] * s + cm[4] * t);
+  q2 = wa * (cm[2] * r + cm[4] * s + cm[5] * t);
+}
+
+// `atf`: the affine T's A fragments (cuda_split.mma_a_fragments), 16 bytes
+// of lane l at [(row tile Mp / 16 + column tile) 2 + part] 32 + l; null for
+// the general kernels.
+template <int K, int V>
+__global__ void __launch_bounds__(Layout<K, V>::kThreads, 1)
 pair_columns_kernel(const __nv_bfloat16* __restrict__ dp,
-                    const float* __restrict__ dmat, Pointers ptrs, int num_c,
+                    const uint4* __restrict__ atf,
+                    const float* __restrict__ table, Pointers ptrs, int num_c,
                     int num_e, bool vec) {
-  using L = Layout<K>;
+  constexpr bool kZeta = V == kZetaSlabs;
+  using L = Layout<K, V>;
   constexpr int M = L::M;
   constexpr int Mp = L::Mp;
   constexpr int kLdB = L::kLdB;
   constexpr int kLdDP = L::kLdDP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* d_s = reinterpret_cast<float*>(smem_raw);  // D[a][m] at a K + m
+  // The transposed chain's table Ct, and the affine weights w, w2.
+  const float* ct_s = V == kAffine ? d_s + K * K : d_s;
+  const float* w_s = d_s + 2 * K * K;
+  const float* w2_s = w_s + K;
   __nv_bfloat16* dp_hi = reinterpret_cast<__nv_bfloat16*>(d_s + L::kTable);
   __nv_bfloat16* dp_lo = dp_hi + L::kDPPart;
   __nv_bfloat16* b1_hi = dp_lo + L::kDPPart;  // [p][(group K + a) 8 + e]
@@ -222,8 +266,9 @@ pair_columns_kernel(const __nv_bfloat16* __restrict__ dp,
   __nv_bfloat16* b2_lo = b2_hi + L::kB2Part;
 
   const int tid = threadIdx.x;
-  // Stage D and the split DP (16-byte vectors; dp is (2, 2 Mp, Mp)).
-  for (int i = tid; i < K * K; i += L::kThreads) d_s[i] = dmat[i];
+  // Stage the table and the split DP (16-byte vectors; dp is (2, 2 Mp,
+  // Mp)).
+  for (int i = tid; i < L::kTableUsed; i += L::kThreads) d_s[i] = table[i];
   for (int v = tid; v < 2 * 2 * Mp * (Mp / 8); v += L::kThreads) {
     const int row = v / (Mp / 8);  // part 2 Mp + r
     const int c = (v - row * (Mp / 8)) * 8;
@@ -259,6 +304,20 @@ pair_columns_kernel(const __nv_bfloat16* __restrict__ dp,
   const int b_off = (lane & 15) * kLdB + grp * K * 8;
   const __nv_bfloat16* b1 = (lane >> 4) ? b1_lo : b1_hi;
   const __nv_bfloat16* b2 = (lane >> 4) ? b2_lo : b2_hi;
+  // The affine T: this warp's row tile of fragments; the weight w2 at its
+  // points; and its live column tiles, all Mp / 16 of the first half and
+  // the contiguous run [eye0, eye1] of the (I (x) D)^T half that meets
+  // this row tile's diagonal blocks (it holds tile ti).
+  const uint4* at_frag =
+      V == kAffine ? atf + ti * (2 * Mp / 16) * 2 * 32 + lane : nullptr;
+  float w2v[2] = {0.0f, 0.0f};
+  int eye0 = ti, eye1 = ti;
+  if constexpr (V == kAffine) {
+    w2v[0] = plive[0] ? w2_s[prow[0]] : 0.0f;
+    w2v[1] = plive[1] ? w2_s[prow[1]] : 0.0f;
+    while (eye0 > 0 && eye_tile_live<K>(eye0 - 1, ti)) --eye0;
+    while (eye1 + 1 < Mp / 16 && eye_tile_live<K>(eye1 + 1, ti)) ++eye1;
+  }
 
   const int num_tiles = (num_e + L::kTE - 1) / L::kTE;
   float uv[K][2][2];  // the field at this thread's points, every slab
@@ -309,8 +368,10 @@ pair_columns_kernel(const __nv_bfloat16* __restrict__ dp,
     __syncthreads();  // B1 complete
 
     // The factor fields at this thread's points, one slab ahead of the
-    // flux; slab 0's loads are in flight during the first product.
+    // flux; slab 0's loads are in flight during the first product.  The
+    // affine kernel reads its elements' six coefficients once.
     float gv[2][kFactors][2][2];
+    float cv[kFactors][2];
     auto load_metric = [&](int a, float (&gm)[kFactors][2][2]) {
 #pragma unroll
       for (int f = 0; f < kFactors; ++f) {
@@ -321,7 +382,15 @@ pair_columns_kernel(const __nv_bfloat16* __restrict__ dp,
         }
       }
     };
-    load_metric(0, gv[0]);
+    if constexpr (V == kAffine) {
+#pragma unroll
+      for (int f = 0; f < kFactors; ++f) {
+        load2<false>(ptrs.g[0] + static_cast<long long>(f) * num_e + e, true,
+                     e, num_e, vec, cv[f]);
+      }
+    } else {
+      load_metric(0, gv[0]);
+    }
 
     // [P1; P2] = mm3(DP, U) over every slab's columns: the A tiles of this
     // warp's rows once per 16-deep chunk, each feeding the k slabs.
@@ -364,7 +433,8 @@ pair_columns_kernel(const __nv_bfloat16* __restrict__ dp,
     // chain.  Fragment entry q = 2 r + j is the point (row r, element j).
 #pragma unroll
     for (int a = 0; a < K; ++a) {
-      if (a + 1 < K) load_metric(a + 1, gv[(a + 1) & 1]);
+      if (V != kAffine && a + 1 < K) load_metric(a + 1, gv[(a + 1) & 1]);
+      const float wa = V == kAffine ? w_s[a] : 0.0f;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float q1[2], q2[2];
@@ -372,16 +442,24 @@ pair_columns_kernel(const __nv_bfloat16* __restrict__ dp,
         for (int j = 0; j < 2; ++j) {
           float gm[kFactors];
 #pragma unroll
-          for (int f = 0; f < kFactors; ++f) gm[f] = gv[a & 1][f][r][j];
-          flux_general<kZeta>(gm, acc[0][a][2 * r + j], acc[1][a][2 * r + j],
-                              ch[a][r][j], q1[j], q2[j], ch[a][r][j]);
+          for (int f = 0; f < kFactors; ++f) {
+            gm[f] = V == kAffine ? cv[f][j] : gv[a & 1][f][r][j];
+          }
+          if constexpr (V == kAffine) {
+            flux_affine(gm, wa, acc[0][a][2 * r + j], acc[1][a][2 * r + j],
+                        ch[a][r][j], q1[j], q2[j], ch[a][r][j]);
+          } else {
+            flux_general<kZeta>(gm, acc[0][a][2 * r + j],
+                                acc[1][a][2 * r + j], ch[a][r][j], q1[j],
+                                q2[j], ch[a][r][j]);
+          }
         }
         const int i = prow[r] * kLdB + col0 + a * 8;
         store_split2(q1[0], q1[1], b2_hi, b2_lo, i);
         store_split2(q2[0], q2[1], b2_hi, b2_lo, i + Mp * kLdB);
       }
     }
-    // The transposed chain R[m] = sum_a D[a, m] Qc[a].
+    // The transposed chain R[m] = sum_a Ct[a, m] Qc[a].
     float rr[K][2][2];
 #pragma unroll
     for (int m = 0; m < K; ++m) {
@@ -391,10 +469,19 @@ pair_columns_kernel(const __nv_bfloat16* __restrict__ dp,
         for (int j = 0; j < 2; ++j) {
           float s = 0.0f;
 #pragma unroll
-          for (int a = 0; a < K; ++a) s = fmaf(d_s[a * K + m], ch[a][r][j], s);
+          for (int a = 0; a < K; ++a) {
+            s = fmaf(ct_s[a * K + m], ch[a][r][j], s);
+          }
           rr[m][r][j] = s;
         }
       }
+    }
+    // The affine T's first fragments (column tile 0), in flight across the
+    // barrier.
+    uint4 at_hi = make_uint4(0, 0, 0, 0), at_lo = at_hi;
+    if constexpr (V == kAffine) {
+      at_hi = __ldg(at_frag);
+      at_lo = __ldg(at_frag + 32);
     }
     __syncthreads();  // B2 complete; every warp is done with B1
 
@@ -407,40 +494,73 @@ pair_columns_kernel(const __nv_bfloat16* __restrict__ dp,
     }
     if (next_tile < num_tiles) load_field(next_tile, next_comp);
 
-    // pair = mm3(DP^T, [Q1; Q2]): DP's stored tiles read transposed; the
-    // tiles of (I (x) D)^T that hold only zeros are skipped.
+    // pair = mm3(T, [Q1; Q2]).  General: DP's stored tiles read transposed;
+    // the tiles of (I (x) D)^T that hold only zeros are skipped.  Affine:
+    // T's fragments from device memory, over this warp's live column tiles,
+    // the next tile's loads in flight during a tile's products.
     float y[K][4];
 #pragma unroll
     for (int a = 0; a < K; ++a) {
 #pragma unroll
       for (int q = 0; q < 4; ++q) y[a][q] = 0.0f;
     }
+    if constexpr (V == kAffine) {
+      const int num_live = Mp / 16 + eye1 - eye0 + 1;
+      for (int i = 0; i < num_live; ++i) {
+        // Column tile i, or tile eye0 + (i - Mp / 16) of the second half.
+        const int kc = i < Mp / 16 ? i : eye0 + i;
+        const uint32_t ah[4] = {at_hi.x, at_hi.y, at_hi.z, at_hi.w};
+        const uint32_t al[4] = {at_lo.x, at_lo.y, at_lo.z, at_lo.w};
+        if (i + 1 < num_live) {
+          const int next = i + 1 < Mp / 16 ? i + 1 : eye0 + i + 1;
+          at_hi = __ldg(at_frag + next * 64);
+          at_lo = __ldg(at_frag + next * 64 + 32);
+        }
 #pragma unroll
-    for (int kc = 0; kc < 2 * Mp / 16; ++kc) {
-      if (kc >= Mp / 16 && !eye_tile_live<K>(kc - Mp / 16, ti)) continue;
-      uint32_t ah[4], al[4];
-      const int off = (16 * kc + at_row) * kLdDP + 16 * ti + at_col;
-      split_bf16::ldmatrix_x4_trans(ah, dp_hi + off);
-      split_bf16::ldmatrix_x4_trans(al, dp_lo + off);
+        for (int a = 0; a < K; ++a) {
+          uint32_t b[4];
+          split_bf16::ldmatrix_x4_trans(b,
+                                        b2 + 16 * kc * kLdB + b_off + a * 8);
+          mma(y[a], ah, b[0], b[1]);
+          mma(y[a], ah, b[2], b[3]);
+          mma(y[a], al, b[0], b[1]);
+        }
+      }
+    } else {
 #pragma unroll
-      for (int a = 0; a < K; ++a) {
-        uint32_t b[4];
-        split_bf16::ldmatrix_x4_trans(b, b2 + 16 * kc * kLdB + b_off + a * 8);
-        mma(y[a], ah, b[0], b[1]);
-        mma(y[a], ah, b[2], b[3]);
-        mma(y[a], al, b[0], b[1]);
+      for (int kc = 0; kc < 2 * Mp / 16; ++kc) {
+        if (kc >= Mp / 16 && !eye_tile_live<K>(kc - Mp / 16, ti)) continue;
+        uint32_t ah[4], al[4];
+        const int off = (16 * kc + at_row) * kLdDP + 16 * ti + at_col;
+        split_bf16::ldmatrix_x4_trans(ah, dp_hi + off);
+        split_bf16::ldmatrix_x4_trans(al, dp_lo + off);
+#pragma unroll
+        for (int a = 0; a < K; ++a) {
+          uint32_t b[4];
+          split_bf16::ldmatrix_x4_trans(b,
+                                        b2 + 16 * kc * kLdB + b_off + a * 8);
+          mma(y[a], ah, b[0], b[1]);
+          mma(y[a], ah, b[2], b[3]);
+          mma(y[a], al, b[0], b[1]);
+        }
       }
     }
 
-    // out[m] = pair[m] + R[m] at this thread's points.
+    // out[m] = pair[m] + (w2[p] *) R[m] at this thread's points.
     float* __restrict__ out = ptrs.out[comp];
 #pragma unroll
     for (int m = 0; m < K; ++m) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         if (!plive[r]) continue;
-        store2(out + roff[r] + m * slab_step + e, e, num_e, vec,
-               y[m][2 * r] + rr[m][r][0], y[m][2 * r + 1] + rr[m][r][1]);
+        if constexpr (V == kAffine) {
+          store2(out + roff[r] + m * slab_step + e, e, num_e, vec,
+                 fmaf(w2v[r], rr[m][r][0], y[m][2 * r]),
+                 fmaf(w2v[r], rr[m][r][1], y[m][2 * r + 1]));
+        } else {
+          store2(out + roff[r] + m * slab_step + e, e, num_e, vec,
+                 y[m][2 * r] + rr[m][r][0], y[m][2 * r + 1] + rr[m][r][1]);
+        }
       }
     }
     tile = next_tile;
@@ -448,57 +568,67 @@ pair_columns_kernel(const __nv_bfloat16* __restrict__ dp,
   }
 }
 
-template <int K, bool kZeta>
-int launch_k(const __nv_bfloat16* dp, const float* dmat, const Pointers& ptrs,
-             int num_c, int num_e, bool vec, int grid, cudaStream_t stream) {
-  using L = Layout<K>;
+template <int K, int V>
+int launch_k(const __nv_bfloat16* dp, const uint4* atf, const float* table,
+             const Pointers& ptrs, int num_c, int num_e, bool vec, int grid,
+             cudaStream_t stream) {
+  using L = Layout<K, V>;
   static const int attr =
-      split_bf16::allow_smem(pair_columns_kernel<K, kZeta>, L::kSmem);
+      split_bf16::allow_smem(pair_columns_kernel<K, V>, L::kSmem);
   if (attr != 0) return attr;
-  pair_columns_kernel<K, kZeta><<<grid, L::kThreads, L::kSmem, stream>>>(
-      dp, dmat, ptrs, num_c, num_e, vec);
+  pair_columns_kernel<K, V><<<grid, L::kThreads, L::kSmem, stream>>>(
+      dp, atf, table, ptrs, num_c, num_e, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 // out = [tile_e, threads, shared bytes, resident blocks per SM].
-template <int K, bool kZeta>
+template <int K, int V>
 int layout_k(int* out) {
-  using L = Layout<K>;
-  const int attr =
-      split_bf16::allow_smem(pair_columns_kernel<K, kZeta>, L::kSmem);
+  using L = Layout<K, V>;
+  const int attr = split_bf16::allow_smem(pair_columns_kernel<K, V>, L::kSmem);
   if (attr != 0) return attr;
   out[0] = L::kTE;
   out[1] = L::kThreads;
   out[2] = L::kSmem;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[3], pair_columns_kernel<K, kZeta>, L::kThreads, L::kSmem));
+      &out[3], pair_columns_kernel<K, V>, L::kThreads, L::kSmem));
 }
 
-template <bool kZeta, int K = kMinK>
-int dispatch(int k, const __nv_bfloat16* dp, const float* dmat,
-             const Pointers* ptrs, int num_c, int num_e, bool vec, int grid,
-             cudaStream_t stream, int* layout_out) {
+template <int V, int K = kMinK>
+int dispatch(int k, const __nv_bfloat16* dp, const uint4* atf,
+             const float* table, const Pointers* ptrs, int num_c, int num_e,
+             bool vec, int grid, cudaStream_t stream, int* layout_out) {
   if constexpr (K > kMaxK) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (k == K) {
-      if (layout_out != nullptr) return layout_k<K, kZeta>(layout_out);
-      return launch_k<K, kZeta>(dp, dmat, *ptrs, num_c, num_e, vec, grid,
-                                stream);
+      if (layout_out != nullptr) return layout_k<K, V>(layout_out);
+      return launch_k<K, V>(dp, atf, table, *ptrs, num_c, num_e, vec, grid,
+                            stream);
     }
-    return dispatch<kZeta, K + 1>(k, dp, dmat, ptrs, num_c, num_e, vec, grid,
-                                  stream, layout_out);
+    return dispatch<V, K + 1>(k, dp, atf, table, ptrs, num_c, num_e, vec,
+                              grid, stream, layout_out);
   }
 }
 
-// `gs` holds the kFactors field pointers; `grid` persistent blocks walk the
-// tiles of kTE elements (cuda_stiffness3d.pair_columns_grid).
-template <bool kZeta>
-int launch(const void* dp, const void* dmat, const void* const* us,
-           const void* const* gs, void* const* outs, int num_c, int k,
-           int num_e, int grid, void* stream) {
+// Variant V's geometry at k: out = [tile_e, threads, shared bytes, resident
+// blocks per SM on the current device].
+template <int V>
+int layout(int k, int* out) {
+  return dispatch<V>(k, nullptr, nullptr, nullptr, nullptr, 0, 0, false, 0,
+                     nullptr, out);
+}
+
+// `gs` holds the kFactors field pointers (affine: one, the (6, E)
+// coefficients); `table` is D (affine: D, Dw, w, w2); `atf` the affine T's
+// fragments (else null); `grid` persistent blocks walk the tiles of kTE
+// elements (cuda_stiffness3d.pair_columns_grid).
+template <int V>
+int launch(const void* dp, const void* atf, const void* table,
+           const void* const* us, const void* const* gs, void* const* outs,
+           int num_c, int k, int num_e, int grid, void* stream) {
   if (num_c < 1 || num_c > kMaxComponents || k < kMinK || k > kMaxK ||
-      num_e < 0 || grid < 1) {
+      num_e < 0 || grid < 1 || (V == kAffine && atf == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_e == 0) return static_cast<int>(cudaGetLastError());
@@ -511,14 +641,14 @@ int launch(const void* dp, const void* dmat, const void* const* us,
     vec = vec && reinterpret_cast<uintptr_t>(us[c]) % 8 == 0 &&
           reinterpret_cast<uintptr_t>(outs[c]) % 8 == 0;
   }
-  for (int f = 0; f < kFactors; ++f) {
+  for (int f = 0; f < (V == kAffine ? 1 : kFactors); ++f) {
     ptrs.g[f] = static_cast<const float*>(gs[f]);
     vec = vec && reinterpret_cast<uintptr_t>(gs[f]) % 8 == 0;
   }
-  return dispatch<kZeta>(k, static_cast<const __nv_bfloat16*>(dp),
-                         static_cast<const float*>(dmat), &ptrs, num_c, num_e,
-                         vec, grid, static_cast<cudaStream_t>(stream),
-                         nullptr);
+  return dispatch<V>(k, static_cast<const __nv_bfloat16*>(dp),
+                     static_cast<const uint4*>(atf),
+                     static_cast<const float*>(table), &ptrs, num_c, num_e,
+                     vec, grid, static_cast<cudaStream_t>(stream), nullptr);
 }
 
 }  // namespace pair_columns

@@ -39,8 +39,8 @@ extern "C" int stiffness3d_pair_general_f32(const void* dp, const void* dmat,
                                             void* const* outs, int num_c,
                                             int k, int num_e, int grid,
                                             void* stream) {
-  return pair_columns::launch<false>(dp, dmat, us, gs, outs, num_c, k, num_e,
-                                     grid, stream);
+  return pair_columns::launch<pair_columns::kXi>(
+      dp, nullptr, dmat, us, gs, outs, num_c, k, num_e, grid, stream);
 }
 
 extern "C" int stiffness3d_pairz_general_f32(const void* dp,
@@ -50,15 +50,13 @@ extern "C" int stiffness3d_pairz_general_f32(const void* dp,
                                              void* const* outs, int num_c,
                                              int k, int num_e, int grid,
                                              void* stream) {
-  return pair_columns::launch<true>(dp, dmat, us, gs, outs, num_c, k, num_e,
-                                    grid, stream);
+  return pair_columns::launch<pair_columns::kZetaSlabs>(
+      dp, nullptr, dmat, us, gs, outs, num_c, k, num_e, grid, stream);
 }
 
 // The kernels' geometry at k (zeta: the pairz kernel): out = [tile_e,
 // threads, shared bytes, resident blocks per SM on the current device].
 extern "C" int stiffness3d_pair_columns_layout(int k, int zeta, int* out) {
-  return zeta ? pair_columns::dispatch<true>(k, nullptr, nullptr, nullptr, 0,
-                                             0, false, 0, nullptr, out)
-              : pair_columns::dispatch<false>(k, nullptr, nullptr, nullptr,
-                                              0, 0, false, 0, nullptr, out);
+  return zeta ? pair_columns::layout<pair_columns::kZetaSlabs>(k, out)
+              : pair_columns::layout<pair_columns::kXi>(k, out);
 }

@@ -30,8 +30,8 @@ _SOURCES = ('exchange2d.cu', 'stiffness_uniform.cu', 'stiffness2d_general.cu',
             'stiffness3d_pair_affine.cu', 'stiffness_split.cu',
             'stiffness2d_affine_split.cu')
 # Headers the sources include; part of the build's hash.
-_HEADERS = ('stiffness3d_pair_columns.cuh', 'stiffness3d_pair_slab.cuh',
-            'split_bf16_mma.cuh', 'stiffness2d_fp32.cuh')
+_HEADERS = ('stiffness3d_pair_columns.cuh', 'split_bf16_mma.cuh',
+            'stiffness2d_fp32.cuh')
 _FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
           '-Xcompiler', '-fPIC')
 
@@ -58,9 +58,11 @@ _SIGNATURES = {
     # (table, us[], outs[], num_c, k, num_e, stream)
     'stiffness3d_uniform_f32': (_P, _PP, _PP, _I, _I, _I, _P),
     'stiffness3d_uniform_f64': (_P, _PP, _PP, _I, _I, _I, _P),
-    # (dmat, us[], gs[6], outs[], num_c, k, num_e, stream)
-    'stiffness3d_general_f32': (_P, _PP, _PP, _PP, _I, _I, _I, _P),
-    'stiffness3d_general_f64': (_P, _PP, _PP, _PP, _I, _I, _I, _P),
+    # (dmat, us[], gs[6], outs[], num_c, k, num_e, grid, stream)
+    'stiffness3d_general_f32': (_P, _PP, _PP, _PP, _I, _I, _I, _I, _P),
+    'stiffness3d_general_f64': (_P, _PP, _PP, _PP, _I, _I, _I, _I, _P),
+    # (k, f64, out[4]: tile_e, threads, shared bytes, blocks per SM)
+    'stiffness3d_general_layout': (_I, _I, ctypes.POINTER(_I)),
     # (amat_t, us[], outs[], num_c, k3, num_e, stream)
     'stiffness3d_dense_f32': (_P, _PP, _PP, _I, _I, _I, _P),
     'stiffness3d_dense_f64': (_P, _PP, _PP, _I, _I, _I, _P),
@@ -73,9 +75,12 @@ _SIGNATURES = {
                                       _P),
     # (k, zeta, out[4]: tile_e, threads, shared bytes, blocks per SM)
     'stiffness3d_pair_columns_layout': (_I, _I, ctypes.POINTER(_I)),
-    # (dp split, t split, table, c_affine, us[], outs[], num_c, k, num_e,
-    #  stream)
-    'stiffness3d_pair_affine_f32': (_P, _P, _P, _P, _PP, _PP, _I, _I, _I, _P),
+    # (k, out[4])
+    'stiffness3d_pair_affine_layout': (_I, ctypes.POINTER(_I)),
+    # (dp split, T fragments, table, c_affine, us[], outs[], num_c, k, num_e,
+    #  grid, stream)
+    'stiffness3d_pair_affine_f32': (_P, _P, _P, _P, _PP, _PP, _I, _I, _I, _I,
+                                    _P),
     # (hi, lo, us[], outs[], num_c, rows, rows_pad, depth_pad, num_e,
     #  passes, stream)
     'stiffness_uniform_split_f32': (_P, _P, _PP, _PP, _I, _I, _I, _I, _I, _I,

@@ -334,22 +334,30 @@ def affine_work_plan(num_e: int, k2: int, num_c: int, num_sms: int
   return plan
 
 
-def affine_fragments(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
-  """The split stack as the affine kernel holds it: the mma.m16n8k16 A
-  fragments, ``(M_pad / 16, K_pad / 16, 3, 2, 32, 4)`` int32 (two bf16
-  each, the lower column in the low half).  Entry ``[mt, ks, o, part,
-  4 g + t, q]`` is register q of lane (g, t) for rows ``16 mt + g (+8)``,
-  columns ``16 ks + 2t, 2t + 1 (+8)`` of operator block o, hi (part 0) or
-  lo (part 1): q = 0 (row g), 1 (g + 8), 2 (g, columns + 8), 3 (g + 8,
-  columns + 8).
+def mma_a_fragments(hi: torch.Tensor, lo: torch.Tensor,
+                    num_blocks: int = 1) -> torch.Tensor:
+  """A split operator as mma.m16n8k16 A fragments, ``(M_pad / 16, K_pad /
+  16, num_blocks, 2, 32, 4)`` int32 (two bf16 each, the lower column in the
+  low half), for `num_blocks` blocks of ``M_pad`` rows stacked in `hi` and
+  `lo`.  Entry ``[mt, ks, o, part, 4 g + t, q]`` is register q of lane (g,
+  t) for rows ``16 mt + g (+8)``, columns ``16 ks + 2t, 2t + 1 (+8)`` of
+  operator block o, hi (part 0) or lo (part 1): q = 0 (row g), 1 (g + 8),
+  2 (g, columns + 8), 3 (g + 8, columns + 8).
   """
-  rows_pad, depth_pad = hi.shape[0] // 3, hi.shape[1]
-  x = torch.stack([hi, lo]).reshape(2, 3, rows_pad // 16, 2, 8,
+  rows_pad, depth_pad = hi.shape[0] // num_blocks, hi.shape[1]
+  x = torch.stack([hi, lo]).reshape(2, num_blocks, rows_pad // 16, 2, 8,
                                     depth_pad // 16, 2, 4, 2)
   # [part, o, mt, h, g, ks, c, t, pair] -> [mt, ks, o, part, g, t, c, h, pair]
   x = x.permute(2, 5, 1, 0, 4, 7, 6, 3, 8).contiguous()
-  return x.view(torch.int32).reshape(rows_pad // 16, depth_pad // 16, 3, 2,
-                                     32, 4)
+  return x.view(torch.int32).reshape(rows_pad // 16, depth_pad // 16,
+                                     num_blocks, 2, 32, 4)
+
+
+def affine_fragments(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+  """The split stack ``[M11; M12; M22]`` as the affine kernel holds it:
+  `mma_a_fragments` of its three blocks, ``(M_pad / 16, K_pad / 16, 3, 2,
+  32, 4)``."""
+  return mma_a_fragments(hi, lo, 3)
 
 
 @functools.lru_cache(maxsize=256)

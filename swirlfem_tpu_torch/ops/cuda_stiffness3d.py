@@ -58,13 +58,11 @@ from swirlfem_tpu_torch.ops import cuda_build
 from swirlfem_tpu_torch.ops import cuda_split
 
 MAX_COMPONENTS = 4
-# The kernels are instantiated for k = order + 1 in [2, MAX_K].
+# Every kernel is instantiated for k = order + 1 in [2, MAX_K].
 MAX_K = 10
-# The congruent and affine bf16x3 pair kernels hold their split operators
-# and a float32 tile in shared memory: k = order + 1 in [2, MAX_K_SPLIT].
-# The general pair kernels take k in [2, MAX_K] (`pair_columns_layout`).
-MAX_K_SPLIT = 8
 NUM_FACTORS = 6
+# The shared memory one block may use (H100).
+SMEM_LIMIT = 232448
 
 
 def uniform_amat3d_np(c_uniform, w1, dmat) -> np.ndarray:
@@ -188,7 +186,8 @@ def stiffness3d_uniform_plain(us, table: torch.Tensor):
 
 def stiffness3d_general_plain(us, gs, dmat: torch.Tensor):
   """``sum_ab D_a^T (G_ab D_b u)`` by einsums, components stacked
-  (``swirlfem_tpu/ops/sem3d.py:296-311``)."""
+  (``swirlfem_tpu/ops/sem3d.py:296-311``): the three transposed terms
+  added as ``(xi + eta) + zeta``, as the kernel adds them."""
   g11, g12, g13, g22, g23, g33 = gs
   u = torch.stack(tuple(us))  # (C, k, k, k, E)
   d = dmat
@@ -281,10 +280,10 @@ def stiffness3d_pair_plain(us, a2: torch.Tensor, table: torch.Tensor):
   return tuple(outs)
 
 
-def _pair_slab_plain(us, dp: torch.Tensor, at: torch.Tensor,
-                     chain_t: torch.Tensor, dmat: torch.Tensor, flux,
-                     zeta: bool, w2=None):
-  """The bf16x3 slab pipeline of the general and affine pair kernels.
+def _pair_pipeline_plain(us, dp: torch.Tensor, at: torch.Tensor,
+                         chain_t: torch.Tensor, dmat: torch.Tensor, flux,
+                         zeta: bool, w2=None):
+  """The bf16x3 pipeline of the general and affine pair kernels.
 
   Per slab along the chain axis: ``[P1; P2] = mm3(DP, u[a])``, the FP32
   chain ``C = sum_m D[a, m] u[m]``, the flux ``(Q1, Q2, Qc) = flux(P1, P2,
@@ -335,8 +334,8 @@ def stiffness3d_pair_general_plain(us, gs, dp: torch.Tensor,
   FP32 xi chains.  `dp`: `cuda_split.pair_derivative_split_np` as
   bfloat16; the transposed stage's split is its transpose (the split is
   elementwise)."""
-  return _pair_slab_plain(us, dp, dp.transpose(1, 2), dmat, dmat,
-                          _general_flux(gs, False), False)
+  return _pair_pipeline_plain(us, dp, dp.transpose(1, 2), dmat, dmat,
+                              _general_flux(gs, False), False)
 
 
 def stiffness3d_pairz_general_plain(us, gs, dp: torch.Tensor,
@@ -344,8 +343,8 @@ def stiffness3d_pairz_general_plain(us, gs, dp: torch.Tensor,
   """The pairz kernel body (``_kernel_3d_pairz_general``) step by step:
   zeta-slabs of the (xi, eta) pair, bf16x3 pair products, FP32 zeta
   chains.  Same operands as `stiffness3d_pair_general_plain`."""
-  return _pair_slab_plain(us, dp, dp.transpose(1, 2), dmat, dmat,
-                          _general_flux(gs, True), True)
+  return _pair_pipeline_plain(us, dp, dp.transpose(1, 2), dmat, dmat,
+                              _general_flux(gs, True), True)
 
 
 def stiffness3d_pair_affine_plain(us, c_affine: torch.Tensor,
@@ -370,7 +369,7 @@ def stiffness3d_pair_affine_plain(us, c_affine: torch.Tensor,
     fb = wa * (c12 * r + c22 * s + c23 * t)
     fc = wa * (c13 * r + c23 * s + c33 * t)
     return fb, fc, fa
-  return _pair_slab_plain(us, dp, at, dw, dmat, flux, False, w2)
+  return _pair_pipeline_plain(us, dp, at, dw, dmat, flux, False, w2)
 
 
 def _check_fields(what, us, like: torch.Tensor, k: int):
@@ -403,6 +402,8 @@ def _check_factors(gs, u: torch.Tensor, dmat: torch.Tensor):
 
 
 def _check_launchable(what, tensors, num_c, k, dtype):
+  """The FP32/FP64 kernels: 1..MAX_COMPONENTS components, 2 <= k <=
+  MAX_K."""
   if dtype not in (torch.float32, torch.float64):
     raise TypeError(f'{what} kernel takes float32/float64, got {dtype}')
   if not 1 <= num_c <= MAX_COMPONENTS or not 2 <= k <= MAX_K:
@@ -466,6 +467,70 @@ def stiffness3d_uniform(us, table: torch.Tensor):
 stiffness3d_uniform.launches = 0
 
 
+def general3d_layout(k: int, itemsize: int = 4) -> dict:
+  """The general 3D kernel's block at ``k = order + 1`` for elements of
+  `itemsize` bytes, as ``csrc/stiffness3d_general.cu:Layout`` computes it.
+
+  A block owns ``tile_e`` = 8 elements (a row per point); a warp's lanes
+  are 8 elements by ``slots`` = 4 lines; each thread holds ``rounds`` of the
+  ``k^2`` lines along each axis (``warps`` so that a block has at most 8).
+  Shared memory (`smem_bytes`): the tables D and D^T (rows padded to 16
+  bytes) and tiles of ``rows`` rows (``k^3``, and one spare row after every
+  k where k is even): U, R, S and, where they fit (`factor_tiles`), the six
+  factor fields, kept for all components of a tile.
+  """
+  tile_e = 8
+  slots = 32 // tile_e
+  lines = k * k
+  rounds = -(-lines // (8 * slots))
+  warps = -(-lines // (slots * rounds))
+  rows = k ** 3 + (k * k if k % 2 == 0 else 0)
+  vec = 16 // itemsize
+  table = 2 * k * (-(-k // vec) * vec)
+  factor_tiles = (table + 9 * rows * tile_e) * itemsize <= SMEM_LIMIT
+  smem = (table + (9 if factor_tiles else 3) * rows * tile_e) * itemsize
+  return dict(tile_e=tile_e, slots=slots, rounds=rounds, warps=warps,
+              threads=32 * warps, rows=rows, factor_tiles=factor_tiles,
+              smem_bytes=smem)
+
+
+def general3d_grid(num_e: int, k: int, num_sms: int, blocks_per_sm: int,
+                   itemsize: int = 4) -> int:
+  """Persistent blocks of the general 3D kernel: one per tile, at most as
+  many as the card holds at once."""
+  tiles = -(-num_e // general3d_layout(k, itemsize)['tile_e'])
+  return max(1, min(tiles, num_sms * blocks_per_sm))
+
+
+# Resident blocks per SM of each persistent kernel instance on each device.
+_OCCUPANCY = {}
+
+
+def _blocks_per_sm(fn, args, want, what, device) -> int:
+  """Resident blocks per SM of one kernel instance (the C side's occupancy
+  query, which also returns its tile, threads and shared memory, held
+  against the host's mirror `want`); cached per kernel and device."""
+  key = (what,) + tuple(args) + (device.index,)
+  if key not in _OCCUPANCY:
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+      cuda_build.check(fn(*args, out), what)
+    got = dict(tile_e=out[0], threads=out[1], smem_bytes=out[2])
+    if any(want[name] != got[name] for name in got) or out[3] < 1:
+      raise RuntimeError(f'{what} {tuple(args)}: the kernel has {got} and '
+                         f'{out[3]} blocks per SM, the host expects {want}')
+    _OCCUPANCY[key] = out[3]
+  return _OCCUPANCY[key]
+
+
+def _general3d_blocks_per_sm(k: int, dtype, device) -> int:
+  itemsize = torch.empty((), dtype=dtype).element_size()
+  return _blocks_per_sm(
+      cuda_build.library().stiffness3d_general_layout,
+      (k, int(dtype == torch.float64)), general3d_layout(k, itemsize),
+      'stiffness3d_general_layout', device)
+
+
 def stiffness3d_general(us, gs, dmat: torch.Tensor):
   """General 3D stiffness of C components on six factor fields.
 
@@ -475,8 +540,8 @@ def stiffness3d_general(us, gs, dmat: torch.Tensor):
     dmat: the ``(k, k)`` 1D differentiation matrix in the working dtype.
 
   CPU tensors: `stiffness3d_general_plain`.  CUDA tensors: one launch of the
-  hand-written kernel for all components (the factor fields are read once),
-  counted in ``stiffness3d_general.launches``.
+  hand-written kernel for all components (persistent blocks,
+  `general3d_grid`), counted in ``stiffness3d_general.launches``.
   """
   k = dmat.shape[0]
   if dmat.ndim != 2 or dmat.shape[1] != k:
@@ -487,9 +552,14 @@ def stiffness3d_general(us, gs, dmat: torch.Tensor):
     return stiffness3d_general_plain(us, gs, dmat)
   _check_launchable('stiffness3d_general', us + gs + (dmat,), len(us), k,
                     dmat.dtype)
+  device = dmat.device
+  grid = general3d_grid(
+      us[0].shape[-1], k,
+      torch.cuda.get_device_properties(device).multi_processor_count,
+      _general3d_blocks_per_sm(k, dmat.dtype, device), dmat.element_size())
   outs = _launch('stiffness3d_general',
                  lambda pu, po: (dmat.data_ptr(), pu, _ptrs(gs), po), us,
-                 dmat, k)
+                 dmat, k, extra=(grid,))
   stiffness3d_general.launches += 1
   return outs
 
@@ -549,16 +619,15 @@ def _check_split(what, split: torch.Tensor, shape, device):
                      f'{tuple(split.shape)} on {split.device}')
 
 
-def _check_split_launchable(what, tensors, num_c, k, dtype, max_k):
+def _check_split_launchable(what, tensors, num_c, k, dtype):
   """The bf16x3 pair kernels: float32 only (the class is defined on
-  float32), 2 <= k <= `max_k` (MAX_K_SPLIT for the congruent and affine
-  kernels, MAX_K for the general ones)."""
+  float32), 1..MAX_COMPONENTS components, 2 <= k <= MAX_K."""
   if dtype != torch.float32:
     raise TypeError(f'{what} kernel takes float32 (the bf16x3 class is '
                     f'defined on float32), got {dtype}')
-  if not 1 <= num_c <= MAX_COMPONENTS or not 2 <= k <= max_k:
+  if not 1 <= num_c <= MAX_COMPONENTS or not 2 <= k <= MAX_K:
     raise ValueError(f'{what} kernel takes 1..{MAX_COMPONENTS} components and '
-                     f'2 <= k <= {max_k}; got {num_c}, {k}')
+                     f'2 <= k <= {MAX_K}; got {num_c}, {k}')
   if not all(t.is_contiguous() for t in tensors):
     raise ValueError(f'{what} kernel needs contiguous tensors')
 
@@ -590,7 +659,7 @@ def stiffness3d_pair(us, a2: torch.Tensor, table: torch.Tensor):
   if table.device.type == 'cpu':
     return stiffness3d_pair_plain(us, a2, table)
   _check_split_launchable('stiffness3d_pair', us + (a2, table), len(us), k,
-                          table.dtype, MAX_K_SPLIT)
+                          table.dtype)
   outs = _launch('stiffness3d_pair',
                  lambda pu, po: (a2.data_ptr(), table.data_ptr(), pu, po), us,
                  table, k)
@@ -601,14 +670,14 @@ def stiffness3d_pair(us, a2: torch.Tensor, table: torch.Tensor):
 stiffness3d_pair.launches = 0
 
 
-# The general pair kernels' column groups: n8 fragments of 8 elements
-# (csrc/stiffness3d_pair_columns.cuh), and the shared memory of one block.
+# The pair-columns kernels' column groups: n8 fragments of 8 elements
+# (csrc/stiffness3d_pair_columns.cuh).
 PAIR_COLUMN_GROUP = 8
-SMEM_LIMIT = 232448
 
 
-def pair_columns_layout(k: int) -> dict:
-  """The general pair kernels' block at ``k = order + 1``, as
+def pair_columns_layout(k: int, affine: bool = False) -> dict:
+  """The pair-columns kernels' block at ``k = order + 1`` (the general
+  ones, or the `affine` one, whose table is larger), as
   ``csrc/stiffness3d_pair_columns.cuh:Layout`` computes it.
 
   The pair axis, ``k^2`` padded to ``m_pad`` (a multiple of 16), is cut
@@ -616,9 +685,10 @@ def pair_columns_layout(k: int) -> dict:
   8 elements (``tile_e`` in all) and one warp per (row tile, group), so
   that a block has 6 to 8 warps.  Its operands' rows are `ld_b` bf16 wide
   (every slab of every group, padded to an odd number of 16-byte units),
-  DP's ``m_pad + 8``.  `smem_bytes`: D in float32, the (hi, lo) split of
-  DP ``(2 m_pad, m_pad)``, and of the field ``(m_pad, k tile_e)`` and the
-  fluxes ``(2 m_pad, k tile_e)``.
+  DP's ``m_pad + 8``.  `smem_bytes`: the table in float32 (D; affine: D,
+  Dw, w and w2, ``3 k^2 + k``), the (hi, lo) split of DP ``(2 m_pad,
+  m_pad)``, and of the field ``(m_pad, k tile_e)`` and the fluxes ``(2
+  m_pad, k tile_e)``.
   """
   m_pad = _pad(k)
   tiles = m_pad // 16
@@ -627,7 +697,7 @@ def pair_columns_layout(k: int) -> dict:
   cols = k * tile_e
   ld_b = cols if (cols // 8) % 2 == 1 else cols + 8
   ld_dp = m_pad + 8
-  table = -(-k * k // 4) * 4
+  table = -(-(3 * k * k + k if affine else k * k) // 4) * 4
   smem = 4 * table + 4 * (2 * m_pad * ld_dp + 3 * m_pad * ld_b)
   return dict(m_pad=m_pad, tile_e=tile_e, groups=groups,
               threads=32 * tiles * groups, ld_b=ld_b, smem_bytes=smem)
@@ -635,33 +705,33 @@ def pair_columns_layout(k: int) -> dict:
 
 def pair_columns_grid(num_e: int, k: int, num_sms: int,
                       blocks_per_sm: int) -> int:
-  """Persistent blocks of the general pair kernels: one per tile of
+  """Persistent blocks of the pair-columns kernels: one per tile of
   ``tile_e`` elements, at most as many as the card holds at once."""
   tiles = -(-num_e // pair_columns_layout(k)['tile_e'])
   return max(1, min(tiles, num_sms * blocks_per_sm))
 
 
-_PAIR_COLUMNS_OCCUPANCY = {}
+def _pair_columns_blocks_per_sm(k: int, variant: str, device) -> int:
+  """Resident blocks per SM of the pair-columns kernel `variant` ('xi',
+  'zeta', 'affine') at `k`, its layout checked against
+  `pair_columns_layout`."""
+  lib = cuda_build.library()
+  if variant == 'affine':
+    fn, args, what = (lib.stiffness3d_pair_affine_layout, (k,),
+                      'stiffness3d_pair_affine_layout')
+  else:
+    fn, args, what = (lib.stiffness3d_pair_columns_layout,
+                      (k, int(variant == 'zeta')),
+                      'stiffness3d_pair_columns_layout')
+  return _blocks_per_sm(fn, args, pair_columns_layout(k, variant == 'affine'),
+                        what, device)
 
 
-def _pair_columns_blocks_per_sm(k: int, zeta: bool, device) -> int:
-  """Resident blocks per SM of the kernel at `k` (the C side's occupancy
-  query, which also checks its layout against `pair_columns_layout`);
-  cached per kernel and device."""
-  key = (k, zeta, device.index)
-  if key not in _PAIR_COLUMNS_OCCUPANCY:
-    out = (ctypes.c_int * 4)()
-    with torch.cuda.device(device):
-      cuda_build.check(cuda_build.library().stiffness3d_pair_columns_layout(
-          k, int(zeta), out), 'stiffness3d_pair_columns_layout')
-    want = pair_columns_layout(k)
-    got = dict(tile_e=out[0], threads=out[1], smem_bytes=out[2])
-    if any(want[name] != got[name] for name in got) or out[3] < 1:
-      raise RuntimeError(f'pair-columns layout at k = {k}: the kernel has '
-                         f'{got} and {out[3]} blocks per SM, the host '
-                         f'expects {want}')
-    _PAIR_COLUMNS_OCCUPANCY[key] = out[3]
-  return _PAIR_COLUMNS_OCCUPANCY[key]
+def _pair_columns_grid_on(us, k: int, variant: str, device) -> int:
+  return pair_columns_grid(
+      us[0].shape[-1], k,
+      torch.cuda.get_device_properties(device).multi_processor_count,
+      _pair_columns_blocks_per_sm(k, variant, device))
 
 
 def _general_pair(name, plain, us, gs, dp, dmat, zeta):
@@ -676,12 +746,8 @@ def _general_pair(name, plain, us, gs, dp, dmat, zeta):
   if dmat.device.type == 'cpu':
     return plain(us, gs, dp, dmat)
   _check_split_launchable(name, us + gs + (dp, dmat), len(us), k,
-                          dmat.dtype, MAX_K)
-  device = dmat.device
-  grid = pair_columns_grid(
-      us[0].shape[-1], k,
-      torch.cuda.get_device_properties(device).multi_processor_count,
-      _pair_columns_blocks_per_sm(k, zeta, device))
+                          dmat.dtype)
+  grid = _pair_columns_grid_on(us, k, 'zeta' if zeta else 'xi', dmat.device)
   # The kernel reads the transposed stage from DP's split, transposed.
   return _launch(name, lambda pu, po: (dp.data_ptr(), dmat.data_ptr(), pu,
                                        _ptrs(gs), po), us, dmat, k,
@@ -737,7 +803,8 @@ stiffness3d_pairz_general.launches = 0
 
 
 def stiffness3d_pair_affine(us, c_affine: torch.Tensor, dp: torch.Tensor,
-                            at: torch.Tensor, table: torch.Tensor):
+                            at: torch.Tensor, table: torch.Tensor,
+                            at_frags=None):
   """Affine-element 3D stiffness in pair-axis form, class bf16x3.
 
   Args:
@@ -748,10 +815,13 @@ def stiffness3d_pair_affine(us, c_affine: torch.Tensor, dp: torch.Tensor,
       and `cuda_split.pair_transpose_split_np(dmat, w1)` (the weight folded
       in).
     table: `pair_affine_table_np` in the working dtype.
+    at_frags: `cuda_split.mma_a_fragments` of `at`, as the kernel reads it
+      (``Sem3DOps.pair_affine_fragments`` makes it once); the wrapper makes
+      it per call where it is not given.
 
   CPU tensors: `stiffness3d_pair_affine_plain`.  CUDA tensors: one launch
-  of the tensor-core kernel for all components, counted in
-  ``stiffness3d_pair_affine.launches``.
+  of the tensor-core kernel for all components (persistent blocks,
+  `pair_columns_grid`), counted in ``stiffness3d_pair_affine.launches``.
   """
   us = tuple(us)
   k = us[0].shape[0] if us else 0
@@ -772,11 +842,19 @@ def stiffness3d_pair_affine(us, c_affine: torch.Tensor, dp: torch.Tensor,
     return stiffness3d_pair_affine_plain(us, c_affine, dp, at, table)
   _check_split_launchable('stiffness3d_pair_affine',
                           us + (c_affine, dp, at, table), len(us), k,
-                          table.dtype, MAX_K_SPLIT)
+                          table.dtype)
+  if at_frags is None:
+    at_frags = cuda_split.mma_a_fragments(at[0], at[1])
+  shape = (m_pad // 16, 2 * m_pad // 16, 1, 2, 32, 4)
+  if (tuple(at_frags.shape) != shape or at_frags.dtype != torch.int32
+      or at_frags.device != table.device or not at_frags.is_contiguous()):
+    raise ValueError(f'at_frags must be mma_a_fragments of at: contiguous '
+                     f'int32 {shape} on {table.device}')
+  grid = _pair_columns_grid_on(us, k, 'affine', table.device)
   outs = _launch('stiffness3d_pair_affine',
-                 lambda pu, po: (dp.data_ptr(), at.data_ptr(),
+                 lambda pu, po: (dp.data_ptr(), at_frags.data_ptr(),
                                  table.data_ptr(), c_affine.data_ptr(), pu,
-                                 po), us, table, k)
+                                 po), us, table, k, extra=(grid,))
   stiffness3d_pair_affine.launches += 1
   return outs
 

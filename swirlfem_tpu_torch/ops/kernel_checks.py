@@ -347,8 +347,8 @@ def check_stiffness3d_pair_affine(ops, us, c_affine=None) -> dict:
   default the box's own ``ops.g_affine``, weights in float64)."""
   c_affine = ops.g_affine if c_affine is None else c_affine
   dp, at_w, table = ops.pair_affine_operators()
-  got = cuda_stiffness3d.stiffness3d_pair_affine(us, c_affine, dp, at_w,
-                                                 table)
+  got = cuda_stiffness3d.stiffness3d_pair_affine(
+      us, c_affine, dp, at_w, table, at_frags=ops.pair_affine_fragments())
   plain = cuda_stiffness3d.stiffness3d_pair_affine_plain(us, c_affine, dp,
                                                          at_w, table)
   w1 = torch.as_tensor(ops.w1, dtype=torch.float64, device=table.device)

@@ -199,7 +199,8 @@ def _pair_affine_plain(ops, us):
 
 def _pair_affine_kernel(ops, us):
   return cuda_stiffness3d.stiffness3d_pair_affine(
-      us, ops.g_affine, *ops.pair_affine_operators())
+      us, ops.g_affine, *ops.pair_affine_operators(),
+      at_frags=ops.pair_affine_fragments())
 
 
 # Every key has a hand-written kernel.  `kernel_precision` selects the class
@@ -384,6 +385,15 @@ class Sem3DOps:
             self.const('pair_affine_table',
                        lambda: cuda_stiffness3d.pair_affine_table_np(
                            self.w1, self.dmat)))
+
+  def pair_affine_fragments(self) -> torch.Tensor:
+    """The affine pair kernel's transposed pair split ``at_w`` as mma.sync A
+    fragments (`cuda_split.mma_a_fragments`), as the kernel reads it; made
+    once."""
+    if 'pair_at_frags' not in self.mats:
+      at = self.pair_affine_operators()[1]
+      self.mats['pair_at_frags'] = cuda_split.mma_a_fragments(at[0], at[1])
+    return self.mats['pair_at_frags']
 
   # -- 1D contractions (axes 0..2 = xi, eta, zeta; E last) -----------------
 

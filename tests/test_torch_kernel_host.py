@@ -1,10 +1,13 @@
-"""The host side of two tensor-core kernels, on the CPU.
+"""The host side of the 3D and split kernels, on the CPU.
 
 The dense 3D kernel ('highest', 3xTF32): the operator's TF32 split is a
 round to nearest, ties away from zero, to 10 mantissa bits; its layout is
 the order of ``wgmma``'s K-major core matrices; and three TF32 passes stay in the
 FP32 class where one pass does not.  The affine split kernel: its work plan
-writes every (component, row, column) once and fits a block.
+writes every (component, row, column) once and fits a block.  The pair
+kernels (congruent, general and affine) and the general FP32 3D kernel:
+their blocks fit at every k, their persistent walks cover every (element,
+component) once, and the launch check takes k <= 10.
 """
 
 import dataclasses
@@ -218,6 +221,47 @@ def test_pair_columns_layout_fits_one_block_an_sm(k):
         16, 256, 141568)
 
 
+@pytest.mark.parametrize('k', range(2, cuda_stiffness3d.MAX_K + 1))
+def test_pair_columns_affine_layout_fits_one_block_an_sm(k):
+  """The affine kernel has the general kernels' block but for its table
+  (D, Dw, w, w2: 3 k^2 + k floats for k^2), and fits at every k up to 10,
+  where its transposed operator's split could not fit beside the rest."""
+  lay = cuda_stiffness3d.pair_columns_layout(k, affine=True)
+  general = cuda_stiffness3d.pair_columns_layout(k)
+  table = lambda n: 4 * -(-n // 4) * 4
+  assert {key: v for key, v in lay.items() if key != 'smem_bytes'} == {
+      key: v for key, v in general.items() if key != 'smem_bytes'}
+  assert lay['smem_bytes'] - general['smem_bytes'] == (
+      table(3 * k * k + k) - table(k * k))
+  assert lay['smem_bytes'] <= cuda_stiffness3d.SMEM_LIMIT
+  m_pad = lay['m_pad']
+  t_split = 2 * m_pad * (2 * m_pad + 8) * 2  # T's (hi, lo), padded rows
+  if k >= 9:
+    assert lay['smem_bytes'] + t_split > cuda_stiffness3d.SMEM_LIMIT
+
+
+def _pair_smem(k, tile_e):
+  """The congruent pair kernel's shared memory at a tile of `tile_e`
+  elements (csrc/stiffness3d_pair.cu:TileLayout, written out): its table,
+  the split A2 and the split tile of every slab."""
+  m_pad = -(-k * k // 16) * 16
+  table = -(-(3 * k * k + k) // 4) * 4
+  return 4 * table + 4 * (m_pad * (m_pad + 8) + k * m_pad * (tile_e + 8))
+
+
+@pytest.mark.parametrize('k', range(2, cuda_stiffness3d.MAX_K + 1))
+def test_congruent_pair_tile_fits_at_every_k(k):
+  """The congruent pair kernel keeps its 32-element tile where it fits
+  (every k <= 9, so k <= 8 as before) and takes 16 elements at k = 10,
+  where 32 would need 234,208 bytes."""
+  tile_e = 32 if _pair_smem(k, 32) <= cuda_stiffness3d.SMEM_LIMIT else 16
+  assert tile_e == (16 if k == 10 else 32)
+  assert _pair_smem(k, tile_e) <= cuda_stiffness3d.SMEM_LIMIT
+  assert {8: 101152, 9: 179184, 10: 162528}.get(k, _pair_smem(k, tile_e)) == (
+      _pair_smem(k, tile_e))
+  assert _pair_smem(10, 32) == 234208
+
+
 def _pair_columns_walk(num_e, num_c, k, grid):
   """The (tile, component) units each persistent block walks, in its order
   (csrc/stiffness3d_pair_columns.cuh: tiles b, b + grid, ..., each through
@@ -280,22 +324,20 @@ def test_pair_columns_skip_only_zero_tiles(k):
 
 
 def test_general_pair_kernels_take_k_up_to_10():
-  """The launch check: the general pair kernels take 2 <= k <= 10, the
-  congruent and affine ones k <= 8; all float32 only."""
+  """The launch check: every pair kernel (general, pairz, congruent and
+  affine) takes 2 <= k <= 10 and refuses k = 11; all float32 only."""
   check = cuda_stiffness3d._check_split_launchable  # pylint: disable=protected-access
+  names = ('stiffness3d_pair_general', 'stiffness3d_pairz_general',
+           'stiffness3d_pair', 'stiffness3d_pair_affine')
   for k in range(2, 11):
     us = (torch.zeros(k, k, k, 3),)
-    check('stiffness3d_pair_general', us, 1, k, torch.float32,
-          cuda_stiffness3d.MAX_K)
-    with pytest.raises(TypeError, match='float32'):
-      check('stiffness3d_pair_general', us, 1, k, torch.float64,
-            cuda_stiffness3d.MAX_K)
-  with pytest.raises(ValueError, match='k <= 10'):
-    check('stiffness3d_pairz_general', us, 1, 11, torch.float32,
-          cuda_stiffness3d.MAX_K)
-  with pytest.raises(ValueError, match='k <= 8'):
-    check('stiffness3d_pair_affine', us, 1, 9, torch.float32,
-          cuda_stiffness3d.MAX_K_SPLIT)
+    for name in names:
+      check(name, us, 1, k, torch.float32)
+      with pytest.raises(TypeError, match='float32'):
+        check(name, us, 1, k, torch.float64)
+  for name in names:
+    with pytest.raises(ValueError, match='k <= 10'):
+      check(name, us, 1, 11, torch.float32)
 
 
 @pytest.mark.parametrize('order,impl,refused', [
@@ -318,3 +360,98 @@ def test_superslab_keys_refuse_what_the_reference_refuses(order, impl,
     pair = dataclasses.replace(ops, general_kernel_impl='pair')
     torch.testing.assert_close(ops.stiffness_el_multi(us)[0],
                                pair.stiffness_el_multi(us)[0], rtol=0, atol=0)
+
+
+# The general FP32 3D kernel (csrc/stiffness3d_general.cu): its block, the
+# rows of its lines, and its persistent blocks' walk.
+
+
+@pytest.mark.parametrize('itemsize', [4, 8], ids=['f32', 'f64'])
+@pytest.mark.parametrize('k', range(2, cuda_stiffness3d.MAX_K + 1))
+def test_general3d_layout_fits_one_block_an_sm(k, itemsize):
+  """8-element tiles, at most 8 warps, every line of each axis in one slot
+  of one round, and the tiles and tables within the shared memory of one
+  block; in float32 the six factor tiles stay beside U, R and S up to
+  k = 9 (order 8)."""
+  lay = cuda_stiffness3d.general3d_layout(k, itemsize)
+  assert lay['tile_e'] == 8 and lay['slots'] == 4
+  assert 1 <= lay['warps'] <= 8 and lay['threads'] == 32 * lay['warps']
+  slots = lay['warps'] * lay['slots']
+  assert slots % 4 == 0 and slots * lay['rounds'] >= k * k
+  assert slots * (lay['rounds'] - 1) < k * k  # no idle round
+  assert lay['rows'] == k ** 3 + (k * k if k % 2 == 0 else 0)
+  assert lay['smem_bytes'] <= cuda_stiffness3d.SMEM_LIMIT
+  if itemsize == 4:
+    assert lay['factor_tiles'] == (k <= 9)
+  if k == 8 and itemsize == 4:  # the path's order 7: 8 warps, 162.5 KB
+    assert (lay['threads'], lay['smem_bytes']) == (256, 166400)
+
+
+def _general3d_rows(k):
+  """The shared-memory rows of the general 3D kernel's lines, ``(k^2, k)``
+  each (csrc/stiffness3d_general.cu: row(), and the line bases of stages
+  A-D, written out): xi line ``(q, r)`` at index ``q k + r`` holds the
+  points ``(a, q, r)``, eta line ``(m, r)`` the points ``(m, b, r)``, zeta
+  line ``(m, q)`` the points ``(m, q, c)``; point P lies at row
+  ``P + P // k`` where k is even, else at row P."""
+  pad = 1 if k % 2 == 0 else 0
+  lines = np.arange(k * k)[:, None]
+  a = np.arange(k)[None, :]
+  row = lambda p: p + pad * (p // k)
+  return {'xi': row(a * k * k + lines),
+          'eta': row((lines // k) * k * k + a * k + lines % k),
+          'zeta': row(lines * k + a)}
+
+
+@pytest.mark.parametrize('k', range(2, cuda_stiffness3d.MAX_K + 1))
+def test_general3d_lines_cover_every_point_without_bank_conflicts(k):
+  """Along each axis the k^2 lines hold every point once, at distinct rows.
+  A warp reads four neighbouring lines 4i..4i+3 at a time: in float32
+  (32-byte rows, a quarter of the banks each) their rows are distinct
+  mod 4 at every step along the zeta lines, and along every axis at
+  k = 4, 5, 8 and 9; in float64 (64-byte rows, two lines a half warp) the
+  lines 2i, 2i + 1 are an odd number of rows apart, every axis, every k."""
+  rows = _general3d_rows(k)
+  pad = 1 if k % 2 == 0 else 0
+  all_rows = np.arange(k ** 3) + pad * (np.arange(k ** 3) // k)
+  for axis, line_rows in rows.items():
+    assert line_rows.shape == (k * k, k)
+    assert sorted(line_rows.ravel()) == sorted(all_rows)
+    pairs = line_rows[0:k * k - 1:2], line_rows[1:k * k:2]
+    assert ((pairs[1] - pairs[0]) % 2 == 1).all(), axis
+    if axis == 'zeta' or k in (4, 5, 8, 9):
+      for g0 in range(0, k * k, 4):
+        quarters = line_rows[g0:g0 + 4] % 4
+        for step in range(k):
+          assert len(set(quarters[:, step])) == len(quarters), (axis, g0)
+  # The lines are the axes' lines: xi lines vary the first index, etc.
+  point = lambda row: row - pad * (row // (k + pad))
+  for axis, stride in (('xi', k * k), ('eta', k), ('zeta', 1)):
+    steps = np.diff(point(rows[axis]), axis=1)
+    assert (steps == stride).all(), axis
+
+
+def _general3d_walk(num_e, num_c, k, grid):
+  """The (tile, component) units each persistent block of the general 3D
+  kernel walks (tiles b, b + grid, ..., each through its components)."""
+  tiles = -(-num_e // cuda_stiffness3d.general3d_layout(k)['tile_e'])
+  return [[(tile, comp) for tile in range(b, tiles, grid)
+           for comp in range(num_c)] for b in range(grid)]
+
+
+@pytest.mark.parametrize('num_sms,blocks_per_sm', [(132, 1), (7, 2)])
+def test_general3d_blocks_cover_every_element_once(num_sms, blocks_per_sm):
+  """Each (element, component) in exactly one block's walk, ragged E
+  included; at the path's shape (16^3 elements, order 7) one block per SM
+  and none idle."""
+  for num_e, k, num_c in itertools.product((1, 7, 16, 27, 257, 4096),
+                                           (2, 5, 8, 9, 10), (1, 3, 4)):
+    grid = cuda_stiffness3d.general3d_grid(num_e, k, num_sms, blocks_per_sm)
+    tile_e = cuda_stiffness3d.general3d_layout(k)['tile_e']
+    seen = np.zeros((num_c, -(-num_e // tile_e) * tile_e), dtype=np.int64)
+    for units in _general3d_walk(num_e, num_c, k, grid):
+      for tile, comp in units:
+        seen[comp, tile * tile_e:(tile + 1) * tile_e] += 1
+    assert (seen == 1).all(), (num_e, k, num_c, grid)
+    assert 1 <= grid <= num_sms * blocks_per_sm
+  assert cuda_stiffness3d.general3d_grid(4096, 8, 132, 1) == 132

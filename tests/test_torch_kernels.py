@@ -209,6 +209,50 @@ def test_stiffness3d_general_matches_f64_operator(device, n_el, order, dtype):
     assert result['rel_err_f64'] <= tol, result
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('offset', [0, 1], ids=['aligned', 'unaligned'])
+@pytest.mark.parametrize('num_e', [16, 37])
+@pytest.mark.parametrize('num_c', [1, 2, 3, 4])
+@pytest.mark.parametrize('order', range(1, cuda_stiffness3d.MAX_K))
+def test_stiffness3d_general_every_order(device, order, num_c, num_e, offset,
+                                         dtype):
+  """The general kernel at k = 2-10, C = 1-4, E = 16 (whole tiles) and 37
+  (ragged), the fields views `offset` values into larger buffers (the
+  element-wise copies), random factor fields and D: within 1e-5 relative of
+  the plain version in float32 (1e-12 in float64)."""
+  k = order + 1
+  rng = np.random.default_rng(1000 * k + 10 * num_c + num_e + offset)
+
+  def field():
+    buf = torch.as_tensor(rng.standard_normal(k ** 3 * num_e + offset),
+                          dtype=dtype, device=device)
+    return buf[offset:].view(k, k, k, num_e)
+  us = tuple(field() for _ in range(num_c))
+  gs = tuple(field() for _ in range(6))
+  dmat = torch.as_tensor(rng.standard_normal((k, k)), dtype=dtype,
+                         device=device)
+  before = cuda_stiffness3d.stiffness3d_general.launches
+  got = cuda_stiffness3d.stiffness3d_general(us, gs, dmat)
+  assert cuda_stiffness3d.stiffness3d_general.launches == before + 1
+  plain = cuda_stiffness3d.stiffness3d_general_plain(us, gs, dmat)
+  torch.cuda.synchronize(device)
+  tol = 1e-5 if dtype == torch.float32 else 1e-12
+  scale = max(float(p.abs().max()) for p in plain)
+  for g, p in zip(got, plain):
+    assert g.shape == p.shape and g.is_contiguous()
+    assert float((g - p).abs().max()) <= tol * scale
+
+
+def test_general3d_layout_matches_the_kernel(device):
+  """The host's mirror of the general kernel's layout (the grid depends on
+  it) is the kernel's, at every k and in both dtypes."""
+  for k in range(2, cuda_stiffness3d.MAX_K + 1):
+    for dtype in (torch.float32, torch.float64):
+      # Raises where the C side's tile, threads or shared memory differ.
+      assert cuda_stiffness3d._general3d_blocks_per_sm(  # pylint: disable=protected-access
+          k, dtype, device) >= 1
+
+
 @functools.lru_cache(maxsize=None)
 def _affine_ops(n_el, order, dtype):
   sem = StokesSEM.create(
@@ -347,13 +391,13 @@ def test_stiffness3d_pair_general_takes_unaligned_fields(device, n_el, order,
 
 
 def test_pair_columns_layout_matches_the_kernel(device):
-  """The host's mirror of the general pair kernels' layout (the grid
+  """The host's mirror of the pair-columns kernels' layout (the grid
   depends on it) is the kernel's, at every k; each fits one block an SM."""
   for k in range(2, cuda_stiffness3d.MAX_K + 1):
-    for zeta in (False, True):
+    for variant in ('xi', 'zeta', 'affine'):
       # Raises where the C side's tile, threads or shared memory differ.
       assert cuda_stiffness3d._pair_columns_blocks_per_sm(  # pylint: disable=protected-access
-          k, zeta, device) >= 1
+          k, variant, device) >= 1
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
@@ -375,6 +419,35 @@ def test_stiffness3d_pair_affine_matches_f64_operator(device, n_el, order,
     _assert_bf16x3(kernel_checks.check_stiffness3d_pair_affine(ops, us,
                                                                c_affine),
                    'stiffness3d_pair_affine')
+
+
+@pytest.mark.parametrize('n_el,order', [(2, 8), (3, 8), (2, 9), (3, 9)])
+@pytest.mark.parametrize('num_c', [1, 3, 4])
+def test_congruent_and_affine_pair_kernels_at_k9_and_k10(device, n_el,
+                                                          order, num_c):
+  """Orders 8 and 9 (k = 9, 10; E = 8 and 27, ragged against every tile):
+  the congruent pair kernel within 1e-6 and the affine one within 1e-5 of
+  their plain versions, both in the class's band of the float64 operator;
+  and the ('congruent', 'pair') and ('affine', 'pair') keys run there."""
+  del device
+  ops = _tgv_ops(n_el, order, torch.float32)
+  aops = _affine_ops(n_el, order, torch.float32)
+  us = _fields3d(ops, num_c, 1)
+  _assert_bf16x3(kernel_checks.check_stiffness3d_pair(ops, us),
+                 'stiffness3d_pair')
+  random_c = kernel_checks.random_field(tuple(aops.g_affine.shape),
+                                        dtype=torch.float32,
+                                        device=aops.wmass.device, seed=20)
+  for c_affine in (None, random_c):
+    _assert_bf16x3(kernel_checks.check_stiffness3d_pair_affine(aops, us,
+                                                               c_affine),
+                   'stiffness3d_pair_affine')
+  for key_ops in (dataclasses.replace(ops, uniform_kernel_impl='pair'),
+                  dataclasses.replace(aops, use_affine_kernel=True)):
+    assert key_ops.stiffness_key in (('congruent', 'pair'),
+                                     ('affine', 'pair'))
+    out = key_ops.stiffness_el_multi(us)
+    assert all(bool(o.isfinite().all()) for o in out)
 
 
 def test_stiffness3d_variant_wrappers_reject_bad_input(device):
@@ -402,13 +475,13 @@ def test_stiffness3d_variant_wrappers_reject_bad_input(device):
   with pytest.raises(TypeError):
     cuda_stiffness3d.stiffness3d_pair(tuple(u.half() for u in us), a2,
                                       table.half())
-  # The congruent and affine bf16x3 pair kernels hold their operators and a
-  # float32 tile in shared memory: k <= 8.  The general ones take k <= 10.
+  # Every pair key takes k <= 10 (orders 8 and 9 here).
   big = _tgv_ops(2, 8, torch.float32)
   big9 = _tgv_ops(2, 9, torch.float32)
-  with pytest.raises(ValueError, match='k <= 8'):
-    dataclasses.replace(big, uniform_kernel_impl='pair').stiffness_el_multi(
-        _fields3d(big, 1, 1))
+  for ops in (big, big9):
+    congruent = dataclasses.replace(ops, uniform_kernel_impl='pair')
+    assert congruent.stiffness_el_multi(_fields3d(ops, 1, 1))[0].isfinite(
+        ).all()
   for ops, impl in ((big, 'pair'), (big, 'pairz'), (big9, 'pair'),
                     (big9, 'pairz'), (big9, 'pairs2')):
     general = dataclasses.replace(ops, use_uniform_kernel=False,

@@ -49,11 +49,11 @@ from torch_port_boxes import affine_box
 # output.  Float64: both sum the same exact bf16 products, in another order.
 # Float32: the congruent pair kernel splits only its input, as the
 # static-operator split kernels do (tests/test_torch_split_precision.py),
-# and holds 1e-6.  The slab pipelines also split intermediate float32 values (the pair products'
-# fluxes): where the two frameworks' sums differ by one unit in the last
-# place, the low bf16 part of a flux can round the other way, which moves
-# the flux by up to 2^-16 of itself, so those hold 1e-5 (measured 1.0e-6 to
-# 5.2e-6 at E = 128).
+# and holds 1e-6.  The general and affine pipelines also split intermediate
+# float32 values (the pair products' fluxes): where the two frameworks' sums
+# differ by one unit in the last place, the low bf16 part of a flux can
+# round the other way, which moves the flux by up to 2^-16 of itself, so
+# those hold 1e-5 (measured 1.0e-6 to 5.2e-6 at E = 128).
 TOL = {torch.float64: 1e-12, torch.float32: 1e-6}
 TOL_SLAB_F32 = 1e-5
 E_RANDOM = 32
@@ -271,6 +271,31 @@ def test_general_plain_versions_match_jax_at_k10(zeta):
   else:
     got = cs3.stiffness3d_pair_general_plain(tu, tg, dp, torch.as_tensor(d))
     want = jp3.stiffness3d_el_pallas_pair_general(ju, jg, d, interpret=True)
+  assert _rel([g.numpy() for g in got], want) <= TOL[torch.float64]
+
+
+@pytest.mark.parametrize('kernel', ['affine', 'congruent'])
+def test_affine_and_congruent_plain_versions_match_jax_at_k10(kernel):
+  """(b) at k = 10 (order 9), which the affine and congruent pair kernels
+  now take on the card: random fields (and coefficients) of 8 elements,
+  two components, float64."""
+  k = 10
+  w, d, c_uniform = _operators(k)
+  us, _, c_aff = _random(k, 8, seed=k)
+  tu = tuple(torch.as_tensor(u) for u in us)
+  ju = tuple(jnp.asarray(u) for u in us)
+  if kernel == 'affine':
+    got = cs3.stiffness3d_pair_affine_plain(
+        tu, torch.as_tensor(c_aff),
+        _bf16(cuda_split.pair_derivative_split_np(d)),
+        _bf16(cuda_split.pair_transpose_split_np(d, w)),
+        torch.as_tensor(cs3.pair_affine_table_np(w, d)))
+    want = jp3.stiffness3d_el_pallas_pair_affine(ju, jnp.asarray(c_aff), w, d,
+                                                 interpret=True)
+  else:
+    a2, table = cuda_split.pair_uniform_split_np(c_uniform, w, d)
+    got = cs3.stiffness3d_pair_plain(tu, _bf16(a2), torch.as_tensor(table))
+    want = jp3.stiffness3d_el_pallas_pair(ju, c_uniform, w, d, interpret=True)
   assert _rel([g.numpy() for g in got], want) <= TOL[torch.float64]
 
 

@@ -49,7 +49,8 @@ VARIANTS = {
          '    for (int i = 0; i < 2; ++i) for (int f = 0; f < kFactors; ++f)'
          ' for (int r = 0; r < 2; ++r) for (int j = 0; j < 2; ++j)'
          ' gv[i][f][r][j] = d_s[f];'),
-        ('      if (a + 1 < K) load_metric(a + 1, gv[(a + 1) & 1]);', '')],
+        ('      if (V != kAffine && a + 1 < K) load_metric(a + 1, '
+         'gv[(a + 1) & 1]);', '')],
     'no_products': [
         ('  asm("mma.sync',
          '  d[0] += __uint_as_float(a[0] ^ b0);\n  return;\n  asm("mma.sync')],
@@ -109,7 +110,7 @@ def build_all():
       raise RuntimeError(f'{name}: nvcc failed\n{out}')
     lines = out.splitlines()
     for i, line in enumerate(lines):
-      if 'ILi8ELb0' in line and 'Compiling' in line:
+      if 'ILi8ELi0E' in line and 'Compiling' in line:
         print(f'{name}: k = 8 {" ".join(x.strip() for x in lines[i + 1:i + 3])}')
 
 
