@@ -96,7 +96,10 @@ graded and sheared periodic box, all in float32.  Phases:
      against the same steps under the fused key;
  27. time the split kernels against their plain versions, their
      tensor-core bound and one FP32 library GEMM of the same operator (the
-     affine ones also at the datagen shape).
+     affine ones also at the datagen shape);
+ 28. one 3D stiffness apply at order 10 (k = 11, past every 3D kernel) on
+     the card through `use_kernels=False`, against the float64 operator,
+     and the kernels' refusal of it.
 
 Each kernel's count is set to 0 just before the path that launches it and
 read just after.  Every kernel's bound is the larger of its bytes (each
@@ -1119,6 +1122,7 @@ def run_split_phases(torch, device, dtype, tgv, kernel_checks, times,
   from swirlfem_tpu_torch.ops import cuda_stiffness3d
   uniform_split = cuda_split.stiffness_uniform_split
   affine_split = cuda_split.stiffness2d_affine_split
+  dense_split = cuda_split.stiffness3d_dense_split
   classes = ('bf16x3', 'default')
 
   def at(ops, precision):
@@ -1256,11 +1260,11 @@ def run_split_phases(torch, device, dtype, tgv, kernel_checks, times,
                      kernel_precision='bf16x3')
   base = cg_solved_steps(torch, tgv, sem3, tgv_box['state'], count,
                          seeded=True, **tgv_box['solve'])
-  uniform_split.launches = 0
+  dense_split.launches = 0
   cuda_stiffness3d.stiffness3d_dense.launches = 0
   r = cg_solved_steps(torch, tgv, sem_v, tgv_box['state'], count,
                       seeded=True, **tgv_box['solve'])
-  n_split = uniform_split.launches
+  n_split = dense_split.launches
   n_dense = cuda_stiffness3d.stiffness3d_dense.launches
   launches['stiffness3d_dense_bf16x3'] = n_split
   u_rel = rel_err(r['state'][0][-1], base['state'][0][-1])
@@ -1280,7 +1284,7 @@ def run_split_phases(torch, device, dtype, tgv, kernel_checks, times,
   a64 = ops3.dense_operator_t().double().T
   form = lambda aus: sum(float((a.double() * u.double()).sum())
                          for a, u in zip(aus, flat))
-  d_kernel = form(uniform_split(flat, hi3, lo3, 3))
+  d_kernel = form(dense_split(flat, hi3, lo3, ops3.dense_bf16()))
   d_plain = form(cuda_split.stiffness_uniform_split_plain(flat, hi3, lo3, 3))
   d_64 = form(tuple((a64 @ u.double().reshape(a64.shape[0], -1))
                     .reshape(u.shape) for u in flat))
@@ -1306,6 +1310,7 @@ def run_split_phases(torch, device, dtype, tgv, kernel_checks, times,
   hia, loa = at(affine, 'bf16x3').split_operator()
   fra = at(affine, 'bf16x3').split_fragments()
   hi3, lo3 = ops3.dense_split()
+  lay3 = ops3.dense_bf16()
   mstack = affine.mats['mstack']
   a_dense = ops3.dense_operator_t().T.contiguous()
   stack = lambda us, rows: torch.cat([u.reshape(rows, -1) for u in us], 1)
@@ -1334,7 +1339,7 @@ def run_split_phases(torch, device, dtype, tgv, kernel_checks, times,
         cuda_split.split_counts(k16 ** 2, k16 ** 2, us_lid[0].shape[-1],
                                 len(us_lid), passes=passes, num_blocks=3))
   cases['stiffness3d_dense_bf16x3'] = (
-      lambda: uniform_split(us3, hi3, lo3, 3),
+      lambda: dense_split(us3, hi3, lo3, lay3),
       lambda: cuda_split.stiffness_uniform_split_plain(us3, hi3, lo3, 3),
       lambda: torch.matmul(a_dense, u3_cat),
       cuda_split.split_counts(k3, k3, us3[0].shape[-1], len(us3), passes=3))
@@ -1367,6 +1372,46 @@ def run_split_phases(torch, device, dtype, tgv, kernel_checks, times,
         f'4096) x 2: {ms * 1e3:.2f} us (library GEMM of the stacked '
         f'operator {library64 * 1e3:.2f} us), bound '
         f'{b["bound_ms"] * 1e3:.3f} us ({b["bound_by"]})')
+
+
+def run_knob_phase(torch, device, dtype) -> None:
+  """Phase 28: one 3D stiffness apply at order 10 (k = 11, past every 3D
+  kernel) on the card through `use_kernels=False`, against the float64
+  operator; with the kernels on, the launch refuses it and names the knob."""
+  import dataclasses
+  import numpy as np
+  from swirlfem_tpu_torch.nse.solver import StokesSEM
+  from swirlfem_tpu_torch.ops import cuda_stiffness3d
+  from swirlfem_tpu_torch.utils.box import unit_cube_mesh
+  order, n_el = 10, 3
+  sem = StokesSEM.create(unit_cube_mesh(n_el, ndim=3, periodic_dims=(0, 1, 2)),
+                         {}, order=order, device=device, dtype=dtype,
+                         use_kernels=False)
+  ops = sem.fast_ops
+  k = order + 1
+  rng = np.random.default_rng(28)
+  us64 = tuple(torch.as_tensor(rng.standard_normal((k,) * 3 + (n_el ** 3,)),
+                               device=device) for _ in range(3))
+  us = tuple(u.to(dtype) for u in us64)
+  before = cuda_stiffness3d.stiffness3d_uniform.launches
+  got = ops.stiffness_el_multi(us)
+  torch.cuda.synchronize(device)
+  launched = cuda_stiffness3d.stiffness3d_uniform.launches - before
+  a64 = torch.as_tensor(cuda_stiffness3d.uniform_amat3d_np(
+      ops.c_uniform, ops.w1, ops.dmat), device=device)
+  ref = tuple((a64 @ u.reshape(k ** 3, -1)).reshape(u.shape) for u in us64)
+  err = rel_err(got, ref)
+  try:
+    dataclasses.replace(ops, use_kernels=True).stiffness_el_multi(us)
+    refusal = None
+  except ValueError as exc:
+    refusal = str(exc)
+  log(f'[28] order {order} on a {n_el}^3 box, C = 3, use_kernels=False: '
+      f'key {ops.stiffness_key}, kernel launches {launched}, vs float64 '
+      f'{err:.3e}; with the kernels on: {refusal!r}')
+  require(launched == 0, launched)
+  require(all_finite(got) and err <= 1e-5, err)
+  require(refusal is not None and 'use_kernels=False' in refusal, refusal)
 
 
 def main() -> int:
@@ -1530,6 +1575,7 @@ def main() -> int:
   dg = {'sem': sem, 'cfg': cfg, 'state': state, 'us': us}
   run_split_phases(torch, device, dtype, tgv, kernel_checks, times,
                    launches, dg, walled, tgv_box)
+  run_knob_phase(torch, device, dtype)
 
   kernels = [
       {'name': 'exchange2d', 'route': 'cuda',
@@ -1608,7 +1654,7 @@ def main() -> int:
        'pallas_stiffness.py:247'),
       ('stiffness2d_affine_default', 'stiffness2d_affine_split.cu',
        'pallas_stiffness.py:214'),
-      ('stiffness3d_dense_bf16x3', 'stiffness_split.cu',
+      ('stiffness3d_dense_bf16x3', 'stiffness3d_dense_split.cu',
        'pallas_stiffness3d.py:65')):
     kernels.append({'name': name, 'route': 'cuda',
                     'source': f'swirlfem_tpu_torch/csrc/{source}',

@@ -405,6 +405,17 @@ __device__ __forceinline__ void fragment_product(
   }
 }
 
+// (hi, lo) of two neighbouring values as bf16 pairs, x in the low half:
+// hi = bf16(x), lo = bf16(x - hi), round to nearest even.
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
 // Splits v into hi = bf16(v) and lo = bf16(v - hi), round to nearest even
 // (the JAX kernels' field split), and stores them at hi_p[i], lo_p[i].
 __device__ __forceinline__ void store_split(float v, __nv_bfloat16* hi_p,

@@ -38,22 +38,18 @@
 // TF32 wgmma takes shared-memory operands K-major only, and the field is
 // element-major; as the register operand it needs no transpose.
 //
-// Work.  A tile is 128 elements (two warpgroups of 64) by one panel of
-// 256 operator rows (two wgmma halves of 128).  The (component, panel,
-// 64-element unit) space is cut into one contiguous range per block, one
-// block per SM, each walking its range in tiles of two units (warpgroup w
-// takes unit w, both halves) or, at a range's or segment's end, one unit
-// (both warpgroups take it, warpgroup w half w), so that a block's time
-// goes with its units.  At 16^3 elements, order 7, C = 3 that is 3 x 2 x
-// 64 = 384 units, 2.91 a block on 132 SMs: the busiest block has 3, so the
-// last "wave" is 97 % busy (whole 128 x 256 tiles would be 192, 1.45
-// waves).  The depth is walked in chunks of 16 through a ring of five
-// shared-memory stages (the operator chunk and the field slice as it lies,
-// rows padded by 8 floats so that the A fragment reads fall on distinct
-// banks), filled by 16-byte cp.async four chunks ahead, across tile
-// boundaries; one barrier per chunk.  Each chunk's six products of a half
-// (two steps x three passes) go into a fresh accumulator, added to the
-// tile's sums in float32.
+// Work (stiffness3d_dense.cuh, shared with the bf16x3 kernel).  Tiles of
+// 128 elements by 256 operator rows, walked by one persistent block per
+// SM over its range of (component, panel, 64-element unit) space.  At
+// 16^3 elements, order 7, C = 3 that is 3 x 2 x 64 = 384 units, 2.91 a
+// block on 132 SMs: the busiest block has 3, so the last "wave" is 97 %
+// busy (whole 128 x 256 tiles would be 192, 1.45 waves).  The depth is
+// walked in chunks of 16 through a ring of five shared-memory stages (the
+// operator chunk and the field slice as it lies, rows padded by 8 floats
+// so that the A fragment reads fall on distinct banks), filled by 16-byte
+// cp.async four chunks ahead, across tile boundaries; one barrier per
+// chunk.  Each chunk's six products of a half (two steps x three passes)
+// go into a fresh accumulator, added to the tile's sums in float32.
 //
 // float64: FFMA (exact in the working precision).  A block of 256 threads
 // owns a 64 x 64 output tile of one component; the contraction is streamed
@@ -72,20 +68,33 @@
 // 78 us (two waits per chunk and warpgroup, with one accumulator free for
 // the chunk sums), both 120 us: they overlap poorly.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "stiffness3d_dense.cuh"
 
 namespace {
 
-constexpr int kMaxComponents = 4;
-constexpr int kMaxK3 = 1000;  // k <= 10
-constexpr int kMaxDevices = 64;
+using dense3d::kHalf;
+using dense3d::kMaxComponents;
+using dense3d::kPanel;
+using dense3d::kThreads;
+using dense3d::kTileE;
+using dense3d::kUnitE;
+using dense3d::Pointers;
+using dense3d::Shape;
+using dense3d::Walk;
 
-struct Pointers {
-  const void* u[kMaxComponents];
-  void* out[kMaxComponents];
-};
+// -- float32: 3xTF32 ----------------------------------------------------------
+
+namespace tf32 {
+
+constexpr int kBK = 16;         // depth of a stage (two k8 steps)
+constexpr int kStages = 5;
+constexpr int kLdU = kTileE + 8;  // floats of a shared field row
+// One stage: the operator chunk (2 parts x 2 k8 steps x 2 halves of 4 x
+// 32 row groups x 8 rows x 4 floats: the wgmma K-major core matrices, as the
+// host lays them out) and the field chunk (kBK rows of kTileE elements).
+constexpr int kOpStage = 2 * kBK * kPanel;  // 8192 floats, 32 KB
+constexpr int kStageFloats = kOpStage + kBK * kLdU;
+constexpr int kSmemBytes = kStages * kStageFloats * 4;  // 207,360
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -108,64 +117,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
-// -- float32: 3xTF32 ----------------------------------------------------------
-
-namespace tf32 {
-
-constexpr int kThreads = 256;   // two warpgroups, 64 elements each
-constexpr int kTileE = 128;     // elements of a tile (M: 2 x 64)
-constexpr int kUnitE = 64;      // elements of a warpgroup (one wgmma M)
-constexpr int kPanel = 256;     // operator rows of a tile (N: 2 x 128)
-constexpr int kHalf = 128;      // operator rows of one wgmma (N)
-constexpr int kBK = 16;         // depth of a stage (two k8 steps)
-constexpr int kStages = 5;
-constexpr int kLdU = kTileE + 8;  // floats of a shared field row
-// One stage: the operator chunk (2 parts x 2 k8 steps x 2 halves of 4 x
-// 32 row groups x 8 rows x 4 floats: the wgmma K-major core matrices, as the
-// host lays them out) and the field chunk (kBK rows of kTileE elements).
-constexpr int kOpStage = 2 * kBK * kPanel;  // 8192 floats, 32 KB
-constexpr int kStageFloats = kOpStage + kBK * kLdU;
-constexpr int kSmemBytes = kStages * kStageFloats * 4;  // 207,360
-
-// A block's walk over its range of (component, panel, 64-element unit)
-// space: the tile it is at (component c, panel p, first unit col, width 1
-// or 2 units) and the depth chunk within it.
-struct Walk {
-  long long pos;  // first unit after the current tile
-  long long end;
-  int c, p, col, width, chunk;
-  bool valid;
-};
-
-struct Shape {
-  int k3, num_e, chunks, panels;
-  long long units;  // 64-element units of one (component, panel) segment
-};
-
-__device__ __forceinline__ void start_tile(Walk& w, const Shape& s) {
-  if (w.pos >= w.end) {
-    w.valid = false;
-    return;
-  }
-  const long long seg = w.pos / s.units;
-  const long long off = w.pos - seg * s.units;
-  const long long piece = min(w.end, (seg + 1) * s.units) - w.pos;
-  w.width = piece >= 2 ? 2 : 1;
-  w.c = static_cast<int>(seg / s.panels);
-  w.p = static_cast<int>(seg - static_cast<long long>(w.c) * s.panels);
-  w.col = static_cast<int>(off);
-  w.chunk = 0;
-  w.valid = true;
-  w.pos += w.width;
-}
-
-__device__ __forceinline__ void advance(Walk& w, const Shape& s) {
-  if (++w.chunk == s.chunks) start_tile(w, s);
-}
-
 // Starts the copies of chunk w.chunk of tile w into `stage`: the operator
-// chunk of the panel (one contiguous 32 KB run), then the field slice (kBK
-// rows of the tile's elements; zeros past the depth and the ragged E edge).
+// chunk of the panel (one contiguous run of kOpStage floats), then the
+// field slice (kBK rows of the tile's elements, kLdU floats apart;
+// zeros past the depth and the ragged E edge).
 __device__ __forceinline__ void load_stage(const float* __restrict__ op,
                                            const Pointers& ptrs,
                                            const Walk& w, const Shape& s,
@@ -202,6 +157,29 @@ __device__ __forceinline__ void load_stage(const float* __restrict__ op,
   }
 }
 
+// Stores a finished 64 x 128 accumulator half h of the tile (wgmma's
+// m64n128 layout: entry 4 n + q of thread (g, t) of warp wrow is element
+// 16 wrow + g + 8 (q >> 1), operator row 8 n + 2 t + (q & 1)) to
+// out[row][element], 8 consecutive elements a row and instruction.
+__device__ __forceinline__ void store_half(float* __restrict__ out,
+                                           const float (&acc)[64],
+                                           const Shape& s, int p, int h,
+                                           int e) {
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int row = p * kPanel + kHalf * h + 8 * n + 2 * t + (q & 1);
+      const int col = e + 8 * (q >> 1);
+      if (row < s.k3 && col < s.num_e) {
+        out[static_cast<long long>(row) * s.num_e + col] = acc[4 * n + q];
+      }
+    }
+  }
+}
+
 // hi = rna_tf32(x), lo = rna_tf32(x - hi), as TF32 bit patterns (the low
 // 13 bits cleared).
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
@@ -211,18 +189,6 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   const float rest = x - __uint_as_float(hi);
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
   lo &= 0xffffe000u;
-}
-
-// The wgmma descriptor of a K-major operand without swizzle: 8-row core
-// matrices of 16 bytes a row, `lbo` bytes between the two 16-byte halves
-// of the 8-deep step, `sbo` bytes between 8-row groups.
-__device__ __forceinline__ uint64_t descriptor(const float* smem, int lbo,
-                                               int sbo) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  return static_cast<uint64_t>((addr >> 4) & 0x3fff) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3fff) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3fff) << 32);
 }
 
 // d (+)= a b for one m64n128k8 TF32 product of the warpgroup: a (64 x 8,
@@ -245,32 +211,6 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pins registers that an asynchronous wgmma reads or writes, so that the
-// compiler neither reuses nor reads them before the wait.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
 __global__ void __launch_bounds__(kThreads, 1)
 stiffness3d_dense_tf32_kernel(const float* __restrict__ op, Pointers ptrs,
                               Shape s, long long total_units) {
@@ -281,10 +221,7 @@ stiffness3d_dense_tf32_kernel(const float* __restrict__ op, Pointers ptrs,
   const int wg = threadIdx.x >> 7;          // the warpgroup: elements 64 wg..
   const int wrow = (threadIdx.x >> 5) & 3;  // its warp: 16 of them
 
-  const long long b = blockIdx.x;
-  Walk load = {b * total_units / gridDim.x,
-               (b + 1) * total_units / gridDim.x, 0, 0, 0, 0, 0, false};
-  start_tile(load, s);
+  Walk load = dense3d::first_tile(s, total_units);
   Walk comp = load;
 
   float acc[2][64];  // the two 128-row halves of the tile
@@ -299,19 +236,21 @@ stiffness3d_dense_tf32_kernel(const float* __restrict__ op, Pointers ptrs,
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     if (load.valid) {
-      load_stage(op, ptrs, load, s, smem + st * kStageFloats);
-      advance(load, s);
+      load_stage(op, ptrs, load, s,
+                                               smem + st * kStageFloats);
+      dense3d::advance(load, s);
     }
     cp_async_commit();
   }
 
   for (int step = 0; comp.valid; ++step) {
     cp_async_wait<kStages - 2>();  // this thread's copies of this step
-    __syncthreads();               // everyone's; step - 1 is done
+    __syncthreads();                        // everyone's; step - 1 is done
     if (load.valid) {
-      load_stage(op, ptrs, load, s,
-                 smem + ((step + kStages - 1) % kStages) * kStageFloats);
-      advance(load, s);
+      load_stage(
+          op, ptrs, load, s,
+          smem + ((step + kStages - 1) % kStages) * kStageFloats);
+      dense3d::advance(load, s);
     }
     cp_async_commit();
 
@@ -344,24 +283,24 @@ stiffness3d_dense_tf32_kernel(const float* __restrict__ op, Pointers ptrs,
         // depth would lose the small products' low bits against the
         // running sum (~1e-6 of the output at k^3 = 512, against ~3e-7).
         float part[64];
-        wgmma_fence();
+        dense3d::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 2; ++kk) {
           // Operator part pt, step kk, half h: core matrices at
           // ((pt * 2 + kk) * 2 + kc) * 32 + ng, 128 bytes each.
           const float* hi_b = op_s + ((0 * 2 + kk) * 2 * 32 + 16 * h) * 32;
           const float* lo_b = op_s + ((1 * 2 + kk) * 2 * 32 + 16 * h) * 32;
-          wgmma_tf32(part, alo[kk], descriptor(hi_b, 32 * 128, 128), kk);
-          wgmma_tf32(part, ahi[kk], descriptor(lo_b, 32 * 128, 128), 1);
-          wgmma_tf32(part, ahi[kk], descriptor(hi_b, 32 * 128, 128), 1);
+          wgmma_tf32(part, alo[kk], dense3d::descriptor(hi_b, 32 * 128, 128), kk);
+          wgmma_tf32(part, ahi[kk], dense3d::descriptor(lo_b, 32 * 128, 128), 1);
+          wgmma_tf32(part, ahi[kk], dense3d::descriptor(hi_b, 32 * 128, 128), 1);
         }
-        wgmma_commit();
-        wgmma_wait_all();
-        pin(part);
-        pin(ahi[0]);
-        pin(ahi[1]);
-        pin(alo[0]);
-        pin(alo[1]);
+        dense3d::wgmma_commit();
+        dense3d::wgmma_wait<0>();
+        dense3d::pin(part);
+        dense3d::pin(ahi[0]);
+        dense3d::pin(ahi[1]);
+        dense3d::pin(alo[0]);
+        dense3d::pin(alo[1]);
 #pragma unroll
         for (int q = 0; q < 64; ++q) acc[h][q] += part[q];
       }
@@ -373,19 +312,7 @@ stiffness3d_dense_tf32_kernel(const float* __restrict__ op, Pointers ptrs,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         if (h < h_lo || h >= h_hi) continue;
-#pragma unroll
-        for (int n = 0; n < 16; ++n) {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int row = comp.p * kPanel + kHalf * h + 8 * n + 2 * t +
-                            (q & 1);
-            const int col = e + 8 * (q >> 1);
-            if (row < s.k3 && col < s.num_e) {
-              out[static_cast<long long>(row) * s.num_e + col] =
-                  acc[h][4 * n + q];
-            }
-          }
-        }
+        store_half(out, acc[h], s, comp.p, h, e);
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -393,30 +320,9 @@ stiffness3d_dense_tf32_kernel(const float* __restrict__ op, Pointers ptrs,
         for (int q = 0; q < 64; ++q) acc[h][q] = 0.0f;
       }
     }
-    advance(comp, s);
+    dense3d::advance(comp, s);
   }
   cp_async_wait<0>();  // no copy outlives the block
-}
-
-int sm_count(int* count) {
-  static int counts[kMaxDevices] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (device < kMaxDevices && counts[device] > 0) {
-    *count = counts[device];
-    return 0;
-  }
-  err = cudaDeviceGetAttribute(count, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // Opened once per device to the kernel's shared memory, not at every
-  // launch.
-  err = cudaFuncSetAttribute(stiffness3d_dense_tf32_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (device < kMaxDevices) counts[device] = *count;
-  return 0;
 }
 
 int launch(const float* op, const Pointers& ptrs, int num_c, int k3,
@@ -424,16 +330,15 @@ int launch(const float* op, const Pointers& ptrs, int num_c, int k3,
   if ((reinterpret_cast<uintptr_t>(op) & 15) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  static int counts[dense3d::kMaxDevices] = {};
   int sms = 0;
-  const int err = sm_count(&sms);
+  const int err =
+      dense3d::sm_count(reinterpret_cast<const void*>(
+                            stiffness3d_dense_tf32_kernel),
+                        kSmemBytes, counts, &sms);
   if (err != 0) return err;
-  Shape s;
-  s.k3 = k3;
-  s.num_e = num_e;
-  s.chunks = (k3 + kBK - 1) / kBK;
-  s.panels = (k3 + kPanel - 1) / kPanel;
-  s.units = (num_e + kUnitE - 1) / kUnitE;
-  const long long total = static_cast<long long>(num_c) * s.panels * s.units;
+  long long total = 0;
+  const Shape s = dense3d::shape_of(k3, num_e, kBK, &total, num_c);
   const int blocks = static_cast<int>(total < sms ? total : sms);
   stiffness3d_dense_tf32_kernel<<<blocks, kThreads, kSmemBytes, stream>>>(
       op, ptrs, s, total);
@@ -555,23 +460,6 @@ int launch(const double* at, const Pointers& ptrs, int num_c, int k3,
 
 }  // namespace fp64
 
-// Checks shared by the entry points; fills `ptrs`.  Returns a CUDA error
-// code, or -1 when there is nothing to launch.
-int prepare(const void* const* us, void* const* outs, int num_c, int k3,
-            int num_e, Pointers* ptrs) {
-  if (num_c < 1 || num_c > kMaxComponents || k3 < 1 || k3 > kMaxK3 ||
-      num_e < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (num_e == 0) return -1;
-  *ptrs = {};
-  for (int c = 0; c < num_c; ++c) {
-    ptrs->u[c] = us[c];
-    ptrs->out[c] = outs[c];
-  }
-  return 0;
-}
-
 }  // namespace
 
 // float32: `op` is the TF32 split in its fragment layout,
@@ -580,7 +468,7 @@ extern "C" int stiffness3d_dense_f32(const void* op, const void* const* us,
                                      void* const* outs, int num_c, int k3,
                                      int num_e, void* stream) {
   Pointers ptrs;
-  const int err = prepare(us, outs, num_c, k3, num_e, &ptrs);
+  const int err = dense3d::prepare(us, outs, num_c, k3, num_e, &ptrs);
   if (err == -1) return static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   return tf32::launch(static_cast<const float*>(op), ptrs, num_c, k3, num_e,
@@ -592,7 +480,7 @@ extern "C" int stiffness3d_dense_f64(const void* op, const void* const* us,
                                      void* const* outs, int num_c, int k3,
                                      int num_e, void* stream) {
   Pointers ptrs;
-  const int err = prepare(us, outs, num_c, k3, num_e, &ptrs);
+  const int err = dense3d::prepare(us, outs, num_c, k3, num_e, &ptrs);
   if (err == -1) return static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   return fp64::launch(static_cast<const double*>(op), ptrs, num_c, k3, num_e,

@@ -2,7 +2,9 @@
 // slab of an element as columns of one product: the general kernels
 // (stiffness3d_pair_general.cu: the xi-slab kernel that pair, pairs2 and
 // pairs4 run, and the zeta-slab kernel of pairz) and the affine one
-// (stiffness3d_pair_affine.cu).
+// (stiffness3d_pair_affine.cu); and the congruent kernel
+// (stiffness3d_pair.cu), whose one product needs neither the flux nor the
+// transposed stage (`pair_congruent_kernel`, at its definition).
 //
 // A field (k, k, k, E) is viewed as k slabs along a chain axis, the other
 // two axes merged into one pair axis of M = k^2 entries p: xi-slabs of the
@@ -142,22 +144,11 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// (hi, lo) of two neighbouring values as bf16 pairs, x in the low half:
-// hi = bf16(x), lo = bf16(x - hi), round to nearest even.
-__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
 __device__ __forceinline__ void store_split2(float x, float y,
                                              __nv_bfloat16* hi_p,
                                              __nv_bfloat16* lo_p, int i) {
   uint32_t hi, lo;
-  split2(x, y, hi, lo);
+  split_bf16::split2(x, y, hi, lo);
   *reinterpret_cast<uint32_t*>(hi_p + i) = hi;
   *reinterpret_cast<uint32_t*>(lo_p + i) = lo;
 }
@@ -565,6 +556,222 @@ pair_columns_kernel(const __nv_bfloat16* __restrict__ dp,
     }
     tile = next_tile;
     comp = next_comp;
+  }
+}
+
+// The congruent kernel (stiffness3d_pair.cu): the columns tiling of
+// Layout, with the split A2 (Mp x Mp) in place of DP, a ring of two field
+// operands B1 and no flux operand.  Mirrored by
+// cuda_stiffness3d.pair_congruent_layout (tested on the CPU).
+template <int K>
+struct CongruentLayout {
+  using Tiling = Layout<K, kXi>;
+  static constexpr int M = Tiling::M;
+  static constexpr int Mp = Tiling::Mp;
+  static constexpr int kTiles = Tiling::kTiles;
+  static constexpr int kTE = Tiling::kTE;
+  static constexpr int kThreads = Tiling::kThreads;
+  static constexpr int kLdB = Tiling::kLdB;
+  static constexpr int kLdA = Mp + 8;
+  // c11 At (k^2), w (k), W2hi and W2lo (k^2 each), float32.
+  static constexpr int kTableUsed = 3 * K * K + K;
+  static constexpr int kTable = (kTableUsed + 3) / 4 * 4;
+  static constexpr int kAPart = Mp * kLdA;  // bf16, hi or lo
+  static constexpr int kBPart = Mp * kLdB;
+  static constexpr int kSmem = kTable * 4 + 4 * kAPart + 8 * kBPart;
+  static_assert(kSmem <= kSmemLimit, "shared memory");
+  static_assert(((kLdA / 8) & 1) == 1,
+                "rows of an odd number of 16-byte units");
+};
+
+// The congruent operator in pair-axis form on xi-slabs,
+//
+//   out[a] = w_a mm3(A2, u[a]) + sum_b (c11 At)[a, b] mm3(W2, u[b]),
+//
+// A2 = c22 At (x) W + c33 W (x) At split on the host, W2 = diag(w (x) w):
+// its mm3 is three exact products a point, (W2hi uhi + W2hi ulo) + W2lo uhi,
+// and the xi chain is FP32 FFMA.  Per unit (tile, component): each thread
+// splits the field it holds at its points into the operand B1 of the unit
+// (a ring of two, so that one barrier a unit suffices: a warp writes the
+// next unit's operand only after every warp passed the barrier that follows
+// the products of the unit before it) and forms the W2 products and the
+// chain from the same registers; after the barrier the next unit's field is
+// in flight while A2 multiplies every slab's columns, each A fragment a
+// warp loads feeding its k n8 fragments, and the thread adds w_a A2 u[a]
+// and the chain at its points and stores them.
+template <int K>
+__global__ void __launch_bounds__(CongruentLayout<K>::kThreads, 1)
+pair_congruent_kernel(const __nv_bfloat16* __restrict__ a2,
+                      const float* __restrict__ table, Pointers ptrs,
+                      int num_c, int num_e, bool vec) {
+  using L = CongruentLayout<K>;
+  constexpr int M = L::M;
+  constexpr int Mp = L::Mp;
+  constexpr int kLdA = L::kLdA;
+  constexpr int kLdB = L::kLdB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* tab = reinterpret_cast<float*>(smem_raw);
+  const float* cat = tab;  // c11 At[a][b] at a K + b
+  const float* w_s = cat + K * K;
+  const float* w2hi_s = w_s + K;
+  const float* w2lo_s = w2hi_s + M;
+  __nv_bfloat16* a_hi = reinterpret_cast<__nv_bfloat16*>(tab + L::kTable);
+  __nv_bfloat16* a_lo = a_hi + L::kAPart;
+  // B1 of ring slot q, part pt at b_s + (2 q + pt) kBPart:
+  // [p][(group K + a) 8 + e].
+  __nv_bfloat16* b_s = a_lo + L::kAPart;
+
+  const int tid = threadIdx.x;
+  for (int i = tid; i < L::kTableUsed; i += L::kThreads) tab[i] = table[i];
+  for (int v = tid; v < 2 * Mp * (Mp / 8); v += L::kThreads) {
+    const int row = v / (Mp / 8);  // part Mp + r
+    const int c = (v - row * (Mp / 8)) * 8;
+    *reinterpret_cast<uint4*>(a_hi + row * kLdA + c) =
+        *reinterpret_cast<const uint4*>(a2 + row * Mp + c);
+  }
+  __syncthreads();
+
+  // Warp (ti, grp): pair rows 16 ti + g (+ 8), column group grp; the thread's
+  // points are those rows at elements 2t, 2t + 1 of the group.
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int ti = warp % L::kTiles;
+  const int grp = warp / L::kTiles;
+  const int prow[2] = {16 * ti + g, 16 * ti + g + 8};
+  const bool plive[2] = {prow[0] < M, prow[1] < M};
+  const long long roff[2] = {static_cast<long long>(prow[0]) * num_e,
+                             static_cast<long long>(prow[1]) * num_e};
+  const long long slab_step = static_cast<long long>(M) * num_e;
+  const int col0 = grp * K * 8 + 2 * t;
+  const float w2h[2] = {plive[0] ? w2hi_s[prow[0]] : 0.0f,
+                        plive[1] ? w2hi_s[prow[1]] : 0.0f};
+  const float w2l[2] = {plive[0] ? w2lo_s[prow[0]] : 0.0f,
+                        plive[1] ? w2lo_s[prow[1]] : 0.0f};
+  // ldmatrix row addresses: A2 tiles (rows lane % 16, column half lane /
+  // 16); B1 (rows lane % 16 of the hi part for lanes 0-15, of the lo part
+  // for lanes 16-31).
+  const int a_off = (16 * ti + (lane & 15)) * kLdA + (lane >> 4) * 8;
+  const int b_off = ((lane >> 4) * L::kBPart + (lane & 15) * kLdB +
+                     grp * K * 8);
+
+  const int num_tiles = (num_e + L::kTE - 1) / L::kTE;
+  float uv[K][2][2];  // the field at this thread's points, every slab
+  auto load_field = [&](int tile, int comp) {
+    const long long e = static_cast<long long>(tile) * L::kTE + grp * 8 +
+                        2 * t;
+    const float* u = ptrs.u[comp];
+#pragma unroll
+    for (int m = 0; m < K; ++m) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        load2<true>(u + roff[r] + m * slab_step + e, plive[r], e, num_e, vec,
+                    uv[m][r]);
+      }
+    }
+  };
+
+  int tile = blockIdx.x;
+  int comp = 0;
+  int slot = 0;
+  if (tile < num_tiles) load_field(tile, 0);
+  while (tile < num_tiles) {
+    const long long e = static_cast<long long>(tile) * L::kTE + grp * 8 +
+                        2 * t;
+    __nv_bfloat16* b1_hi = b_s + 2 * slot * L::kBPart;
+
+    // The split of the field into B1, the W2 products and the chain, from
+    // the same values.
+    float ch[K][2][2];
+    {
+      float w2u[K][2][2];
+#pragma unroll
+      for (int b = 0; b < K; ++b) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          store_split2(uv[b][r][0], uv[b][r][1], b1_hi, b1_hi + L::kBPart,
+                       prow[r] * kLdB + col0 + b * 8);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float x = uv[b][r][j];
+            const float uhi = __bfloat162float(__float2bfloat16_rn(x));
+            const float ulo = __bfloat162float(__float2bfloat16_rn(x - uhi));
+            float v = w2h[r] * uhi;
+            v += w2h[r] * ulo;
+            v += w2l[r] * uhi;
+            w2u[b][r][j] = v;
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < K; ++a) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float s = 0.0f;
+#pragma unroll
+            for (int b = 0; b < K; ++b) {
+              s = fmaf(cat[a * K + b], w2u[b][r][j], s);
+            }
+            ch[a][r][j] = s;
+          }
+        }
+      }
+    }
+    __syncthreads();  // B1 complete; every warp is done with the other slot
+
+    // The next unit's field, in flight during the products.
+    int next_tile = tile;
+    int next_comp = comp + 1;
+    if (next_comp == num_c) {
+      next_comp = 0;
+      next_tile += gridDim.x;
+    }
+    if (next_tile < num_tiles) load_field(next_tile, next_comp);
+
+    // mm3(A2, U) over every slab's columns: the A tiles of this warp's rows
+    // once per 16-deep chunk, each feeding the k slabs.
+    float acc[K][4];
+#pragma unroll
+    for (int a = 0; a < K; ++a) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[a][q] = 0.0f;
+    }
+#pragma unroll
+    for (int kc = 0; kc < Mp / 16; ++kc) {
+      uint32_t ah[4], al[4];
+      split_bf16::ldmatrix_x4(ah, a_hi + a_off + 16 * kc);
+      split_bf16::ldmatrix_x4(al, a_lo + a_off + 16 * kc);
+#pragma unroll
+      for (int a = 0; a < K; ++a) {
+        uint32_t b[4];  // uhi (b0, b1), ulo (b2, b3)
+        split_bf16::ldmatrix_x4_trans(b,
+                                      b1_hi + 16 * kc * kLdB + b_off + a * 8);
+        mma(acc[a], ah, b[0], b[1]);
+        mma(acc[a], ah, b[2], b[3]);
+        mma(acc[a], al, b[0], b[1]);
+      }
+    }
+
+    // out[a] = w_a A2 u[a] + chain at this thread's points; fragment entry
+    // q = 2 r + j is the point (row r, element j).
+    float* __restrict__ out = ptrs.out[comp];
+#pragma unroll
+    for (int a = 0; a < K; ++a) {
+      const float wa = w_s[a];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (!plive[r]) continue;
+        store2(out + roff[r] + a * slab_step + e, e, num_e, vec,
+               fmaf(wa, acc[a][2 * r], ch[a][r][0]),
+               fmaf(wa, acc[a][2 * r + 1], ch[a][r][1]));
+      }
+    }
+    tile = next_tile;
+    comp = next_comp;
+    slot ^= 1;
   }
 }
 

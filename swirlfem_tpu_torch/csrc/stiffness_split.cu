@@ -1,34 +1,25 @@
-// Congruent-element stiffness in the split-bf16 classes, 2D and 3D dense:
-// out_c = A u_c for every component c, on the tensor cores.
+// Congruent-element 2D stiffness in the split-bf16 classes: out_c = A u_c
+// for every component c, on the tensor cores.
 //
 // Replaces the 'bf16x3' and 'default' classes of swirlfem_tpu/ops/
 // pallas_stiffness.py:stiffness_el_pallas_uniform (_kernel_uniform_mm3, and
-// _kernel_uniform_mm at Precision.DEFAULT) and the 'bf16x3' class of
-// swirlfem_tpu/ops/pallas_stiffness3d.py:stiffness3d_el_pallas_dense (which
-// reuses _kernel_uniform_mm3).  A is the static (k^2, k^2) operator of a
-// congruent 2D box or the (k^3, k^3) one of a congruent 3D box, split on the
-// host into bf16 hi / lo (split_bf16_mma.cuh has the arithmetic); each
-// component field is (rows, E) float32, element axis last.
+// _kernel_uniform_mm at Precision.DEFAULT).  A is the static (k^2, k^2)
+// operator of a congruent 2D box, split on the host into bf16 hi / lo
+// (split_bf16_mma.cuh has the arithmetic); each component field is (k^2, E)
+// float32, element axis last.  (The 3D dense operator's 'bf16x3' class is
+// stiffness3d_dense_split.cu's.)
 //
-// Design.  One kernel, two tile configurations (split_bf16_mma.cuh has the
-// block product):
-//   2D (rows_pad <= 128): a block holds every operator row (BM = 128) and
-//     32 element columns, 4 warps of 32 rows each; the depth (96 at order 8)
-//     is walked in chunks of 32.  At the datagen shape (E = 4096, C = 2)
-//     that is 256 blocks for the 132 SMs.
-//   3D (rows_pad > 128): 128 x 128 output tiles, 8 warps of 64 x 32, the
-//     1 MiB hi / lo operator streamed from L2 in depth chunks of 32, at most
-//     128 registers a thread so that two blocks share an SM; at 16^3
-//     elements, order 7, C = 3 that is 32 x 4 x 3 = 384 blocks.
+// Design (split_bf16_mma.cuh has the block product): a block holds every
+// operator row (BM = 128, so k^2 <= 128) and 32 element columns, 4 warps of
+// 32 rows each; the depth (96 at order 8) is walked in chunks of 32.  At the
+// datagen shape (E = 4096, C = 2) that is 256 blocks for the 132 SMs.
 // Components go to blockIdx.z: one launch for all of them.
 //
-// Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s).  2D datagen
+// Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s) at the datagen
 // shape, 3 passes: 3 x 2 x 81^2 x 4096 x 2 = 0.32 GFLOP, 0.33 us, against
 // (2 C k^2 E 4 + 2 x 96^2 x 2) B = 5.3 MB, 1.60 us: bytes bound it, and the
-// launch sets the time.  3D dense at 16^3, order 7, C = 3, 3 passes:
-// 3 x 2 x 512^2 x 4096 x 3 = 19.3 GFLOP, 19.5 us, against 51 MB, 15.3 us:
-// the tensor cores bound it.  The design keeps the field split in registers
-// and shared memory (hi / lo never reach device memory) and reuses every B
+// launch sets the time.  The design keeps the field split in registers and
+// shared memory (hi / lo never reach device memory) and reuses every B
 // fragment for all passes.
 
 #include "split_bf16_mma.cuh"
@@ -87,27 +78,15 @@ int launch(const Operator& op, const Pointers& ptrs, int num_c, int rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// BM, BN, BK, warps (M x N), passes, operator blocks, blocks per SM.
+// BM, BN, BK, warps (M x N), passes, operator blocks.
 template <int PASSES>
 using Config2D = split_bf16::Config<128, 32, 32, 4, 1, PASSES, 1>;
-template <int PASSES>
-using Config3D = split_bf16::Config<128, 128, 32, 2, 4, PASSES, 1, 2>;
-
-template <int PASSES>
-int dispatch(const Operator& op, const Pointers& ptrs, int num_c, int rows,
-             int depth, int num_e, cudaStream_t stream) {
-  if (op.rows_pad <= 128) {
-    return launch<Config2D<PASSES>>(op, ptrs, num_c, rows, depth, num_e,
-                                    stream);
-  }
-  return launch<Config3D<PASSES>>(op, ptrs, num_c, rows, depth, num_e,
-                                  stream);
-}
 
 }  // namespace
 
-// hi, lo: (rows_pad, depth_pad) bf16; us, outs: num_c (rows, num_e) float32
-// fields (rows == depth: the operator is square before padding).
+// hi, lo: (rows_pad, depth_pad) bf16, rows_pad <= 128; us, outs: num_c
+// (rows, num_e) float32 fields (rows == depth: the operator is square before
+// padding).
 extern "C" int stiffness_uniform_split_f32(const void* hi, const void* lo,
                                            const void* const* us,
                                            void* const* outs, int num_c,
@@ -117,7 +96,7 @@ extern "C" int stiffness_uniform_split_f32(const void* hi, const void* lo,
   const int err = split_bf16::check_args(num_c, rows, rows, rows_pad,
                                          depth_pad, num_e);
   if (err != 0) return err;
-  if (passes != 1 && passes != 3) {
+  if ((passes != 1 && passes != 3) || rows_pad > Config2D<1>::BM) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_e == 0) return static_cast<int>(cudaGetLastError());
@@ -130,6 +109,7 @@ extern "C" int stiffness_uniform_split_f32(const void* hi, const void* lo,
     ptrs.out[c] = static_cast<float*>(outs[c]);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return passes == 3 ? dispatch<3>(op, ptrs, num_c, rows, rows, num_e, s)
-                     : dispatch<1>(op, ptrs, num_c, rows, rows, num_e, s);
+  return passes == 3
+             ? launch<Config2D<3>>(op, ptrs, num_c, rows, rows, num_e, s)
+             : launch<Config2D<1>>(op, ptrs, num_c, rows, rows, num_e, s);
 }

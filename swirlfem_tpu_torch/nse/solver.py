@@ -207,13 +207,18 @@ class StokesSEM:
   def create(cls, premesh: Premesh, boundary_conditions, order: int, *,
              device: torch.device | str, dtype: torch.dtype,
              kernel_precision: str = 'highest',
-             coord_transform=None) -> 'StokesSEM':
+             coord_transform=None, use_kernels: bool = True) -> 'StokesSEM':
     """Builds the solver on the host and moves the step's fields.
 
     `coord_transform(refined_premesh) -> node_coords` moves the refined
     nodes of both spaces (curved or graded geometry); the pressure space
     then integrates on the velocity geometry, so that D and D^T stay exact
     transposes (``swirlfem_tpu/nse/solver.py:306-318``).
+    `use_kernels` (the JAX package's `use_pallas_kernels`, whose default
+    there is the einsum path): True, the default here, runs each stiffness
+    key's hand-written kernel on CUDA tensors, within its orders (every 3D
+    kernel takes order <= 9, and a launch beyond raises, naming this knob);
+    False runs the key's plain version on every device, at any order.
     """
     if premesh.order != 1:
       raise ValueError(f'expected an order-1 premesh, got {premesh.order}')
@@ -248,9 +253,11 @@ class StokesSEM:
           'ROADMAP.md, Queue 1 item 16)')
     if premesh.ndim == 2:
       fast_ops = sem2d.build_sem2d_ops(velocity, pressure,
-                                       kernel_precision=kernel_precision)
+                                       kernel_precision=kernel_precision,
+                                       use_kernels=use_kernels)
     else:
-      fast_ops = sem3d.build_sem3d_ops(velocity, pressure)
+      fast_ops = sem3d.build_sem3d_ops(velocity, pressure,
+                                       use_kernels=use_kernels)
     device = torch.device(device)
     return cls(velocity=velocity, pressure=pressure,
                velocity_mass_diag=velocity_mass_diag,

@@ -26,12 +26,12 @@ _BUILD = _PKG / '_build'
 _SOURCES = ('exchange2d.cu', 'stiffness_uniform.cu', 'stiffness2d_general.cu',
             'stiffness2d_affine.cu', 'stiffness3d_uniform.cu',
             'stiffness3d_general.cu', 'stiffness3d_dense.cu',
-            'stiffness3d_pair.cu', 'stiffness3d_pair_general.cu',
-            'stiffness3d_pair_affine.cu', 'stiffness_split.cu',
-            'stiffness2d_affine_split.cu')
+            'stiffness3d_dense_split.cu', 'stiffness3d_pair.cu',
+            'stiffness3d_pair_general.cu', 'stiffness3d_pair_affine.cu',
+            'stiffness_split.cu', 'stiffness2d_affine_split.cu')
 # Headers the sources include; part of the build's hash.
 _HEADERS = ('stiffness3d_pair_columns.cuh', 'split_bf16_mma.cuh',
-            'stiffness2d_fp32.cuh')
+            'stiffness2d_fp32.cuh', 'stiffness3d_dense.cuh')
 _FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
           '-Xcompiler', '-fPIC')
 
@@ -66,8 +66,12 @@ _SIGNATURES = {
     # (amat_t, us[], outs[], num_c, k3, num_e, stream)
     'stiffness3d_dense_f32': (_P, _PP, _PP, _I, _I, _I, _P),
     'stiffness3d_dense_f64': (_P, _PP, _PP, _I, _I, _I, _P),
-    # (a2 split, table, us[], outs[], num_c, k, num_e, stream)
-    'stiffness3d_pair_f32': (_P, _P, _PP, _PP, _I, _I, _I, _P),
+    # (bf16 layout, us[], outs[], num_c, k3, num_e, stream)
+    'stiffness3d_dense_split_f32': (_P, _PP, _PP, _I, _I, _I, _P),
+    # (a2 split, table, us[], outs[], num_c, k, num_e, grid, stream)
+    'stiffness3d_pair_f32': (_P, _P, _PP, _PP, _I, _I, _I, _I, _P),
+    # (k, out[4]: tile_e, threads, shared bytes, blocks per SM)
+    'stiffness3d_pair_layout': (_I, ctypes.POINTER(_I)),
     # (dp split, dmat, us[], gs[6], outs[], num_c, k, num_e, grid, stream)
     'stiffness3d_pair_general_f32': (_P, _P, _PP, _PP, _PP, _I, _I, _I, _I,
                                      _P),
@@ -90,6 +94,12 @@ _SIGNATURES = {
     'stiffness2d_affine_split_f32': (_P, _P, _PP, _PP, _I, _I, _I, _I, _I, _I,
                                      _I, _I, _I, _I, _I, _P),
 }
+
+# Appended to the launch checks that refuse an order: the plain versions
+# take any order when the caller asks for them.
+PLAIN_PATH_HINT = ('; use_kernels=False (StokesSEM.create, build_sem2d_ops, '
+                   'build_sem3d_ops) runs the plain versions at any order '
+                   '(ROADMAP.md, Queue 3 item 6)')
 
 _library: ctypes.CDLL | None = None
 build_seconds: float | None = None

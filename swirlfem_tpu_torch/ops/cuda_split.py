@@ -5,10 +5,13 @@ Replaces the 'bf16x3' and 'default' arithmetic classes of three Pallas
 kernels of the JAX package:
 
 * ``swirlfem_tpu/ops/pallas_stiffness.py:stiffness_el_pallas_uniform``
-  (``_kernel_uniform_mm3``; ``_kernel_uniform_mm`` at ``Precision.DEFAULT``)
-  and ``swirlfem_tpu/ops/pallas_stiffness3d.py:stiffness3d_el_pallas_dense``
-  ('bf16x3'): `stiffness_uniform_split`, ``out_c = A u_c`` for a congruent
-  box's static ``(k^2, k^2)`` or ``(k^3, k^3)`` operator;
+  (``_kernel_uniform_mm3``; ``_kernel_uniform_mm`` at ``Precision.DEFAULT``):
+  `stiffness_uniform_split`, ``out_c = A u_c`` for a congruent 2D box's
+  static ``(k^2, k^2)`` operator;
+* ``swirlfem_tpu/ops/pallas_stiffness3d.py:stiffness3d_el_pallas_dense``
+  ('bf16x3', ``_kernel_uniform_mm3``): `stiffness3d_dense_split`, the same
+  product for a congruent 3D box's ``(k^3, k^3)`` operator, whose split the
+  kernel reads in ``wgmma``'s order (`dense_bf16_layout_np`);
 * ``swirlfem_tpu/ops/pallas_stiffness.py:stiffness_el_pallas_affine``
   (``_kernel_affine_mm3``; ``_kernel_affine_mm`` at DEFAULT):
   `stiffness2d_affine_split`, ``y = [M11; M12; M22] u`` combined per element
@@ -23,10 +26,12 @@ single bf16 pass), both accumulating in float32.  A bf16 product is exact
 in float32, so kernel and plain version differ only in the order of their
 sums.
 
-The kernels (``csrc/stiffness_split.cu``, ``csrc/stiffness2d_affine_split.cu``,
-on ``csrc/split_bf16_mma.cuh``) run ``mma.sync`` bf16 tensor-core products
-and take float32 only: the classes are defined on float32.  The affine one
-cuts its work by `affine_work_plan`.  Each wrapper
+The 2D kernels (``csrc/stiffness_split.cu``,
+``csrc/stiffness2d_affine_split.cu``, on ``csrc/split_bf16_mma.cuh``) run
+``mma.sync`` bf16 tensor-core products, the 3D dense one
+(``csrc/stiffness3d_dense_split.cu``) ``wgmma``; all take float32 only: the
+classes are defined on float32.  The affine one cuts its work by
+`affine_work_plan`.  Each wrapper
 takes its plain version only for CPU tensors; for CUDA tensors it launches
 its kernel or raises, and counts the launch in ``<wrapper>.launches``.
 """
@@ -58,6 +63,15 @@ AFFINE_TILES = (32, 16)
 AFFINE_MAX_STEPS = 4
 _AFFINE_BLOCKS_PER_SM = 2
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
+# The 2D congruent kernel holds every operator row in one block.
+MAX_UNIFORM_ROWS_PAD = 128
+# The 3D dense kernel's bf16 operator layout: panels of 256 operator rows,
+# the depth in chunks of 16, padded to an even number of them (the kernel
+# stages two at a time, ``csrc/stiffness3d_dense_split.cu``); it takes
+# k^3 <= 1000.
+DENSE_PANEL = 256
+DENSE_DEPTH = 16
+MAX_DENSE_ROWS = 1000
 
 
 def _ceil_pad(n: int) -> int:
@@ -154,6 +168,39 @@ def pair_uniform_split_np(c_uniform, w1, dmat):
   return split_operator_np(a2), table
 
 
+def dense_bf16_layout_shape(k3: int) -> tuple:
+  """Shape of `dense_bf16_layout_np` for a ``(k3, k3)`` operator."""
+  return (-(-k3 // DENSE_PANEL), 2 * -(-k3 // (2 * DENSE_DEPTH)), 2,
+          DENSE_PANEL // 8, 8, 2, 8)
+
+
+def dense_bf16_layout_np(a64) -> np.ndarray:
+  """The 3D dense kernel's operand: the bf16 split (`split_operator_np`) of
+  the ``(k^3, k^3)`` operator as ``wgmma`` reads a K-major B operand in the
+  32-byte swizzle.
+
+  Shape `dense_bf16_layout_shape`, ``[p, c, part, n, r, s, q]``: panel p of
+  256 operator rows, depth chunk c of 16, ``hi`` (part 0) or ``lo`` (part
+  1), 8-row group n, row r of the group, 16-byte unit s of its 32-byte row:
+  row ``256 p + 8 n + r``, depths ``16 c + 8 (s ^ (r >> 2 & 1)) + q`` (the
+  swizzle swaps a row's two units where bit 2 of its row index is set).
+  Rows are padded to a multiple of 256 and the depth to one of 32, with
+  zeros.  float32 values, each a bf16 value (the caller casts to
+  bfloat16).
+  """
+  rows, depth = np.shape(a64)
+  shape = dense_bf16_layout_shape(rows)
+  parts = np.zeros((2, shape[0] * DENSE_PANEL, shape[1] * DENSE_DEPTH),
+                   np.float32)
+  split = split_operator_np(a64)
+  parts[:, :split.shape[1], :split.shape[2]] = split
+  # [part, p, n, r, c, h, q] -> [p, c, part, n, r, h, q]
+  blocks = parts.reshape(2, shape[0], DENSE_PANEL // 8, 8, shape[1], 2, 8)
+  out = np.ascontiguousarray(blocks.transpose(1, 4, 0, 2, 3, 5, 6))
+  out[:, :, :, :, 4:] = out[:, :, :, :, 4:, ::-1].copy()
+  return out
+
+
 def split_product_plain(hi: torch.Tensor, lo: torch.Tensor, u: torch.Tensor,
                         passes: int) -> torch.Tensor:
   """``hi uhi (+ hi ulo + lo uhi)`` in `u`'s dtype: the JAX package's
@@ -244,23 +291,27 @@ def _ptrs(tensors):
 
 def stiffness_uniform_split(us, hi: torch.Tensor, lo: torch.Tensor,
                             passes: int):
-  """Congruent-element stiffness of C components in a split-bf16 class.
+  """Congruent-element 2D stiffness of C components in a split-bf16 class.
 
   Args:
-    us: tuple of C component fields, each ``(k, k, E)`` (2D) or
-      ``(k, k, k, E)`` (3D dense), or ``(rows, E)``.
-    hi, lo: the bf16 split of the ``(rows, rows)`` operator
+    us: tuple of C component fields, each ``(k, k, E)`` or ``(k^2, E)``.
+    hi, lo: the bf16 split of the ``(k^2, k^2)`` operator
       (`split_operator_np`), on the fields' device.
     passes: 3 ('bf16x3') or 1 ('default').
 
   CPU tensors: `stiffness_uniform_split_plain`.  CUDA tensors: one launch
-  of the tensor-core kernel for all components, counted in
+  of the tensor-core kernel for all components (``k^2 <= 128``), counted in
   ``stiffness_uniform_split.launches``.
   """
   us, rows = _check('stiffness_uniform_split', us, hi, lo, passes, 1)
   if hi.device.type == 'cpu':
     return stiffness_uniform_split_plain(us, hi, lo, passes)
   _check_launchable('stiffness_uniform_split', us + (hi, lo), len(us))
+  if hi.shape[0] > MAX_UNIFORM_ROWS_PAD:
+    raise ValueError(f'stiffness_uniform_split kernel takes a 2D operator of '
+                     f'at most {MAX_UNIFORM_ROWS_PAD} padded rows, got '
+                     f'{hi.shape[0]} ({rows} rows)'
+                     + cuda_build.PLAIN_PATH_HINT)
   outs = tuple(torch.empty_like(u) for u in us)
   stream = torch.cuda.current_stream(hi.device).cuda_stream
   cuda_build.check(cuda_build.library().stiffness_uniform_split_f32(
@@ -272,6 +323,51 @@ def stiffness_uniform_split(us, hi: torch.Tensor, lo: torch.Tensor,
 
 
 stiffness_uniform_split.launches = 0
+
+
+def stiffness3d_dense_split(us, hi: torch.Tensor, lo: torch.Tensor,
+                            layout=None):
+  """Congruent-element 3D stiffness as one dense ``(k^3, k^3)`` operator,
+  class 'bf16x3'.
+
+  Args:
+    us: tuple of C component fields, each ``(k, k, k, E)`` (or ``(k^3,
+      E)``).
+    hi, lo: the bf16 split of the operator (`split_operator_np`), on the
+      fields' device; the plain version reads them.
+    layout: `dense_bf16_layout_np` of the same operator, bfloat16 on the
+      fields' device (``Sem3DOps.dense_bf16``); the kernel reads it, and
+      needs it.
+
+  CPU tensors: `stiffness_uniform_split_plain` at three passes.  CUDA
+  tensors: one launch of the ``wgmma`` kernel for all components (``k^3 <=
+  1000``), counted in ``stiffness3d_dense_split.launches``.
+  """
+  us, rows = _check('stiffness3d_dense_split', us, hi, lo, 3, 1)
+  if hi.device.type == 'cpu':
+    return stiffness_uniform_split_plain(us, hi, lo, 3)
+  _check_launchable('stiffness3d_dense_split', us + (hi, lo), len(us))
+  if rows > MAX_DENSE_ROWS:
+    raise ValueError(f'stiffness3d_dense_split kernel takes k^3 <= '
+                     f'{MAX_DENSE_ROWS} (k <= 10), got {rows}'
+                     + cuda_build.PLAIN_PATH_HINT)
+  shape = dense_bf16_layout_shape(rows)
+  if (layout is None or tuple(layout.shape) != shape
+      or layout.dtype != torch.bfloat16 or layout.device != hi.device
+      or not layout.is_contiguous()):
+    raise ValueError(f'the dense bf16x3 kernel needs the operator\'s '
+                     f'dense_bf16_layout_np, contiguous bfloat16 {shape} on '
+                     f'{hi.device}')
+  outs = tuple(torch.empty_like(u) for u in us)
+  stream = torch.cuda.current_stream(hi.device).cuda_stream
+  cuda_build.check(cuda_build.library().stiffness3d_dense_split_f32(
+      layout.data_ptr(), _ptrs(us), _ptrs(outs), len(us), rows,
+      us[0].shape[-1], stream), 'stiffness3d_dense_split')
+  stiffness3d_dense_split.launches += 1
+  return outs
+
+
+stiffness3d_dense_split.launches = 0
 
 
 class AffinePlan(NamedTuple):
@@ -400,7 +496,8 @@ def stiffness2d_affine_split(us, c_aff: torch.Tensor, hi: torch.Tensor,
                     len(us))
   if hi.shape[0] // 3 > MAX_AFFINE_ROWS_PAD:
     raise ValueError(f'stiffness2d_affine_split kernel takes k^2 <= '
-                     f'{MAX_AFFINE_ROWS_PAD}; got {rows}')
+                     f'{MAX_AFFINE_ROWS_PAD}; got {rows}'
+                     + cuda_build.PLAIN_PATH_HINT)
   if tuple(hi.shape) != (3 * _ceil_pad(rows), _ceil_pad(rows)):
     raise ValueError(f'stiffness2d_affine_split kernel takes the padding of '
                      f'split_operator_np, got {tuple(hi.shape)}')

@@ -124,7 +124,7 @@ def _launch_general(us, gs, dmat: torch.Tensor):
                                   len(us), dmat.dtype)
   if not 2 <= k <= MAX_K:
     raise ValueError(f'stiffness2d_general kernel takes 2 <= k <= {MAX_K}, '
-                     f'got {k}')
+                     f'got {k}' + cuda_build.PLAIN_PATH_HINT)
   num_e = us[0].shape[-1]
   outs = tuple(torch.empty_like(u) for u in us)
   fn = getattr(cuda_build.library(),

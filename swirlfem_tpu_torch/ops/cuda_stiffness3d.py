@@ -406,11 +406,18 @@ def _check_launchable(what, tensors, num_c, k, dtype):
   MAX_K."""
   if dtype not in (torch.float32, torch.float64):
     raise TypeError(f'{what} kernel takes float32/float64, got {dtype}')
-  if not 1 <= num_c <= MAX_COMPONENTS or not 2 <= k <= MAX_K:
-    raise ValueError(f'{what} kernel takes 1..{MAX_COMPONENTS} components and '
-                     f'2 <= k <= {MAX_K}; got {num_c}, {k}')
+  _check_counts(what, num_c, k)
   if not all(t.is_contiguous() for t in tensors):
     raise ValueError(f'{what} kernel needs contiguous tensors')
+
+
+def _check_counts(what, num_c, k):
+  """1..MAX_COMPONENTS components and 2 <= k <= MAX_K, every kernel's
+  range; beyond it the message names the knob of the plain path."""
+  if not 1 <= num_c <= MAX_COMPONENTS or not 2 <= k <= MAX_K:
+    raise ValueError(f'{what} kernel takes 1..{MAX_COMPONENTS} components and '
+                     f'2 <= k <= {MAX_K}; got {num_c}, {k}'
+                     + cuda_build.PLAIN_PATH_HINT)
 
 
 def _ptrs(tensors):
@@ -625,9 +632,7 @@ def _check_split_launchable(what, tensors, num_c, k, dtype):
   if dtype != torch.float32:
     raise TypeError(f'{what} kernel takes float32 (the bf16x3 class is '
                     f'defined on float32), got {dtype}')
-  if not 1 <= num_c <= MAX_COMPONENTS or not 2 <= k <= MAX_K:
-    raise ValueError(f'{what} kernel takes 1..{MAX_COMPONENTS} components and '
-                     f'2 <= k <= {MAX_K}; got {num_c}, {k}')
+  _check_counts(what, num_c, k)
   if not all(t.is_contiguous() for t in tensors):
     raise ValueError(f'{what} kernel needs contiguous tensors')
 
@@ -646,8 +651,8 @@ def stiffness3d_pair(us, a2: torch.Tensor, table: torch.Tensor):
     table: that function's table in the working dtype.
 
   CPU tensors: `stiffness3d_pair_plain`.  CUDA tensors: one launch of the
-  tensor-core kernel for all components, counted in
-  ``stiffness3d_pair.launches``.
+  tensor-core kernel for all components (persistent blocks,
+  `pair_columns_grid`), counted in ``stiffness3d_pair.launches``.
   """
   us = tuple(us)
   k = us[0].shape[0] if us else 0
@@ -660,9 +665,10 @@ def stiffness3d_pair(us, a2: torch.Tensor, table: torch.Tensor):
     return stiffness3d_pair_plain(us, a2, table)
   _check_split_launchable('stiffness3d_pair', us + (a2, table), len(us), k,
                           table.dtype)
+  grid = _pair_columns_grid_on(us, k, 'congruent', table.device)
   outs = _launch('stiffness3d_pair',
                  lambda pu, po: (a2.data_ptr(), table.data_ptr(), pu, po), us,
-                 table, k)
+                 table, k, extra=(grid,))
   stiffness3d_pair.launches += 1
   return outs
 
@@ -703,6 +709,23 @@ def pair_columns_layout(k: int, affine: bool = False) -> dict:
               threads=32 * tiles * groups, ld_b=ld_b, smem_bytes=smem)
 
 
+def pair_congruent_layout(k: int) -> dict:
+  """The congruent pair kernel's block at ``k = order + 1``, as
+  ``csrc/stiffness3d_pair_columns.cuh:CongruentLayout`` computes it: the
+  tiling of `pair_columns_layout` (its tile, threads and operand rows), with
+  `smem_bytes` its table (``c11 At``, ``w``, ``W2`` hi and lo: ``3 k^2 + k``
+  floats), A2's (hi, lo) split ``(m_pad, m_pad)`` in rows of ``m_pad + 8``,
+  and a ring of two (hi, lo) field operands ``(m_pad, k tile_e)`` in rows of
+  ``ld_b``.
+  """
+  lay = dict(pair_columns_layout(k))
+  m_pad, ld_b = lay['m_pad'], lay['ld_b']
+  table = -(-(3 * k * k + k) // 4) * 4
+  lay['smem_bytes'] = 4 * table + 2 * (2 * m_pad * (m_pad + 8)
+                                       + 4 * m_pad * ld_b)
+  return lay
+
+
 def pair_columns_grid(num_e: int, k: int, num_sms: int,
                       blocks_per_sm: int) -> int:
   """Persistent blocks of the pair-columns kernels: one per tile of
@@ -713,18 +736,22 @@ def pair_columns_grid(num_e: int, k: int, num_sms: int,
 
 def _pair_columns_blocks_per_sm(k: int, variant: str, device) -> int:
   """Resident blocks per SM of the pair-columns kernel `variant` ('xi',
-  'zeta', 'affine') at `k`, its layout checked against
-  `pair_columns_layout`."""
+  'zeta', 'affine', 'congruent') at `k`, its layout checked against
+  `pair_columns_layout` (`pair_congruent_layout`)."""
   lib = cuda_build.library()
+  want = pair_columns_layout(k, variant == 'affine')
   if variant == 'affine':
     fn, args, what = (lib.stiffness3d_pair_affine_layout, (k,),
                       'stiffness3d_pair_affine_layout')
+  elif variant == 'congruent':
+    fn, args, what = (lib.stiffness3d_pair_layout, (k,),
+                      'stiffness3d_pair_layout')
+    want = pair_congruent_layout(k)
   else:
     fn, args, what = (lib.stiffness3d_pair_columns_layout,
                       (k, int(variant == 'zeta')),
                       'stiffness3d_pair_columns_layout')
-  return _blocks_per_sm(fn, args, pair_columns_layout(k, variant == 'affine'),
-                        what, device)
+  return _blocks_per_sm(fn, args, want, what, device)
 
 
 def _pair_columns_grid_on(us, k: int, variant: str, device) -> int:

@@ -247,7 +247,7 @@ def check_stiffness3d_dense_split(ops, us) -> dict:
   """The dense 3D kernel in the 'bf16x3' class vs its plain version and the
   float64 dense operator of the congruent box."""
   hi, lo = ops.dense_split()
-  got = cuda_split.stiffness_uniform_split(us, hi, lo, 3)
+  got = cuda_split.stiffness3d_dense_split(us, hi, lo, ops.dense_bf16())
   plain = cuda_split.stiffness_uniform_split_plain(us, hi, lo, 3)
   ref = _uniform_ref64(ops, us)
   torch.cuda.synchronize(hi.device)

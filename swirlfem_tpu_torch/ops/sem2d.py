@@ -21,7 +21,8 @@ arithmetic class, `kernel_precision`: 'highest' (FP32 FFMA kernels) or the
 split-bf16 classes 'bf16x3' and 'default' (tensor-core kernels of
 ops.cuda_split on the congruent and affine classes).  Every key has a plain
 version, which CPU tensors run, and a hand-written kernel, which CUDA
-tensors run.
+tensors run unless ``use_kernels`` is False (the JAX package's
+``use_pallas=False``): then they run the plain version too, at any order.
 """
 
 from __future__ import annotations
@@ -216,6 +217,10 @@ class Sem2DOps:
   # (FP32, no TF32), 'bf16x3' (three bf16 tensor-core passes, ~1e-5
   # relative) or 'default' (one bf16 pass, ~1e-3: preconditioner grade).
   kernel_precision: str = 'highest'
+  # CUDA tensors run the key's hand-written kernel; False runs its plain
+  # version, at any order, as the JAX package's use_pallas=False runs its
+  # einsums.  CPU tensors always run the plain one.
+  use_kernels: bool = True
   # Device copies of the 1D matrices (and of the congruent-element operator
   # 'amat' and the affine operator stack 'mstack', each beside its kernel
   # layout 'amat_t' / 'mstack_t', `cuda_stiffness.operator_layout`), in the
@@ -321,10 +326,12 @@ class Sem2DOps:
 
   def stiffness_el_multi(self, us):
     """A_local on a tuple of components, in one call of the dispatched
-    implementation (one kernel launch on CUDA)."""
+    implementation (one kernel launch on CUDA, unless `use_kernels` is
+    False)."""
     us = tuple(us)
     entry = STIFFNESS_DISPATCH[self.stiffness_key]
-    return (entry.kernel if us[0].is_cuda else entry.plain)(self, us)
+    use_kernel = us[0].is_cuda and self.use_kernels
+    return (entry.kernel if use_kernel else entry.plain)(self, us)
 
   def stiffness_diag_el(self) -> torch.Tensor:
     """Element-local diagonal of the stiffness operator, (n, n, E).
@@ -384,14 +391,15 @@ class Sem2DOps:
     return tuple(outs)
 
 
-def build_sem2d_ops(velocity, pressure,
-                    kernel_precision: str = 'highest') -> Sem2DOps:
+def build_sem2d_ops(velocity, pressure, kernel_precision: str = 'highest',
+                    use_kernels: bool = True) -> Sem2DOps:
   """Builds E-last factors from the generic spaces (host/setup time).
 
   The spaces' tensors set the device and dtype of the result (the solver
   builds them on the host in float64 and moves the result once, see
   `Sem2DOps.to`).  Affine and congruent elements are detected from the
   node coordinates in float64 (``swirlfem_tpu/ops/sem2d.py:375-426``).
+  `use_kernels` is `Sem2DOps.use_kernels`.
   """
   vspace = velocity.vspace
   vinfo = vspace.mesh.structured
@@ -470,4 +478,5 @@ def build_sem2d_ops(velocity, pressure,
       interp_o=interpolation_matrix_1d(vgrid, ogrid),
       interp_o_grad=interpolation_grad_matrix_1d(vgrid, ogrid),
       vinfo=vinfo, pinfo=pinfo, g_affine=g_affine, wq2d=wq2d,
-      c_uniform=c_uniform, kernel_precision=kernel_precision)
+      c_uniform=c_uniform, kernel_precision=kernel_precision,
+      use_kernels=use_kernels)

@@ -12,7 +12,9 @@ space and the overintegrated convection form.
 The stiffness apply dispatches through ONE table keyed by (operator class,
 implementation), `STIFFNESS_DISPATCH`.  CPU tensors run the key's plain
 version; CUDA tensors run its hand-written kernel (``ops.cuda_stiffness3d``,
-``ops.cuda_split``): every key has one.  The
+``ops.cuda_split``): every key has one, for k = order + 1 <= 10.  With
+``use_kernels=False`` (the JAX package's ``use_pallas=False``) CUDA tensors
+run the plain version too, at any order.  The
 periodic el exchange stays plain PyTorch (the JAX package has no 3D
 exchange kernel).
 """
@@ -144,8 +146,8 @@ def _dense_plain(ops, us):
 
 def _dense_kernel(ops, us):
   if ops.kernel_precision in cuda_split.PASSES:
-    return cuda_split.stiffness_uniform_split(
-        us, *ops.dense_split(), cuda_split.PASSES[ops.kernel_precision])
+    return cuda_split.stiffness3d_dense_split(us, *ops.dense_split(),
+                                              ops.dense_bf16())
   return cuda_stiffness3d.stiffness3d_dense(us, ops.dense_operator_t(),
                                             ops.dense_tf32())
 
@@ -240,7 +242,8 @@ class Sem3DOps:
   `mats` (the step reads only those).  The kernel knobs mirror the JAX
   package's (`use_uniform_kernel`, `use_affine_kernel`,
   `uniform_kernel_impl`, `general_kernel_impl`, `kernel_precision`) and
-  select the key of `STIFFNESS_DISPATCH`.
+  select the key of `STIFFNESS_DISPATCH`; `use_kernels` (the JAX package's
+  `use_pallas`) selects its kernel or its plain version on CUDA tensors.
   """
 
   # geometric factors at velocity GLL points, (k, k, k, E)
@@ -278,6 +281,10 @@ class Sem3DOps:
   # working precision; 'bf16x3' = the three-pass split class (tensor cores,
   # float32 only, ops.cuda_split).
   kernel_precision: str | None = None
+  # CUDA tensors run the key's hand-written kernel (k = order + 1 <= 10);
+  # False runs its plain version, at any order, as the JAX package's
+  # use_pallas=False runs its einsums.  CPU tensors always run the plain one.
+  use_kernels: bool = True
   # Device copies of the 1D matrices (and of the congruent coefficient
   # table 'table'), in the working dtype; filled in __post_init__.
   mats: dict = dataclasses.field(default_factory=dict, repr=False,
@@ -355,6 +362,13 @@ class Sem3DOps:
         cuda_stiffness3d.uniform_amat3d_np(self.c_uniform, self.w1,
                                            self.dmat)), torch.bfloat16)
     return split[0], split[1]
+
+  def dense_bf16(self) -> torch.Tensor:
+    """That split in the 'bf16x3' dense kernel's ``wgmma`` layout
+    (`cuda_split.dense_bf16_layout_np`), made once."""
+    return self.const('amat3d_bf16', lambda: cuda_split.dense_bf16_layout_np(
+        cuda_stiffness3d.uniform_amat3d_np(self.c_uniform, self.w1,
+                                           self.dmat)), torch.bfloat16)
 
   def _split(self, key: str, build):
     """A bfloat16 split operator (float32 from `build`), made once."""
@@ -440,13 +454,13 @@ class Sem3DOps:
 
   def stiffness_el_multi(self, us):
     """A_local on a tuple of components, in one call of the dispatched
-    implementation (one kernel launch on CUDA)."""
+    implementation (one kernel launch on CUDA, unless `use_kernels` is
+    False)."""
     us = tuple(us)
-    key = self.stiffness_key
-    entry = STIFFNESS_DISPATCH[key]
-    if not us[0].is_cuda:
-      return entry.plain(self, us)
-    return entry.kernel(self, us)
+    entry = STIFFNESS_DISPATCH[self.stiffness_key]
+    if us[0].is_cuda and self.use_kernels:
+      return entry.kernel(self, us)
+    return entry.plain(self, us)
 
   def stiffness_diag_el(self) -> torch.Tensor:
     """Element-local diagonal of the stiffness operator (closed form)."""
@@ -542,12 +556,14 @@ def _detect(g_diag, g_off, wq3, rel_tol):
   return c_uniform, rows
 
 
-def build_sem3d_ops(velocity, pressure) -> Sem3DOps:
+def build_sem3d_ops(velocity, pressure, use_kernels: bool = True
+                    ) -> Sem3DOps:
   """Builds E-last factors from the generic spaces (host/setup time).
 
   The spaces' tensors set the device and dtype of the result (the solver
   builds them on the host in float64 and moves the result once, see
   `Sem3DOps.to`).  Congruent and affine elements are detected in float64.
+  `use_kernels` is `Sem3DOps.use_kernels`.
   """
   vspace = velocity.vspace
   vinfo = vspace.mesh.structured
@@ -615,4 +631,4 @@ def build_sem3d_ops(velocity, pressure) -> Sem3DOps:
       interp_o=interpolation_matrix_1d(vgrid, ogrid),
       interp_o_grad=interpolation_grad_matrix_1d(vgrid, ogrid),
       vinfo=vinfo, pinfo=pinfo, c_uniform=c_uniform, w1=w1,
-      g_affine=g_affine)
+      g_affine=g_affine, use_kernels=use_kernels)

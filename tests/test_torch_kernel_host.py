@@ -7,7 +7,10 @@ FP32 class where one pass does not.  The affine split kernel: its work plan
 writes every (component, row, column) once and fits a block.  The pair
 kernels (congruent, general and affine) and the general FP32 3D kernel:
 their blocks fit at every k, their persistent walks cover every (element,
-component) once, and the launch check takes k <= 10.
+component) once, and the launch check takes k <= 10 and names the knob of
+the plain path beyond.  The dense 3D kernel in 'bf16x3': its operator
+layout is split_operator_np's split in wgmma's 32-byte swizzle, and its
+persistent walk covers every (component, panel, element unit) once.
 """
 
 import dataclasses
@@ -127,6 +130,115 @@ def test_sem3d_ops_keep_the_tf32_layout():
                                 cuda_stiffness3d.dense_tf32_layout_np(a64))
 
 
+# The dense 3D kernel in 'bf16x3' (csrc/stiffness3d_dense_split.cu): its
+# operator layout and the persistent walk it shares with the 3xTF32 one.
+
+
+def _bf16_bits(x):
+  return torch.as_tensor(np.ascontiguousarray(x)).to(torch.bfloat16).view(
+      torch.int16).numpy()
+
+
+@pytest.mark.parametrize('order', [1, 2, 7, 9])
+def test_dense_bf16_layout_is_the_wgmma_swizzled_order(order):
+  """Entry [p, c, part, n, r, s, q] holds, bit for bit, row 256 p + 8 n + r
+  and depth 16 c + 8 (s ^ (r >> 2 & 1)) + q of split_operator_np's hi (part
+  0) or lo (part 1), zero past the operator (the depth padded to a multiple
+  of 32): 32-byte rows of a K-major operand in wgmma's 32-byte swizzle, one
+  contiguous 16 KB run per (panel, chunk)."""
+  a64 = _amat3d(order)
+  k3 = a64.shape[0]
+  layout = cuda_split.dense_bf16_layout_np(a64)
+  m_pad, k_pad = -(-k3 // 256) * 256, -(-k3 // 32) * 32
+  assert layout.shape == (m_pad // 256, k_pad // 16, 2, 32, 8, 2, 8)
+  assert layout.shape == cuda_split.dense_bf16_layout_shape(k3)
+  assert layout.dtype == np.float32 and layout.flags.c_contiguous
+  assert layout[0, 0].size * 2 == 16384
+  split = cuda_split.split_operator_np(a64)
+  want = np.zeros((2, m_pad, k_pad), dtype=np.int16)
+  want[:, :split.shape[1], :split.shape[2]] = _bf16_bits(split)
+  assert not want[:, k3:].any() and not want[:, :, k3:].any()
+  got = _bf16_bits(layout)
+  part, n, r, unit, q = np.indices(layout.shape[2:])
+  for p, c in itertools.product(range(layout.shape[0]),
+                                range(layout.shape[1])):
+    rows = 256 * p + 8 * n + r
+    depths = 16 * c + 8 * (unit ^ ((r >> 2) & 1)) + q
+    np.testing.assert_array_equal(got[p, c], want[part, rows, depths])
+
+
+def _dense_walk(num_e, num_c, k3, grid):
+  """The tiles each persistent block of the dense kernels walks
+  (csrc/stiffness3d_dense.cuh: first_tile, start_tile), written out as
+  (component, panel, first 64-element unit, width in units)."""
+  units, panels = -(-num_e // 64), -(-k3 // 256)
+  total = num_c * panels * units
+  walks = []
+  for b in range(grid):
+    pos, end = b * total // grid, (b + 1) * total // grid
+    tiles = []
+    while pos < end:
+      seg, off = divmod(pos, units)
+      width = 2 if min(end, (seg + 1) * units) - pos >= 2 else 1
+      tiles.append(divmod(seg, panels) + (off, width))
+      pos += width
+    walks.append(tiles)
+  return walks
+
+
+@pytest.mark.parametrize('num_sms', [132, 7])
+def test_dense_walk_covers_every_unit_once(num_sms):
+  """Each (component, panel, 64-element unit) in exactly one tile of one
+  block, ragged E included, a tile's units in one (component, panel)
+  segment; at the path's shape (16^3 elements, order 7, C = 3) 384 units
+  on 132 blocks, at most 3 a block."""
+  for num_e, k, num_c in itertools.product((1, 37, 64, 65, 257, 4096),
+                                           (2, 5, 8, 10), (1, 3, 4)):
+    k3 = k ** 3
+    units, panels = -(-num_e // 64), -(-k3 // 256)
+    grid = min(num_c * panels * units, num_sms)
+    seen = np.zeros((num_c, panels, units), dtype=np.int64)
+    for tiles in _dense_walk(num_e, num_c, k3, grid):
+      for c, p, col, width in tiles:
+        assert col + width <= units
+        seen[c, p, col:col + width] += 1
+    assert (seen == 1).all(), (num_e, k, num_c)
+  if num_sms == 132:
+    walks = _dense_walk(4096, 3, 512, 132)
+    assert sum(w for tiles in walks for *_, w in tiles) == 384
+    assert max(sum(w for *_, w in tiles) for tiles in walks) == 3
+
+
+def test_dense_split_wrapper_keeps_its_layout():
+  """Sem3DOps makes the bf16 layout once; on the CPU the wrapper runs the
+  plain version of the split class, with or without the layout."""
+  sem = StokesSEM.create(unit_cube_mesh(2, ndim=3, periodic_dims=(0, 1, 2)),
+                         {}, order=3, device='cpu', dtype=torch.float32)
+  ops = sem.fast_ops
+  layout = ops.dense_bf16()
+  assert layout is ops.dense_bf16() and layout.dtype == torch.bfloat16
+  a64 = cuda_stiffness3d.uniform_amat3d_np(ops.c_uniform, ops.w1, ops.dmat)
+  np.testing.assert_array_equal(
+      layout.float().numpy(), cuda_split.dense_bf16_layout_np(a64))
+  us = (torch.randn(4, 4, 4, 8, generator=torch.Generator().manual_seed(0)),)
+  hi, lo = ops.dense_split()
+  want = cuda_split.stiffness_uniform_split_plain(us, hi, lo, 3)
+  for got in (cuda_split.stiffness3d_dense_split(us, hi, lo, layout),
+              cuda_split.stiffness3d_dense_split(us, hi, lo)):
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+
+
+def test_launch_checks_name_the_plain_path_knob():
+  """Every 3D kernel refuses k = 11 (order 10), and its message names
+  use_kernels=False, which runs the plain versions at any order."""
+  us = (torch.zeros(11, 11, 11, 2),)
+  for check in (cuda_stiffness3d._check_launchable,  # pylint: disable=protected-access
+                cuda_stiffness3d._check_split_launchable):  # pylint: disable=protected-access
+    with pytest.raises(ValueError, match='use_kernels=False') as err:
+      check('stiffness3d_uniform', us, 1, 11, torch.float32)
+    assert 'Queue 3 item 6' in str(err.value)
+
+
 def _affine_coverage(plan, num_e, k2, num_c):
   """The affine split kernel's index arithmetic under `plan`
   (csrc/stiffness2d_affine_split.cu), written out: how often the blocks
@@ -240,26 +352,38 @@ def test_pair_columns_affine_layout_fits_one_block_an_sm(k):
     assert lay['smem_bytes'] + t_split > cuda_stiffness3d.SMEM_LIMIT
 
 
-def _pair_smem(k, tile_e):
-  """The congruent pair kernel's shared memory at a tile of `tile_e`
-  elements (csrc/stiffness3d_pair.cu:TileLayout, written out): its table,
-  the split A2 and the split tile of every slab."""
-  m_pad = -(-k * k // 16) * 16
-  table = -(-(3 * k * k + k) // 4) * 4
-  return 4 * table + 4 * (m_pad * (m_pad + 8) + k * m_pad * (tile_e + 8))
-
-
 @pytest.mark.parametrize('k', range(2, cuda_stiffness3d.MAX_K + 1))
-def test_congruent_pair_tile_fits_at_every_k(k):
-  """The congruent pair kernel keeps its 32-element tile where it fits
-  (every k <= 9, so k <= 8 as before) and takes 16 elements at k = 10,
-  where 32 would need 234,208 bytes."""
-  tile_e = 32 if _pair_smem(k, 32) <= cuda_stiffness3d.SMEM_LIMIT else 16
-  assert tile_e == (16 if k == 10 else 32)
-  assert _pair_smem(k, tile_e) <= cuda_stiffness3d.SMEM_LIMIT
-  assert {8: 101152, 9: 179184, 10: 162528}.get(k, _pair_smem(k, tile_e)) == (
-      _pair_smem(k, tile_e))
-  assert _pair_smem(10, 32) == 234208
+def test_congruent_pair_columns_layout_fits_one_block_an_sm(k):
+  """The congruent pair kernel on the columns layout (csrc/
+  stiffness3d_pair_columns.cuh:CongruentLayout, written out): the general
+  kernels' tile, threads and operand rows; its table (3 k^2 + k floats),
+  A2's split (2 parts of m_pad rows of m_pad + 8 bf16, an odd number of
+  16-byte units) and a ring of two split field operands (2 x 2 parts of
+  m_pad rows of ld_b bf16) within one block at every k up to 10; and its
+  persistent blocks, which walk the general kernels' tiles, cover every
+  (element, component) once."""
+  lay = cuda_stiffness3d.pair_congruent_layout(k)
+  general = cuda_stiffness3d.pair_columns_layout(k)
+  assert {key: v for key, v in lay.items() if key != 'smem_bytes'} == {
+      key: v for key, v in general.items() if key != 'smem_bytes'}
+  m_pad, ld_b = lay['m_pad'], lay['ld_b']
+  assert ((m_pad + 8) * 2 // 16) % 2 == 1
+  table = 4 * (-(-(3 * k * k + k) // 4) * 4)
+  assert lay['smem_bytes'] == (table + 2 * m_pad * (m_pad + 8) * 2
+                               + 2 * 2 * m_pad * ld_b * 2)
+  assert lay['smem_bytes'] <= cuda_stiffness3d.SMEM_LIMIT
+  expect = {8: (16, 256, 88864), 10: (8, 224, 133856)}
+  if k in expect:
+    assert (lay['tile_e'], lay['threads'], lay['smem_bytes']) == expect[k]
+  for num_e, num_c, (num_sms, per_sm) in itertools.product(
+      (1, 7, 8, 27, 257, 4096), (1, 3, 4), ((132, 1), (7, 2))):
+    grid = cuda_stiffness3d.pair_columns_grid(num_e, k, num_sms, per_sm)
+    tile_e = lay['tile_e']
+    seen = np.zeros((num_c, -(-num_e // tile_e) * tile_e), dtype=np.int64)
+    for units in _pair_columns_walk(num_e, num_c, k, grid):
+      for tile, comp in units:
+        seen[comp, tile * tile_e:(tile + 1) * tile_e] += 1
+    assert (seen == 1).all(), (num_e, num_c, grid)
 
 
 def _pair_columns_walk(num_e, num_c, k, grid):

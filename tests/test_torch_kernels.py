@@ -8,6 +8,7 @@ CG-solved affine-box and walled-cavity runs on the card against the CPU.  Every 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
 
+import ctypes
 import dataclasses
 import functools
 
@@ -23,6 +24,7 @@ from swirlfem_tpu_torch.examples import natural_convection as nc
 from swirlfem_tpu_torch.examples import taylor_green_3d as tgv
 from swirlfem_tpu_torch.niles import datagen
 from swirlfem_tpu_torch.nse.solver import StokesSEM
+from swirlfem_tpu_torch.ops import cuda_build
 from swirlfem_tpu_torch.ops import cuda_exchange
 from swirlfem_tpu_torch.ops import cuda_split
 from swirlfem_tpu_torch.ops import cuda_stiffness
@@ -557,9 +559,9 @@ def test_stiffness3d_launches_and_dispatch(device):
   # The dense key at 'bf16x3' launches the split kernel, float32 only.
   dense3 = dataclasses.replace(ops, uniform_kernel_impl='dense',
                                kernel_precision='bf16x3')
-  count = cuda_split.stiffness_uniform_split.launches
+  count = cuda_split.stiffness3d_dense_split.launches
   dense3.stiffness_el_multi(us)
-  assert cuda_split.stiffness_uniform_split.launches == count + 1
+  assert cuda_split.stiffness3d_dense_split.launches == count + 1
   with pytest.raises(TypeError, match='float32'):
     dense3.to(ops.wmass.device, torch.float64).stiffness_el_multi(
         tuple(u.double() for u in us))
@@ -818,3 +820,115 @@ def test_stiffness3d_dense_split_matches_plain(device, n_el, order, num_c):
   low, high = kernel_checks.CLASS_BANDS['bf16x3']
   assert result['rel_err_plain'] <= kernel_checks.SPLIT_VS_PLAIN_TOL, result
   assert low < result['rel_err_f64'] <= high, result
+
+
+def _congruent_case(order, num_e, num_c, offset, device):
+  """Rows 9a and 10 on the congruent operator of GLL order `order`: the
+  fields (C views `offset` values into a larger buffer, not 8-byte aligned
+  for an odd offset), the float64 reference, and each kernel's operands."""
+  quad = Quadrature1D.create(order + 1, NodeType.GAUSS_LOBATTO_LEGENDRE)
+  w1, dmat = quad.weights, differentiation_matrix_1d(quad.nodes)
+  c = (1.3, 0.8, 0.5)
+  a64 = cuda_stiffness3d.uniform_amat3d_np(c, w1, dmat)
+  k = order + 1
+  rng = np.random.default_rng(order * 1000 + num_e)
+  us = tuple(torch.as_tensor(rng.standard_normal(k ** 3 * num_e + offset),
+                             dtype=torch.float32, device=device)[offset:].view(
+                                 k, k, k, num_e) for _ in range(num_c))
+  ref = cuda_stiffness3d.stiffness3d_dense_plain(
+      tuple(u.double() for u in us), torch.as_tensor(a64.T, device=device))
+  bf16 = lambda x: torch.as_tensor(x, device=device).to(torch.bfloat16)
+  split = bf16(cuda_split.split_operator_np(a64))
+  layout = bf16(cuda_split.dense_bf16_layout_np(a64))
+  a2, table = cuda_split.pair_uniform_split_np(c, w1, dmat)
+  table = torch.as_tensor(table, dtype=torch.float32, device=device)
+  return us, ref, (split[0], split[1], layout), (bf16(a2), table)
+
+
+def _assert_class(got, plain, ref, plain_tol):
+  """Within `plain_tol` of the plain version (relative to its largest
+  entry) and in the bf16x3 band of the float64 operator."""
+  scale = max(float(r.abs().max()) for r in ref)
+  plain_scale = max(float(p.abs().max()) for p in plain)
+  for g, p, r in zip(got, plain, ref):
+    assert g.shape == r.shape and g.is_contiguous()
+    assert float((g - p).abs().max()) <= plain_tol * plain_scale
+  err = max(float((g.double() - r).abs().max()) for g, r in zip(got, ref))
+  low, high = kernel_checks.CLASS_BANDS['bf16x3']
+  assert low < err / scale <= high, err / scale
+
+
+@pytest.mark.parametrize('offset', [0, 1], ids=['aligned', 'unaligned'])
+@pytest.mark.parametrize('num_c', [1, 2, 3, 4])
+@pytest.mark.parametrize('num_e', [27, 37, 130])
+@pytest.mark.parametrize('order', range(1, cuda_stiffness3d.MAX_K))
+def test_congruent_bf16x3_kernels_every_order(device, order, num_e, num_c,
+                                              offset):
+  """Rows 9a (the dense operator on wgmma) and 10 (the pair form on the
+  columns layout) at k = 2..10, C = 1..4, ragged E, aligned and not: 9a
+  within 1e-5 and 10 within 1e-6 of their plain versions, both in the
+  class's band of the float64 operator, one launch each."""
+  us, ref, dense, pair = _congruent_case(order, num_e, num_c, offset, device)
+  before = (cuda_split.stiffness3d_dense_split.launches,
+            cuda_stiffness3d.stiffness3d_pair.launches)
+  got9a = cuda_split.stiffness3d_dense_split(us, *dense)
+  got10 = cuda_stiffness3d.stiffness3d_pair(us, *pair)
+  assert (cuda_split.stiffness3d_dense_split.launches,
+          cuda_stiffness3d.stiffness3d_pair.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+  plain9a = cuda_split.stiffness_uniform_split_plain(us, dense[0], dense[1],
+                                                     3)
+  plain10 = cuda_stiffness3d.stiffness3d_pair_plain(us, *pair)
+  torch.cuda.synchronize(device)
+  _assert_class(got9a, plain9a, ref, kernel_checks.SPLIT_VS_PLAIN_TOL)
+  _assert_class(got10, plain10, ref,
+                kernel_checks.PAIR_VS_PLAIN_TOL['stiffness3d_pair'])
+
+
+def test_congruent_pair_layout_matches_the_kernel(device):
+  """The C side's geometry of the congruent pair kernel is the host's
+  mirror at every k, one block per SM."""
+  lib = cuda_build.library()
+  for k in range(2, cuda_stiffness3d.MAX_K + 1):
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+      cuda_build.check(lib.stiffness3d_pair_layout(k, out), 'layout')
+    want = cuda_stiffness3d.pair_congruent_layout(k)
+    assert (out[0], out[1], out[2]) == (want['tile_e'], want['threads'],
+                                        want['smem_bytes']), k
+    assert out[3] >= 1, k
+
+
+@pytest.mark.parametrize('ndim', [2, 3])
+def test_plain_path_knob_runs_order_10_on_the_card(device, ndim):
+  """Order 10 (k = 11): with use_kernels=False the card runs the plain
+  version and matches float64; with the kernels on, the 3D launch raises and
+  names the knob."""
+  order, n_el = 10, 2
+  periodic = dict(ndim=ndim, periodic_dims=tuple(range(ndim)))
+  sem = StokesSEM.create(unit_cube_mesh(n_el, **periodic), {}, order=order,
+                         device=device, dtype=torch.float32,
+                         use_kernels=False)
+  cpu = StokesSEM.create(unit_cube_mesh(n_el, **periodic), {}, order=order,
+                         device='cpu', dtype=torch.float64)
+  rng = np.random.default_rng(ndim)
+  shape = (order + 1,) * ndim + (n_el ** ndim,)
+  us = tuple(rng.standard_normal(shape) for _ in range(ndim))
+  got = sem.fast_ops.stiffness_el_multi(
+      tuple(torch.as_tensor(u, dtype=torch.float32, device=device)
+            for u in us))
+  want = cpu.fast_ops.stiffness_el_multi(tuple(torch.as_tensor(u)
+                                               for u in us))
+  scale = max(float(w.abs().max()) for w in want)
+  err = max(float((g.double().cpu() - w).abs().max())
+            for g, w in zip(got, want)) / scale
+  assert err <= kernel_checks.STIFFNESS_REL_TOL, err
+  if ndim == 3:
+    on = dataclasses.replace(sem.fast_ops, use_kernels=True)
+    for knobs in ({}, dict(uniform_kernel_impl='dense',
+                           kernel_precision='bf16x3'),
+                  dict(uniform_kernel_impl='pair')):
+      with pytest.raises(ValueError, match='use_kernels=False'):
+        dataclasses.replace(on, **knobs).stiffness_el_multi(
+            tuple(torch.as_tensor(u, dtype=torch.float32, device=device)
+                  for u in us))

@@ -6,7 +6,8 @@ elements with numpy-seeded inputs, against (a) the JAX Pallas function in
 interpret mode, as ``tests/test_pallas.py`` runs it, and (b) the JAX einsum
 ``stiffness_el_multi`` in float64; the affine detection on the graded and
 sheared periodic box and on a trilinear warp; the kernel knobs through
-``interop.sem3d_ops_from_arrays``; and the dispatch table.
+``interop.sem3d_ops_from_arrays``; the dispatch table; and the plain-path
+knob ``use_kernels=False`` at order 10 in 2D and 3D.
 """
 
 import dataclasses
@@ -17,8 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+from swirlfem_tpu.core.structured import StructuredInfo as JStructuredInfo
 from swirlfem_tpu.nse.solver import StokesSEM as JStokesSEM
 from swirlfem_tpu.ops import pallas_stiffness3d as jp3
+from swirlfem_tpu.ops import sem2d as jsem2d
+from swirlfem_tpu.ops import sem3d as jsem3d
 from swirlfem_tpu.utils.box import unit_cube_mesh as junit_cube_mesh
 from swirlfem_tpu_torch import interop
 from swirlfem_tpu_torch.core.structured import StructuredInfo
@@ -325,3 +329,37 @@ def test_wrappers_validate_their_tables():
   with pytest.raises(ValueError, match='share device and dtype'):
     cuda_stiffness3d.stiffness3d_pair(tuple(u.float() for u in us), dp,
                                       table)
+
+
+@pytest.mark.parametrize('ndim', [2, 3])
+def test_plain_path_knob_runs_order_10(ndim):
+  """`StokesSEM.create(use_kernels=False)` (the JAX package's
+  `use_pallas_kernels=False`) at order 10, past every 3D kernel's k <= 10:
+  the ops carry the knob, and one stiffness apply matches the JAX package's
+  einsum path (its ops with `use_pallas=False`, on the same factor fields)
+  in float64."""
+  order, n_el = 10, 2
+  periodic = dict(ndim=ndim, periodic_dims=tuple(range(ndim)))
+  sem = StokesSEM.create(unit_cube_mesh(n_el, **periodic), {}, order=order,
+                         device='cpu', dtype=torch.float64, use_kernels=False)
+  ops = sem.fast_ops
+  assert ops.use_kernels is False
+  assert StokesSEM.create(unit_cube_mesh(1, **periodic), {}, order=2,
+                          device='cpu',
+                          dtype=torch.float64).fast_ops.use_kernels is True
+  info = lambda i: JStructuredInfo(i.num_elements_per_dim, i.order, i.ndim,
+                                   i.continuous)
+  names = (('g11', 'g12', 'g13', 'g22', 'g23', 'g33') if ndim == 3
+           else ('g11', 'g12', 'g22'))
+  names += ('wmass', 'kinv', 'wmass_o', 'kinv_o')
+  jops = (jsem3d.Sem3DOps if ndim == 3 else jsem2d.Sem2DOps)(
+      **{name: jnp.asarray(getattr(ops, name).numpy()) for name in names},
+      dmat=ops.dmat, interp_p=ops.interp_p, interp_o=ops.interp_o,
+      interp_o_grad=ops.interp_o_grad, vinfo=info(ops.vinfo),
+      pinfo=info(ops.pinfo), use_pallas=False)
+  rng = np.random.default_rng(ndim)
+  us = tuple(rng.standard_normal((order + 1,) * ndim + (n_el ** ndim,))
+             for _ in range(ndim))
+  want = jops.stiffness_el_multi(tuple(jnp.asarray(u) for u in us))
+  got = [g.numpy() for g in ops.stiffness_el_multi(_t(us))]
+  assert _max_err(got, want) <= 1e-12
