@@ -83,7 +83,8 @@ graded and sheared periodic box, all in float32.  Phases:
      pair-general and pairz kernels' counted bytes beside the bound's);
  23. the split-bf16 classes ('bf16x3', 'default') of the static-operator
      stiffness on the tensor cores, against their plain versions and the
-     float64 operator: the congruent kernel at the datagen shape (through
+     float64 operator: the congruent 2D operator on the dense split kernel
+     at the datagen shape and on the uniform lid-driven box (through
      `Sem2DOps.stiffness_el_multi`), the affine one on the vertex-graded
      lid-driven box and at the datagen shape, the dense 3D one at 16^3,
      order 7, C = 3 ('bf16x3' within 1e-4, 'default' within 1e-2);
@@ -96,7 +97,8 @@ graded and sheared periodic box, all in float32.  Phases:
      against the same steps under the fused key;
  27. time the split kernels against their plain versions, their
      tensor-core bound and one FP32 library GEMM of the same operator (the
-     affine ones also at the datagen shape);
+     affine ones also at the datagen shape, the congruent 2D ones also at
+     the uniform lid-driven shape);
  28. one 3D stiffness apply at order 10 (k = 11, past every 3D kernel) on
      the card through `use_kernels=False`, against the float64 operator,
      and the kernels' refusal of it.
@@ -1098,7 +1100,7 @@ def run_walled_phases(torch, device, dtype, kernel_checks, times,
     log(f'[17] stiffness2d_{name} at the datagen shape (9, 9, 4096) x '
         f'{num_c}: {kernel_checks.time_ms(fn, device=device) * 1e3:.2f} us, '
         f'bound {b["bound_ms"] * 1e3:.3f} us ({b["bound_by"]}){lib}')
-  return {'affine': affine, 'affine64': affine64}
+  return {'affine': affine, 'affine64': affine64, 'uniform': uniform}
 
 
 def run_split_phases(torch, device, dtype, tgv, kernel_checks, times,
@@ -1143,6 +1145,10 @@ def run_split_phases(torch, device, dtype, tgv, kernel_checks, times,
         kernel_checks.check_stiffness_uniform_split(
             at(dg['sem'].fast_ops, precision), dg['us']), '64^2 order 8',
         '~1e-5')
+    checks[f'stiffness_uniform_{precision} 16^2'] = (
+        kernel_checks.check_stiffness_uniform_split(
+            at(walled['uniform'], precision), us_lid),
+        'uniform lid-driven 16^2 order 7', '~1e-5')
     checks[f'stiffness2d_affine_{precision}'] = (
         kernel_checks.check_stiffness2d_affine_split(
             at(affine, precision), us_lid), 'lid-driven 16^2 order 7',
@@ -1321,8 +1327,9 @@ def run_split_phases(torch, device, dtype, tgv, kernel_checks, times,
                              stack(us3, k3))
   cases = {}
   for precision, passes in cuda_split.PASSES.items():
+    lay2 = at(dg['sem'].fast_ops, precision).dense_bf16()
     cases[f'stiffness_uniform_{precision}'] = (
-        lambda p=passes: uniform_split(us2, hi2, lo2, p),
+        lambda p=passes, lay=lay2: uniform_split(us2, hi2, lo2, p, lay),
         lambda p=passes: cuda_split.stiffness_uniform_split_plain(
             us2, hi2, lo2, p),
         # The library yardstick: one FP32 GEMM of the operator on the
@@ -1353,6 +1360,28 @@ def run_split_phases(torch, device, dtype, tgv, kernel_checks, times,
         f'{nbytes / t / 1e12:.3f} TB/s; bound '
         f'{times[name]["bound_ms"] * 1e3:.3f} us ({times[name]["bound_by"]},'
         f' tensor cores)')
+  # The congruent 2D kernels at the uniform lid-driven shape (16^2, order
+  # 7, C = 2), where 'default' launches on its path, beside one FP32
+  # library GEMM of the operator there.
+  amat_lid = walled['uniform'].mats['amat']
+  library_lid = kernel_checks.time_ms(
+      lambda: torch.matmul(amat_lid, lid_cat), device=device)
+  for precision, passes in cuda_split.PASSES.items():
+    ops_lid = at(walled['uniform'], precision)
+    hil, lol = ops_lid.split_operator()
+    layl = ops_lid.dense_bf16()
+    b = kernel_checks.bound(*cuda_split.split_counts(
+        k16 ** 2, k16 ** 2, us_lid[0].shape[-1], len(us_lid),
+        passes=passes), tc)
+    ms = kernel_checks.time_ms(
+        lambda p=passes: uniform_split(us_lid, hil, lol, p, layl),
+        device=device)
+    times[f'stiffness_uniform_{precision}']['lid_shape'] = {
+        'ms': ms, 'library_ms': library_lid, **b}
+    log(f'[27] stiffness_uniform_{precision} at the uniform lid-driven '
+        f'shape (8, 8, 256) x 2: {ms * 1e3:.2f} us (library GEMM '
+        f'{library_lid * 1e3:.2f} us), bound {b["bound_ms"] * 1e3:.3f} us '
+        f'({b["bound_by"]})')
   # The affine kernels at the datagen shape, beside the congruent ones,
   # and the library GEMM of the stacked operator there.
   hi64, lo64 = at(affine64, 'bf16x3').split_operator()
@@ -1644,11 +1673,12 @@ def main() -> int:
        'launches': launches['stiffness3d_pairz_general'],
        **times['stiffness3d_pairz_general']},
   ]
-  # The split-bf16 classes (csrc/split_bf16_mma.cuh on the tensor cores).
+  # The split-bf16 classes on the tensor cores (the congruent 2D and 3D
+  # operators on one dense split kernel).
   for name, source, replaces in (
-      ('stiffness_uniform_bf16x3', 'stiffness_split.cu',
+      ('stiffness_uniform_bf16x3', 'stiffness3d_dense_split.cu',
        'pallas_stiffness.py:298'),
-      ('stiffness_uniform_default', 'stiffness_split.cu',
+      ('stiffness_uniform_default', 'stiffness3d_dense_split.cu',
        'pallas_stiffness.py:277'),
       ('stiffness2d_affine_bf16x3', 'stiffness2d_affine_split.cu',
        'pallas_stiffness.py:247'),

@@ -61,7 +61,7 @@ class Mesh:
   def create(cls, node_coords, elements, node_indices=None, gridpoints_1d=None,
              physical_masks=None, exchange_gather_indices=None,
              exchange_unique_indices=None, structured=None, *,
-             device: torch.device | str = 'cpu',
+             device: torch.device | str,
              dtype: torch.dtype = torch.float64) -> 'Mesh':
     node_coords = torch.as_tensor(np.asarray(node_coords), dtype=dtype,
                                   device=device)

@@ -106,9 +106,11 @@ class Premesh:
   def replace(self, **kwargs) -> 'Premesh':
     return dataclasses.replace(self, **kwargs)
 
-  def finalize(self, *, device: torch.device | str = 'cpu',
+  def finalize(self, *, device: torch.device | str,
                dtype: torch.dtype = torch.float64) -> Mesh:
-    """Builds the exchange indices and returns a `Mesh` on `device`."""
+    """Builds the exchange indices and returns a `Mesh` on `device`, which
+    the caller names (no default: a caller who did not ask for the CPU does
+    not land on it)."""
     if self.is_partitioned():
       raise NotImplementedError(
           'partitioned meshes are not ported yet (ROADMAP.md, Queue 1 '

@@ -1,20 +1,22 @@
 // The persistent tile walk and the wgmma primitives of the dense congruent
-// 3D stiffness kernels: the 3xTF32 one ('highest', stiffness3d_dense.cu)
-// and the bf16x3 one (stiffness3d_dense_split.cu).  Both compute
-// out_c = A u_c for the static (k^3, k^3) operator A of a congruent box and
-// C <= 4 component fields (k^3, E), E last, with the field as the register
+// stiffness kernels: the 3D 3xTF32 one ('highest', stiffness3d_dense.cu)
+// and the split-bf16 one (stiffness3d_dense_split.cu: the 3D operator at
+// 'bf16x3', the 2D one at 'bf16x3' and 'default').  Both compute
+// out_c = A u_c for the static (k^d, k^d) operator A of a congruent box and
+// C <= 4 component fields (k^d, E), E last, with the field as the register
 // A operand of wgmma (M = 64 elements of a warpgroup) and the operator's
 // split from shared memory as the B operand, in the order the host lays
 // out.
 //
-// Work.  A tile is 128 elements (two warpgroups of 64) by one panel of
-// 256 operator rows.  The (component, panel, 64-element unit) space is cut
-// into one contiguous range per block, one block per SM, each walking its
-// range in tiles of two units (warpgroup w takes unit w, the whole panel)
-// or, at a range's or segment's end, one unit (both warpgroups take it,
-// warpgroup w the panel's half w), so that a block's time goes with its
-// units.  Each tile's depth is walked in chunks through a ring of
-// shared-memory stages.
+// Work.  In 3D a tile is 128 elements (two warpgroups of 64) by one panel
+// of 256 operator rows.  The (component, panel, 64-element unit) space is
+// cut into one contiguous range per block, one block per SM, each walking
+// its range in tiles of two units (warpgroup w takes unit w, the whole
+// panel) or, at a range's or segment's end, one unit (both warpgroups take
+// it, warpgroup w the panel's half w), so that a block's time goes with
+// its units.  The 2D kernel has one warpgroup and walks tiles of one unit
+// by its one panel (kMaxWidth 1).  Each tile's depth is walked in chunks
+// through a ring of shared-memory stages.
 
 #ifndef SWIRLFEM_STIFFNESS3D_DENSE_CUH_
 #define SWIRLFEM_STIFFNESS3D_DENSE_CUH_
@@ -44,45 +46,55 @@ struct Pointers {
 // space: the tile it is at (component c, panel p, first unit col, width 1
 // or 2 units) and the depth chunk within it.
 struct Walk {
-  long long pos;  // first unit after the current tile
-  long long end;
+  int pos;  // first unit after the current tile
+  int end;
   int c, p, col, width, chunk;
   bool valid;
 };
 
+// In 32 bits: num_e is an int, so a launch has fewer than 2^31 units.
 struct Shape {
   int k3, num_e, chunks, panels;
-  long long units;  // 64-element units of one (component, panel) segment
+  int units;  // 64-element units of one (component, panel) segment
 };
 
+// Tiles are at most kMaxWidth (1 or 2) units wide.
+template <int kMaxWidth = 2>
 __device__ __forceinline__ void start_tile(Walk& w, const Shape& s) {
   if (w.pos >= w.end) {
     w.valid = false;
     return;
   }
-  const long long seg = w.pos / s.units;
-  const long long off = w.pos - seg * s.units;
-  const long long piece = min(w.end, (seg + 1) * s.units) - w.pos;
-  w.width = piece >= 2 ? 2 : 1;
-  w.c = static_cast<int>(seg / s.panels);
-  w.p = static_cast<int>(seg - static_cast<long long>(w.c) * s.panels);
-  w.col = static_cast<int>(off);
+  const int seg = w.pos / s.units;
+  const int off = w.pos - seg * s.units;
+  const int piece = min(w.end, (seg + 1) * s.units) - w.pos;
+  w.width = kMaxWidth == 2 && piece >= 2 ? 2 : 1;
+  w.c = seg / s.panels;
+  w.p = seg - w.c * s.panels;
+  w.col = off;
   w.chunk = 0;
   w.valid = true;
   w.pos += w.width;
 }
 
+template <int kMaxWidth = 2>
 __device__ __forceinline__ void advance(Walk& w, const Shape& s) {
-  if (++w.chunk == s.chunks) start_tile(w, s);
+  if (++w.chunk == s.chunks) start_tile<kMaxWidth>(w, s);
 }
 
-// Block b's walk: units [b total / grid, (b + 1) total / grid).
+// Block b's walk: the b-th of `grid` contiguous ranges of the units, of
+// total / grid units and one more for the first total % grid blocks.
+template <int kMaxWidth = 2>
 __device__ __forceinline__ Walk first_tile(const Shape& s,
                                            long long total_units) {
-  const long long b = blockIdx.x;
-  Walk w = {b * total_units / gridDim.x, (b + 1) * total_units / gridDim.x,
+  const int total = static_cast<int>(total_units);
+  const int grid = static_cast<int>(gridDim.x);
+  const int b = static_cast<int>(blockIdx.x);
+  const int base = total / grid;
+  const int rem = total - base * grid;
+  Walk w = {b * base + min(b, rem), (b + 1) * base + min(b + 1, rem),
             0, 0, 0, 0, 0, false};
-  start_tile(w, s);
+  start_tile<kMaxWidth>(w, s);
   return w;
 }
 
@@ -136,14 +148,15 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-// The shape of one launch, and its units.
+// The shape of one launch, and its units (operator rows in panels of
+// `panel`).
 inline Shape shape_of(int k3, int num_e, int depth_chunk, long long* total,
-                      int num_c) {
+                      int num_c, int panel = kPanel) {
   Shape s;
   s.k3 = k3;
   s.num_e = num_e;
   s.chunks = (k3 + depth_chunk - 1) / depth_chunk;
-  s.panels = (k3 + kPanel - 1) / kPanel;
+  s.panels = (k3 + panel - 1) / panel;
   s.units = (num_e + kUnitE - 1) / kUnitE;
   *total = static_cast<long long>(num_c) * s.panels * s.units;
   return s;

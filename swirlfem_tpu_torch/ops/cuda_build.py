@@ -28,10 +28,10 @@ _SOURCES = ('exchange2d.cu', 'stiffness_uniform.cu', 'stiffness2d_general.cu',
             'stiffness3d_general.cu', 'stiffness3d_dense.cu',
             'stiffness3d_dense_split.cu', 'stiffness3d_pair.cu',
             'stiffness3d_pair_general.cu', 'stiffness3d_pair_affine.cu',
-            'stiffness_split.cu', 'stiffness2d_affine_split.cu')
+            'stiffness2d_affine_split.cu')
 # Headers the sources include; part of the build's hash.
 _HEADERS = ('stiffness3d_pair_columns.cuh', 'split_bf16_mma.cuh',
-            'stiffness2d_fp32.cuh', 'stiffness3d_dense.cuh')
+            'stiffness2d_fp32.cuh', 'stiffness3d_dense.cuh', 'tma.cuh')
 _FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
           '-Xcompiler', '-fPIC')
 
@@ -55,9 +55,11 @@ _SIGNATURES = {
                                _P),
     'stiffness2d_affine_f64': (_P, _P, _PP, _PP, _I, _I, _I, _I, _I, _I, _I,
                                _P),
-    # (table, us[], outs[], num_c, k, num_e, stream)
-    'stiffness3d_uniform_f32': (_P, _PP, _PP, _I, _I, _I, _P),
-    'stiffness3d_uniform_f64': (_P, _PP, _PP, _I, _I, _I, _P),
+    # (table, us[], outs[], num_c, k, num_e, grid, stream)
+    'stiffness3d_uniform_f32': (_P, _PP, _PP, _I, _I, _I, _I, _P),
+    'stiffness3d_uniform_f64': (_P, _PP, _PP, _I, _I, _I, _I, _P),
+    # (k, f64, out[4]: tile_e, threads, shared bytes, blocks per SM)
+    'stiffness3d_uniform_layout': (_I, _I, ctypes.POINTER(_I)),
     # (dmat, us[], gs[6], outs[], num_c, k, num_e, grid, stream)
     'stiffness3d_general_f32': (_P, _PP, _PP, _PP, _I, _I, _I, _I, _P),
     'stiffness3d_general_f64': (_P, _PP, _PP, _PP, _I, _I, _I, _I, _P),
@@ -85,10 +87,8 @@ _SIGNATURES = {
     #  grid, stream)
     'stiffness3d_pair_affine_f32': (_P, _P, _P, _P, _PP, _PP, _I, _I, _I, _I,
                                     _P),
-    # (hi, lo, us[], outs[], num_c, rows, rows_pad, depth_pad, num_e,
-    #  passes, stream)
-    'stiffness_uniform_split_f32': (_P, _P, _PP, _PP, _I, _I, _I, _I, _I, _I,
-                                    _P),
+    # (bf16 layout, us[], outs[], num_c, rows, num_e, passes, panel, stream)
+    'stiffness_uniform_split_f32': (_P, _PP, _PP, _I, _I, _I, _I, _I, _P),
     # (frags, c_aff, us[], outs[], num_c, rows, rows_pad, depth_pad, num_e,
     #  passes, panels, panel_rows, tile, splits, blocks, stream)
     'stiffness2d_affine_split_f32': (_P, _P, _PP, _PP, _I, _I, _I, _I, _I, _I,

@@ -10,8 +10,7 @@ kernels of the JAX package:
   static ``(k^2, k^2)`` operator;
 * ``swirlfem_tpu/ops/pallas_stiffness3d.py:stiffness3d_el_pallas_dense``
   ('bf16x3', ``_kernel_uniform_mm3``): `stiffness3d_dense_split`, the same
-  product for a congruent 3D box's ``(k^3, k^3)`` operator, whose split the
-  kernel reads in ``wgmma``'s order (`dense_bf16_layout_np`);
+  product for a congruent 3D box's ``(k^3, k^3)`` operator;
 * ``swirlfem_tpu/ops/pallas_stiffness.py:stiffness_el_pallas_affine``
   (``_kernel_affine_mm3``; ``_kernel_affine_mm`` at DEFAULT):
   `stiffness2d_affine_split`, ``y = [M11; M12; M22] u`` combined per element
@@ -26,12 +25,13 @@ single bf16 pass), both accumulating in float32.  A bf16 product is exact
 in float32, so kernel and plain version differ only in the order of their
 sums.
 
-The 2D kernels (``csrc/stiffness_split.cu``,
-``csrc/stiffness2d_affine_split.cu``, on ``csrc/split_bf16_mma.cuh``) run
-``mma.sync`` bf16 tensor-core products, the 3D dense one
-(``csrc/stiffness3d_dense_split.cu``) ``wgmma``; all take float32 only: the
-classes are defined on float32.  The affine one cuts its work by
-`affine_work_plan`.  Each wrapper
+The two congruent products are one kernel, ``csrc/stiffness3d_dense_split.cu``
+(``wgmma``, a TMA producer warp), at panels of 256 operator rows in 3D
+and of at most 128 in 2D (`uniform_split_panel`); each reads the split in
+``wgmma``'s order (`dense_bf16_layout`).  The affine one
+(``csrc/stiffness2d_affine_split.cu``) runs ``mma.sync`` products and cuts
+its work by `affine_work_plan`.  All take float32 only: the classes are
+defined on float32.  Each wrapper
 takes its plain version only for CPU tensors; for CUDA tensors it launches
 its kernel or raises, and counts the launch in ``<wrapper>.launches``.
 """
@@ -63,12 +63,13 @@ AFFINE_TILES = (32, 16)
 AFFINE_MAX_STEPS = 4
 _AFFINE_BLOCKS_PER_SM = 2
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
-# The 2D congruent kernel holds every operator row in one block.
+# The dense split kernel's bf16 operator layout: panels of operator rows
+# (256 in 3D; in 2D a multiple of 16 up to MAX_UNIFORM_ROWS_PAD,
+# `uniform_split_panel`), the depth in chunks of 16, padded to an even
+# number of them (the kernel stages two at a time,
+# ``csrc/stiffness3d_dense_split.cu``); it takes k^3 <= 1000 in 3D and
+# k^2 <= 128 in 2D.
 MAX_UNIFORM_ROWS_PAD = 128
-# The 3D dense kernel's bf16 operator layout: panels of 256 operator rows,
-# the depth in chunks of 16, padded to an even number of them (the kernel
-# stages two at a time, ``csrc/stiffness3d_dense_split.cu``); it takes
-# k^3 <= 1000.
 DENSE_PANEL = 256
 DENSE_DEPTH = 16
 MAX_DENSE_ROWS = 1000
@@ -168,37 +169,69 @@ def pair_uniform_split_np(c_uniform, w1, dmat):
   return split_operator_np(a2), table
 
 
-def dense_bf16_layout_shape(k3: int) -> tuple:
-  """Shape of `dense_bf16_layout_np` for a ``(k3, k3)`` operator."""
-  return (-(-k3 // DENSE_PANEL), 2 * -(-k3 // (2 * DENSE_DEPTH)), 2,
-          DENSE_PANEL // 8, 8, 2, 8)
+def uniform_split_panel(rows: int, num_e: int | None = None,
+                        num_c: int = 1, num_sms: int | None = None) -> int:
+  """The 2D kernel's panel of operator rows (a block takes one 64-element
+  unit of one component by one panel): the rows rounded up to 16 or, where
+  the (component, unit) pairs are fewer than the `num_sms` SMs, the
+  smallest multiple of 16 whose panels still leave every block an SM of
+  its own, so that a small box's few units are spread over more SMs (on
+  the uniform lid-driven box, 16^2 elements at order 7, C = 2: 8 units,
+  four panels of 16 rows; at the datagen shape, 128 units, one panel)."""
+  panel = _ceil_pad(rows)
+  if num_e is None or num_sms is None:
+    return panel
+  units = num_c * -(-num_e // 64)
+  for parts in range(2, -(-rows // PAD) + 1):
+    cand = _ceil_pad(-(-rows // parts))
+    if units * -(-rows // cand) > num_sms:
+      break
+    panel = min(panel, cand)
+  return panel
 
 
-def dense_bf16_layout_np(a64) -> np.ndarray:
-  """The 3D dense kernel's operand: the bf16 split (`split_operator_np`) of
-  the ``(k^3, k^3)`` operator as ``wgmma`` reads a K-major B operand in the
-  32-byte swizzle.
+def dense_bf16_layout_shape(rows: int, panel: int = DENSE_PANEL,
+                            parts: int = 2) -> tuple:
+  """Shape of `dense_bf16_layout` for a ``(rows, rows)`` operator."""
+  return (-(-rows // panel), 2 * -(-rows // (2 * DENSE_DEPTH)), parts,
+          panel // 8, 8, 2, 8)
+
+
+def dense_bf16_layout(hi: torch.Tensor, lo: torch.Tensor, rows: int,
+                      panel: int = DENSE_PANEL,
+                      parts: int = 2) -> torch.Tensor:
+  """The dense split kernel's operand: the bf16 split (`split_operator_np`,
+  `hi` and `lo` on any device) of a ``(rows, rows)`` operator as ``wgmma``
+  reads a K-major B operand in the 32-byte swizzle.
 
   Shape `dense_bf16_layout_shape`, ``[p, c, part, n, r, s, q]``: panel p of
-  256 operator rows, depth chunk c of 16, ``hi`` (part 0) or ``lo`` (part
-  1), 8-row group n, row r of the group, 16-byte unit s of its 32-byte row:
-  row ``256 p + 8 n + r``, depths ``16 c + 8 (s ^ (r >> 2 & 1)) + q`` (the
+  `panel` operator rows, depth chunk c of 16, ``hi`` (part 0) or ``lo``
+  (part 1; `parts` = 1 keeps only ``hi``, the 'default' class), 8-row
+  group n, row r of the group, 16-byte unit s of its 32-byte row: row
+  ``panel p + 8 n + r``, depths ``16 c + 8 (s ^ (r >> 2 & 1)) + q`` (the
   swizzle swaps a row's two units where bit 2 of its row index is set).
-  Rows are padded to a multiple of 256 and the depth to one of 32, with
-  zeros.  float32 values, each a bf16 value (the caller casts to
-  bfloat16).
+  Rows are padded to a multiple of `panel` and the depth to one of 32,
+  with zeros.  `hi`'s dtype, on its device.
   """
-  rows, depth = np.shape(a64)
-  shape = dense_bf16_layout_shape(rows)
-  parts = np.zeros((2, shape[0] * DENSE_PANEL, shape[1] * DENSE_DEPTH),
-                   np.float32)
-  split = split_operator_np(a64)
-  parts[:, :split.shape[1], :split.shape[2]] = split
+  shape = dense_bf16_layout_shape(rows, panel, parts)
+  src = torch.stack((hi, lo)[:parts])
+  buf = torch.zeros((parts, shape[0] * panel, shape[1] * DENSE_DEPTH),
+                    dtype=hi.dtype, device=hi.device)
+  buf[:, :src.shape[1], :src.shape[2]] = src
   # [part, p, n, r, c, h, q] -> [p, c, part, n, r, h, q]
-  blocks = parts.reshape(2, shape[0], DENSE_PANEL // 8, 8, shape[1], 2, 8)
-  out = np.ascontiguousarray(blocks.transpose(1, 4, 0, 2, 3, 5, 6))
-  out[:, :, :, :, 4:] = out[:, :, :, :, 4:, ::-1].copy()
+  blocks = buf.reshape(parts, shape[0], panel // 8, 8, shape[1], 2, 8)
+  out = blocks.permute(1, 4, 0, 2, 3, 5, 6).contiguous()
+  out[:, :, :, :, 4:] = out[:, :, :, :, 4:].flip(5)
   return out
+
+
+def dense_bf16_layout_np(a64, panel: int = DENSE_PANEL,
+                         parts: int = 2) -> np.ndarray:
+  """`dense_bf16_layout` of the split of the float64 operator `a64`, as
+  float32 values, each a bf16 value (the caller casts to bfloat16)."""
+  split = torch.from_numpy(split_operator_np(a64)).to(torch.bfloat16)
+  return dense_bf16_layout(split[0], split[1], np.shape(a64)[0], panel,
+                           parts).float().numpy()
 
 
 def split_product_plain(hi: torch.Tensor, lo: torch.Tensor, u: torch.Tensor,
@@ -289,35 +322,86 @@ def _ptrs(tensors):
   return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
+def uniform_split_layout_shape(rows: int, passes: int,
+                               panel: int | None = None) -> tuple:
+  """Shape of the 2D kernel's operand (`dense_bf16_layout` at `panel`,
+  default `uniform_split_panel`, both parts at three passes, ``hi`` at
+  one)."""
+  return dense_bf16_layout_shape(rows, panel or uniform_split_panel(rows),
+                                 2 if passes == 3 else 1)
+
+
+def uniform_split_layout(hi: torch.Tensor, lo: torch.Tensor, rows: int,
+                         passes: int, panel: int | None = None
+                         ) -> torch.Tensor:
+  """The 2D kernel's operand: `dense_bf16_layout` of the split of the
+  ``(rows, rows)`` operator at `panel` (default `uniform_split_panel`:
+  one panel), both parts at three passes ('bf16x3'), ``hi`` alone at one
+  ('default')."""
+  return dense_bf16_layout(hi, lo, rows, panel or uniform_split_panel(rows),
+                           2 if passes == 3 else 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(device_index: int) -> int:
+  return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def uniform_split_panel_on(rows: int, num_e: int, num_c: int,
+                           device: torch.device) -> int:
+  """`uniform_split_panel` for a launch on `device` (one panel off CUDA)."""
+  if device.type != 'cuda':
+    return uniform_split_panel(rows)
+  return uniform_split_panel(rows, num_e, num_c, _num_sms(device.index or 0))
+
+
 def stiffness_uniform_split(us, hi: torch.Tensor, lo: torch.Tensor,
-                            passes: int):
+                            passes: int, layout=None):
   """Congruent-element 2D stiffness of C components in a split-bf16 class.
 
   Args:
     us: tuple of C component fields, each ``(k, k, E)`` or ``(k^2, E)``.
     hi, lo: the bf16 split of the ``(k^2, k^2)`` operator
-      (`split_operator_np`), on the fields' device.
+      (`split_operator_np`), on the fields' device; the plain version
+      reads them.
     passes: 3 ('bf16x3') or 1 ('default').
+    layout: `uniform_split_layout` of the same split at `passes`, on the
+      fields' device, at any panel (``Sem2DOps.dense_bf16``, made once at
+      `uniform_split_panel_on` of the launch); the kernel reads it, and it
+      is made here from `hi` and `lo` when not given.
 
   CPU tensors: `stiffness_uniform_split_plain`.  CUDA tensors: one launch
-  of the tensor-core kernel for all components (``k^2 <= 128``), counted in
+  of the dense split kernel (``wgmma``, panels of at most 128 operator
+  rows, ``k^2 <= 128``) for all components, counted in
   ``stiffness_uniform_split.launches``.
   """
   us, rows = _check('stiffness_uniform_split', us, hi, lo, passes, 1)
   if hi.device.type == 'cpu':
     return stiffness_uniform_split_plain(us, hi, lo, passes)
   _check_launchable('stiffness_uniform_split', us + (hi, lo), len(us))
-  if hi.shape[0] > MAX_UNIFORM_ROWS_PAD:
+  if uniform_split_panel(rows) > MAX_UNIFORM_ROWS_PAD:
     raise ValueError(f'stiffness_uniform_split kernel takes a 2D operator of '
                      f'at most {MAX_UNIFORM_ROWS_PAD} padded rows, got '
-                     f'{hi.shape[0]} ({rows} rows)'
+                     f'{uniform_split_panel(rows)} ({rows} rows)'
                      + cuda_build.PLAIN_PATH_HINT)
+  if layout is None:
+    layout = uniform_split_layout(hi, lo, rows, passes, uniform_split_panel_on(
+        rows, us[0].shape[-1], len(us), hi.device))
+  panel = 8 * layout.shape[3] if layout.ndim == 7 else 0
+  shape = dense_bf16_layout_shape(rows, max(panel, PAD),
+                                  2 if passes == 3 else 1)
+  if (panel % PAD or not PAD <= panel <= MAX_UNIFORM_ROWS_PAD
+      or tuple(layout.shape) != shape or layout.dtype != torch.bfloat16
+      or layout.device != hi.device or not layout.is_contiguous()):
+    raise ValueError(f'the 2D split kernel needs the operator\'s '
+                     f'uniform_split_layout at {passes} passes, contiguous '
+                     f'bfloat16 {uniform_split_layout_shape(rows, passes)} '
+                     f'on {hi.device}, got {tuple(layout.shape)}')
   outs = tuple(torch.empty_like(u) for u in us)
   stream = torch.cuda.current_stream(hi.device).cuda_stream
   cuda_build.check(cuda_build.library().stiffness_uniform_split_f32(
-      hi.data_ptr(), lo.data_ptr(), _ptrs(us), _ptrs(outs), len(us), rows,
-      hi.shape[0], hi.shape[1], us[0].shape[-1], passes, stream),
-                   'stiffness_uniform_split')
+      layout.data_ptr(), _ptrs(us), _ptrs(outs), len(us), rows,
+      us[0].shape[-1], passes, panel, stream), 'stiffness_uniform_split')
   stiffness_uniform_split.launches += 1
   return outs
 

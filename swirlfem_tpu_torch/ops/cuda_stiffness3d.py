@@ -452,8 +452,8 @@ def stiffness3d_uniform(us, table: torch.Tensor):
     table: `uniform_table_np` in the working dtype, on the fields' device.
 
   CPU tensors: `stiffness3d_uniform_plain`.  CUDA tensors: one launch of the
-  hand-written kernel for all components, counted in
-  ``stiffness3d_uniform.launches``.
+  hand-written kernel for all components (persistent blocks,
+  `uniform3d_grid`), counted in ``stiffness3d_uniform.launches``.
   """
   us = tuple(us)
   k = us[0].shape[0] if us else 0
@@ -465,13 +465,97 @@ def stiffness3d_uniform(us, table: torch.Tensor):
     return stiffness3d_uniform_plain(us, table)
   _check_launchable('stiffness3d_uniform', us + (table,), len(us), k,
                     table.dtype)
+  device = table.device
+  grid = uniform3d_grid(
+      us[0].shape[-1], k, len(us),
+      torch.cuda.get_device_properties(device).multi_processor_count,
+      _uniform3d_blocks_per_sm(k, table.dtype, device), table.element_size())
   outs = _launch('stiffness3d_uniform',
-                 lambda pu, po: (table.data_ptr(), pu, po), us, table, k)
+                 lambda pu, po: (table.data_ptr(), pu, po), us, table, k,
+                 extra=(grid,))
   stiffness3d_uniform.launches += 1
   return outs
 
 
 stiffness3d_uniform.launches = 0
+
+# The uniform kernel's limits (``csrc/stiffness3d_uniform.cu``): TMA boxes
+# of at most 256 rows, at most four stages.
+_MAX_BOX_ROWS = 256
+_MAX_STAGES = 4
+
+
+def uniform3d_plan(k: int, itemsize: int = 4) -> dict:
+  """The congruent 3D kernel's block at ``k = order + 1`` for elements of
+  `itemsize` bytes, as ``csrc/stiffness3d_uniform.cu:Plan`` computes it.
+
+  A unit is a tile of ``tile_e`` elements of one component, one row of
+  ``tile_e`` values a point: 128-byte rows (``tile_e`` 32 in float32, 16 in
+  float64) where two stages fit beside the output tile, else half that.  A
+  stage is the tile's field, copied as `boxes` TMA boxes of `box_rows`
+  rows (each a multiple of 128 bytes); the ring has `stages` of them (two
+  to four).  Shared memory (`smem_bytes`): 128 bytes of alignment slack,
+  128 of mbarriers, the table (``At^T`` rows padded to 16 bytes, then w,
+  c11 w, c22 w, c33 w w^T; 128-byte rounded), the output tile and the
+  ring.  `warps` consumer warps of ``32 / tile_e`` planes each cover the
+  k planes (stage A) and, `rounds` lines each, the ``k^2`` zeta lines
+  (stage B); `threads` adds the producer warp.
+  """
+  points = k ** 3
+  boxes = -(-points // _MAX_BOX_ROWS)
+  round128 = lambda n: -(-n // 128) * 128
+  vec = 16 // itemsize
+  table = k * (-(-k // vec) * vec) + 3 * k + k * k
+
+  def box_rows(te):
+    align = 1 if te * itemsize >= 128 else 128 // (te * itemsize)
+    return -(-(-(-points // boxes)) // align) * align
+
+  def stage_bytes(te):
+    return boxes * box_rows(te) * te * itemsize
+
+  def fixed_bytes(te):
+    return 128 + round128(table * itemsize) + round128(points * te * itemsize)
+
+  te = 128 // itemsize
+  while te > 1 and 128 + fixed_bytes(te) + 2 * stage_bytes(te) > SMEM_LIMIT:
+    te //= 2
+  stages = min(_MAX_STAGES, (SMEM_LIMIT - 128 - fixed_bytes(te))
+               // stage_bytes(te))
+  slots = 32 // te
+  warps = -(-k // slots)
+  return dict(tile_e=te, boxes=boxes, box_rows=box_rows(te), stages=stages,
+              stage_bytes=stage_bytes(te), warps=warps,
+              threads=32 * warps + 32, rounds=-(-k * k // (warps * slots)),
+              smem_bytes=128 + fixed_bytes(te) + stages * stage_bytes(te))
+
+
+def uniform3d_grid(num_e: int, k: int, num_c: int, num_sms: int,
+                   blocks_per_sm: int, itemsize: int = 4) -> int:
+  """Persistent blocks of the congruent 3D kernel: one per (component,
+  tile) unit, at most as many as the card holds at once."""
+  tiles = -(-num_e // uniform3d_plan(k, itemsize)['tile_e'])
+  return max(1, min(num_c * tiles, num_sms * blocks_per_sm))
+
+
+def _uniform3d_blocks_per_sm(k: int, dtype, device) -> int:
+  return _blocks_per_sm(
+      cuda_build.library().stiffness3d_uniform_layout,
+      (k, int(dtype == torch.float64)),
+      uniform3d_plan(k, torch.empty((), dtype=dtype).element_size()),
+      'stiffness3d_uniform_layout', device)
+
+
+def uniform3d_walk(num_e: int, k: int, num_c: int, grid: int,
+                   itemsize: int = 4) -> list:
+  """The (component, tile) units each persistent block of the congruent 3D
+  kernel walks: block b the contiguous range ``[b U / grid, (b + 1) U /
+  grid)`` of the ``U = C ceil(E / tile_e)`` units, component-major."""
+  tiles = -(-num_e // uniform3d_plan(k, itemsize)['tile_e'])
+  units = num_c * tiles
+  return [[divmod(u, tiles) for u in range(b * units // grid,
+                                          (b + 1) * units // grid)]
+          for b in range(grid)]
 
 
 def general3d_layout(k: int, itemsize: int = 4) -> dict:

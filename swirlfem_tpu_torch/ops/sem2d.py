@@ -150,7 +150,8 @@ def _uniform_split_plain(ops, us):
 
 def _uniform_split_kernel(ops, us):
   return cuda_split.stiffness_uniform_split(
-      us, *ops.split_operator(), cuda_split.PASSES[ops.kernel_precision])
+      us, *ops.split_operator(), cuda_split.PASSES[ops.kernel_precision],
+      ops.dense_bf16(len(us)))
 
 
 def _affine_split_plain(ops, us):
@@ -283,6 +284,23 @@ class Sem2DOps:
           cuda_stiffness.affine_mstack_np(self.wq2d, self.dmat),
           num_blocks=3), torch.bfloat16)
     return split[0], split[1]
+
+  def dense_bf16(self, num_c: int = 2) -> torch.Tensor:
+    """The congruent operator's split in the 2D split kernel's ``wgmma``
+    layout at `kernel_precision`'s passes
+    (`cuda_split.uniform_split_layout`) and at the panel of a launch of
+    `num_c` components on this box (`cuda_split.uniform_split_panel_on`),
+    made once."""
+    passes = cuda_split.PASSES[self.kernel_precision]
+    rows = self.mats['amat'].shape[0]
+    panel = cuda_split.uniform_split_panel_on(
+        rows, self.wmass.shape[-1], num_c, self.wmass.device)
+    key = f'amat_bf16_{passes}_{panel}'
+    if key not in self.mats:
+      hi, lo = self.split_operator()
+      self.mats[key] = cuda_split.uniform_split_layout(hi, lo, rows, passes,
+                                                       panel)
+    return self.mats[key]
 
   def split_fragments(self) -> torch.Tensor:
     """`cuda_split.affine_fragments` of the affine stack's split, as the

@@ -94,9 +94,10 @@ def exchange_el(w: torch.Tensor, info: StructuredInfo) -> torch.Tensor:
   return w
 
 
-def multiplicity_el(info: StructuredInfo, *, dtype=torch.float32,
-                    device='cpu') -> torch.Tensor:
-  """Copy-count of each element-local node on the periodic box."""
+def multiplicity_el(info: StructuredInfo, *, device,
+                    dtype=torch.float32) -> torch.Tensor:
+  """Copy-count of each element-local node on the periodic box, on
+  `device` (no default)."""
   k = info.order + 1
   n = info.num_elements_per_dim
   return exchange_el(torch.ones((k, k, k, n, n, n), dtype=dtype,

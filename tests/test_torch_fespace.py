@@ -40,13 +40,13 @@ def _warp(c):
 @functools.lru_cache(maxsize=None)
 def _spaces(quad: str, order: int = 3, n: int = 3):
   """(JAX mesh, JAX space, port mesh, port space) on the same geometry."""
-  def build(ucm, refine, nodes, ntype, qcls, fes_cls):
+  def build(ucm, refine, nodes, ntype, qcls, fes_cls, **finalize):
     pm = ucm(n, ndim=2)
     grid = nodes.create(order + 1, ntype.GAUSS_LOBATTO_LEGENDRE)
     refined = refine(pm, grid)
     refined = refined.replace(node_coords=_warp(np.asarray(
         refined.node_coords, dtype=np.float64)))
-    mesh = refined.finalize()
+    mesh = refined.finalize(**finalize)
     if quad == 'gl':
       q = qcls.create(order + 2, ntype.GAUSS_LEGENDRE)
     else:
@@ -56,7 +56,8 @@ def _spaces(quad: str, order: int = 3, n: int = 3):
   jmesh, jspace = build(junit_cube_mesh, jrefine, JNodes1D, JNodeType,
                         JQuadrature1D, jfes.FiniteElementSpace)
   mesh, space = build(unit_cube_mesh, refine_premesh, Nodes1D, NodeType,
-                      Quadrature1D, fespace.FiniteElementSpace)
+                      Quadrature1D, fespace.FiniteElementSpace,
+                      device='cpu')
   return jmesh, jspace, mesh, space
 
 

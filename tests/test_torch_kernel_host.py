@@ -8,9 +8,12 @@ writes every (component, row, column) once and fits a block.  The pair
 kernels (congruent, general and affine) and the general FP32 3D kernel:
 their blocks fit at every k, their persistent walks cover every (element,
 component) once, and the launch check takes k <= 10 and names the knob of
-the plain path beyond.  The dense 3D kernel in 'bf16x3': its operator
-layout is split_operator_np's split in wgmma's 32-byte swizzle, and its
-persistent walk covers every (component, panel, element unit) once.
+the plain path beyond.  The dense split kernel ('bf16x3' in 3D; 'bf16x3'
+and 'default' on the 2D operator): its operator layout is
+split_operator_np's split in wgmma's 32-byte swizzle at each panel, and its
+persistent walk covers every (component, panel, element unit) once.  The
+congruent FP32 3D kernel: its plan fits a block at every k and dtype, and
+its persistent walk covers every (component, tile) once.
 """
 
 import dataclasses
@@ -24,6 +27,7 @@ from swirlfem_tpu_torch.core.quadrature import differentiation_matrix_1d
 from swirlfem_tpu_torch.core.quadrature import NodeType
 from swirlfem_tpu_torch.core.quadrature import Quadrature1D
 from swirlfem_tpu_torch.ops import cuda_split
+from swirlfem_tpu_torch.ops import cuda_stiffness
 from swirlfem_tpu_torch.ops import cuda_stiffness3d
 from swirlfem_tpu_torch.utils.box import unit_cube_mesh
 from swirlfem_tpu_torch.nse.solver import StokesSEM
@@ -167,19 +171,21 @@ def test_dense_bf16_layout_is_the_wgmma_swizzled_order(order):
     np.testing.assert_array_equal(got[p, c], want[part, rows, depths])
 
 
-def _dense_walk(num_e, num_c, k3, grid):
+def _dense_walk(num_e, num_c, k3, grid, panel=256, max_width=2):
   """The tiles each persistent block of the dense kernels walks
   (csrc/stiffness3d_dense.cuh: first_tile, start_tile), written out as
   (component, panel, first 64-element unit, width in units)."""
-  units, panels = -(-num_e // 64), -(-k3 // 256)
+  units, panels = -(-num_e // 64), -(-k3 // panel)
   total = num_c * panels * units
+  base, rem = divmod(total, grid)
   walks = []
   for b in range(grid):
-    pos, end = b * total // grid, (b + 1) * total // grid
+    pos, end = b * base + min(b, rem), (b + 1) * base + min(b + 1, rem)
     tiles = []
     while pos < end:
       seg, off = divmod(pos, units)
-      width = 2 if min(end, (seg + 1) * units) - pos >= 2 else 1
+      width = (2 if max_width == 2 and min(end, (seg + 1) * units) - pos >= 2
+               else 1)
       tiles.append(divmod(seg, panels) + (off, width))
       pos += width
     walks.append(tiles)
@@ -207,6 +213,118 @@ def test_dense_walk_covers_every_unit_once(num_sms):
     walks = _dense_walk(4096, 3, 512, 132)
     assert sum(w for tiles in walks for *_, w in tiles) == 384
     assert max(sum(w for *_, w in tiles) for tiles in walks) == 3
+
+
+def _amat2d(order, c=(1.3, 0.2, 0.7)):
+  quad = Quadrature1D.create(order + 1, NodeType.GAUSS_LOBATTO_LEGENDRE)
+  return cuda_stiffness.uniform_amat_np(
+      c, np.outer(quad.weights, quad.weights),
+      differentiation_matrix_1d(quad.nodes))
+
+
+@pytest.mark.parametrize('precision', ['bf16x3', 'default'])
+@pytest.mark.parametrize('order', range(1, 11))
+def test_uniform_split_layout_is_the_wgmma_swizzled_order(order, precision):
+  """The 2D operator's layout at a panel P (by default k^2 rounded up to
+  16, one panel; also P = 16): entry [p, c, part, n, r, s, q] holds, bit
+  for bit, row P p + 8 n + r and depth 16 c + 8 (s ^ (r >> 2 & 1)) + q of
+  split_operator_np's hi (part 0) or, at 'bf16x3' only, lo (part 1), zero
+  past the operator; a stage's two 16-deep chunks of a panel are one
+  contiguous run of a multiple of 1 KB (the field chunk after it stays
+  1024-byte aligned for TMA's 128-byte swizzle)."""
+  a64 = _amat2d(order)
+  k2 = a64.shape[0]
+  passes = cuda_split.PASSES[precision]
+  parts = 2 if passes == 3 else 1
+  split = cuda_split.split_operator_np(a64)
+  hi, lo = torch.as_tensor(split).to(torch.bfloat16)
+  k_pad = -(-k2 // 32) * 32
+  assert cuda_split.uniform_split_panel(k2) == -(-k2 // 16) * 16 <= 128
+  for panel in (None, 16):
+    layout = cuda_split.uniform_split_layout(hi, lo, k2, passes, panel)
+    panel = panel or cuda_split.uniform_split_panel(k2)
+    panels = -(-k2 // panel)
+    assert tuple(layout.shape) == (panels, k_pad // 16, parts, panel // 8, 8,
+                                   2, 8)
+    assert tuple(layout.shape) == cuda_split.uniform_split_layout_shape(
+        k2, passes, panel)
+    assert layout.dtype == torch.bfloat16 and layout.is_contiguous()
+    assert layout[0, :2].numel() * 2 % 1024 == 0
+    want = np.zeros((2, panels * panel, k_pad), dtype=np.int16)
+    want[:, :split.shape[1], :split.shape[2]] = _bf16_bits(split)
+    got = layout.view(torch.int16).numpy()
+    part, n, r, unit, q = np.indices(layout.shape[2:])
+    for p, c in itertools.product(range(panels), range(layout.shape[1])):
+      np.testing.assert_array_equal(
+          got[p, c], want[part, panel * p + 8 * n + r,
+                           16 * c + 8 * (unit ^ ((r >> 2) & 1)) + q])
+    np.testing.assert_array_equal(
+        layout.float().numpy(),
+        cuda_split.dense_bf16_layout_np(a64, panel, parts))
+
+
+def test_uniform_split_panel_spreads_few_units():
+  """The 2D panel: one panel (k^2 rounded up to 16) where the (component,
+  unit) pairs fill the card, the smallest multiple of 16 that leaves each
+  block an SM of its own where they are few."""
+  assert cuda_split.uniform_split_panel(81, 4096, 2, 132) == 96
+  assert cuda_split.uniform_split_panel(81, 4096, 1, 132) == 48
+  assert cuda_split.uniform_split_panel(64, 256, 2, 132) == 16
+  assert cuda_split.uniform_split_panel(121, 37, 4, 132) == 16
+  for rows, num_e, num_c in itertools.product((4, 25, 64, 81, 100, 121),
+                                              (1, 37, 256, 1000, 4096),
+                                              (1, 2, 4)):
+    panel = cuda_split.uniform_split_panel(rows, num_e, num_c, 132)
+    assert panel % 16 == 0 and 16 <= panel <= -(-rows // 16) * 16
+    blocks = num_c * -(-num_e // 64) * -(-rows // panel)
+    assert blocks <= 132 or panel == -(-rows // 16) * 16
+
+
+@pytest.mark.parametrize('num_sms', [132, 7])
+def test_uniform_split_walk_covers_every_unit_once(num_sms):
+  """The 2D kernel (one warpgroup, tiles of one 64-element unit by one
+  panel, up to two blocks an SM): each (component, panel, unit) in exactly
+  one tile of one block at E = 256 (the lid-driven box), 4096 (datagen)
+  and ragged E; at the datagen shape (C = 2) 128 tiles, one a block, in
+  one wave, on the lid-driven box 32 (four panels of 16 rows)."""
+  for num_e, k, num_c in itertools.product((1, 37, 256, 1000, 4096),
+                                           (2, 8, 9, 11), (1, 2, 4)):
+    k2 = k * k
+    panel = cuda_split.uniform_split_panel(k2, num_e, num_c, num_sms)
+    units, panels = -(-num_e // 64), -(-k2 // panel)
+    grid = min(num_c * panels * units, 2 * num_sms)
+    seen = np.zeros((num_c, panels, units), dtype=np.int64)
+    for tiles in _dense_walk(num_e, num_c, k2, grid, panel, max_width=1):
+      for c, p, col, width in tiles:
+        assert width == 1
+        seen[c, p, col] += 1
+    assert (seen == 1).all(), (num_e, k, num_c)
+  if num_sms == 132:
+    walks = _dense_walk(4096, 2, 81, 128, 96, max_width=1)
+    assert [len(tiles) for tiles in walks] == [1] * 128
+    walks = _dense_walk(256, 2, 64, 32, 16, max_width=1)
+    assert [len(tiles) for tiles in walks] == [1] * 32
+
+
+def test_sem2d_ops_keep_the_split_layout():
+  """Sem2DOps makes the 2D layout once per class; on the CPU the wrapper
+  runs the plain version of the class, with or without the layout."""
+  sem = StokesSEM.create(unit_cube_mesh(2, ndim=2, periodic_dims=(0, 1)),
+                         {}, order=4, device='cpu', dtype=torch.float32)
+  us = (torch.randn(5, 5, 8, generator=torch.Generator().manual_seed(0)),)
+  for precision, passes in cuda_split.PASSES.items():
+    ops = dataclasses.replace(sem.fast_ops, kernel_precision=precision)
+    layout = ops.dense_bf16()
+    assert layout is ops.dense_bf16() and layout.dtype == torch.bfloat16
+    hi, lo = ops.split_operator()
+    torch.testing.assert_close(
+        layout, cuda_split.uniform_split_layout(hi, lo, 25, passes),
+        rtol=0, atol=0)
+    want = cuda_split.stiffness_uniform_split_plain(us, hi, lo, passes)
+    for got in (cuda_split.stiffness_uniform_split(us, hi, lo, passes, layout),
+                cuda_split.stiffness_uniform_split(us, hi, lo, passes),
+                ops.stiffness_el_multi(us)):
+      torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
 
 
 def test_dense_split_wrapper_keeps_its_layout():
@@ -579,3 +697,56 @@ def test_general3d_blocks_cover_every_element_once(num_sms, blocks_per_sm):
     assert (seen == 1).all(), (num_e, k, num_c, grid)
     assert 1 <= grid <= num_sms * blocks_per_sm
   assert cuda_stiffness3d.general3d_grid(4096, 8, 132, 1) == 132
+
+
+@pytest.mark.parametrize('itemsize', [4, 8], ids=['f32', 'f64'])
+@pytest.mark.parametrize('k', range(2, cuda_stiffness3d.MAX_K + 1))
+def test_uniform3d_plan_fits_one_block_an_sm(k, itemsize):
+  """The congruent 3D kernel's plan (csrc/stiffness3d_uniform.cu: Plan):
+  128-byte rows (32 float32 or 16 float64 elements a tile) where two
+  stages fit beside the output tile (k <= 8), half that beyond; two to four
+  stages; the tile's field as at most four TMA boxes of at most 256 rows,
+  each a multiple of 128 bytes, covering the k^3 points; the warps' planes
+  cover the k planes and their rounds the k^2 zeta lines; all of it in one
+  block's shared memory."""
+  plan = cuda_stiffness3d.uniform3d_plan(k, itemsize)
+  te = plan['tile_e']
+  assert te == (128 if k <= 8 else 64) // itemsize
+  assert 2 <= plan['stages'] <= 4
+  assert plan['boxes'] <= 4 and plan['box_rows'] <= 256
+  assert plan['boxes'] * plan['box_rows'] >= k ** 3
+  assert plan['box_rows'] * te * itemsize % 128 == 0
+  assert plan['stage_bytes'] == plan['boxes'] * plan['box_rows'] * te * itemsize
+  slots = 32 // te
+  assert (plan['warps'] - 1) * slots < k <= plan['warps'] * slots
+  assert plan['rounds'] * plan['warps'] * slots >= k * k
+  assert plan['threads'] == 32 * plan['warps'] + 32
+  fixed = plan['smem_bytes'] - plan['stages'] * plan['stage_bytes']
+  assert fixed >= 256 + k ** 3 * te * itemsize + (2 * k * k + 3 * k) * itemsize
+  assert plan['smem_bytes'] <= cuda_stiffness3d.SMEM_LIMIT
+  if plan['stages'] < 4:
+    assert plan['smem_bytes'] + plan['stage_bytes'] > cuda_stiffness3d.SMEM_LIMIT
+
+
+@pytest.mark.parametrize('num_sms,blocks_per_sm', [(132, 1), (7, 2)])
+def test_uniform3d_walk_covers_every_unit_once(num_sms, blocks_per_sm):
+  """Each (component, tile) unit of the congruent 3D kernel in exactly one
+  block's contiguous range, ragged E included; at the TGV shape (16^3
+  elements, order 7, C = 3) 384 units of 32 elements on 132 blocks, at
+  most 3 a block."""
+  for num_e, k, num_c, itemsize in itertools.product(
+      (1, 37, 512, 4096), (2, 8, 9, 10), (1, 3, 4), (4, 8)):
+    te = cuda_stiffness3d.uniform3d_plan(k, itemsize)['tile_e']
+    tiles = -(-num_e // te)
+    grid = cuda_stiffness3d.uniform3d_grid(num_e, k, num_c, num_sms,
+                                          blocks_per_sm, itemsize)
+    assert grid == min(num_c * tiles, num_sms * blocks_per_sm)
+    seen = np.zeros((num_c, tiles), dtype=np.int64)
+    for units in cuda_stiffness3d.uniform3d_walk(num_e, k, num_c, grid,
+                                                 itemsize):
+      for c, tile in units:
+        seen[c, tile] += 1
+    assert (seen == 1).all(), (num_e, k, num_c, itemsize)
+  if num_sms == 132:
+    walks = cuda_stiffness3d.uniform3d_walk(4096, 8, 3, 132)
+    assert sum(map(len, walks)) == 384 and max(map(len, walks)) == 3

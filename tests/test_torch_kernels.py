@@ -200,6 +200,36 @@ def test_stiffness3d_uniform_matches_f64_operator(device, n_el, order, dtype):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('num_e', [27, 64])
+@pytest.mark.parametrize('num_c', [1, 2, 3, 4])
+@pytest.mark.parametrize('k', range(2, cuda_stiffness3d.MAX_K + 1))
+def test_stiffness3d_uniform_every_k(device, k, num_c, num_e, dtype):
+  """The congruent 3D kernel at every k = 2..10 on random fields: E = 27
+  (a ragged tile: the producer warp copies element by element) and E = 64
+  (TMA boxes, two float32 tiles); within the gate of the float64 operator
+  (1e-5 in float32, 1e-13 in float64) and of its plain version."""
+  quad = Quadrature1D.create(k, NodeType.GAUSS_LOBATTO_LEGENDRE)
+  w1, dmat = quad.weights, differentiation_matrix_1d(quad.nodes)
+  c = (1.3, 0.8, 0.5)
+  table = torch.as_tensor(cuda_stiffness3d.uniform_table_np(c, w1, dmat),
+                          dtype=dtype, device=device)
+  a64 = torch.as_tensor(cuda_stiffness3d.uniform_amat3d_np(c, w1, dmat),
+                        device=device)
+  rng = np.random.default_rng(k)
+  us = tuple(torch.as_tensor(rng.standard_normal((k, k, k, num_e)),
+                             dtype=dtype, device=device)
+             for _ in range(num_c))
+  before = cuda_stiffness3d.stiffness3d_uniform.launches
+  got = cuda_stiffness3d.stiffness3d_uniform(us, table)
+  assert cuda_stiffness3d.stiffness3d_uniform.launches == before + 1
+  plain = cuda_stiffness3d.stiffness3d_uniform_plain(us, table)
+  ref = tuple((a64 @ u.double().reshape(k ** 3, -1)).reshape(u.shape)
+              for u in us)
+  torch.cuda.synchronize(device)
+  _check_static(got, plain, ref, dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('n_el,order', _CASES_3D)
 def test_stiffness3d_general_matches_f64_operator(device, n_el, order, dtype):
   del device
@@ -252,6 +282,16 @@ def test_general3d_layout_matches_the_kernel(device):
     for dtype in (torch.float32, torch.float64):
       # Raises where the C side's tile, threads or shared memory differ.
       assert cuda_stiffness3d._general3d_blocks_per_sm(  # pylint: disable=protected-access
+          k, dtype, device) >= 1
+
+
+def test_uniform3d_plan_matches_the_kernel(device):
+  """The host's mirror of the congruent 3D kernel's plan (the grid depends
+  on it) is the kernel's, at every k and in both dtypes."""
+  for k in range(2, cuda_stiffness3d.MAX_K + 1):
+    for dtype in (torch.float32, torch.float64):
+      # Raises where the C side's tile, threads or shared memory differ.
+      assert cuda_stiffness3d._uniform3d_blocks_per_sm(  # pylint: disable=protected-access
           k, dtype, device) >= 1
 
 
@@ -932,3 +972,64 @@ def test_plain_path_knob_runs_order_10_on_the_card(device, ndim):
         dataclasses.replace(on, **knobs).stiffness_el_multi(
             tuple(torch.as_tensor(u, dtype=torch.float32, device=device)
                   for u in us))
+
+
+@pytest.mark.parametrize('precision', ['bf16x3', 'default'])
+@pytest.mark.parametrize('num_e', [37, 256])
+@pytest.mark.parametrize('num_c', [1, 2, 4])
+@pytest.mark.parametrize('order', range(1, 11))
+def test_stiffness_uniform_split_every_order(device, order, num_c, num_e,
+                                             precision):
+  """The 2D split kernel at every order 1..10 (panels 16 to 128) on the
+  congruent operator of fixed metric scalars: within SPLIT_VS_PLAIN_TOL of
+  its plain version and inside its class's band of the float64 operator,
+  E = 37 (the producer warp's element-wise copies) and 256 (TMA boxes)."""
+  quad = Quadrature1D.create(order + 1, NodeType.GAUSS_LOBATTO_LEGENDRE)
+  w1, dmat = quad.weights, differentiation_matrix_1d(quad.nodes)
+  a64 = cuda_stiffness.uniform_amat_np((1.3, 0.2, 0.7), np.outer(w1, w1),
+                                       dmat)
+  k2 = a64.shape[0]
+  split = torch.as_tensor(cuda_split.split_operator_np(a64),
+                          device=device).to(torch.bfloat16)
+  rng = np.random.default_rng(order)
+  us = tuple(torch.as_tensor(rng.standard_normal((k2, num_e)),
+                             dtype=torch.float32, device=device)
+             for _ in range(num_c))
+  passes = cuda_split.PASSES[precision]
+  before = cuda_split.stiffness_uniform_split.launches
+  got = cuda_split.stiffness_uniform_split(us, split[0], split[1], passes)
+  assert cuda_split.stiffness_uniform_split.launches == before + 1
+  plain = cuda_split.stiffness_uniform_split_plain(us, split[0], split[1],
+                                                   passes)
+  a64 = torch.as_tensor(a64, device=device)
+  ref = tuple(a64 @ u.double() for u in us)
+  torch.cuda.synchronize(device)
+  scale = max(float(r.abs().max()) for r in ref)
+  plain_scale = max(float(q.abs().max()) for q in plain)
+  for g, q in zip(got, plain):
+    assert float((g - q).abs().max()) <= (kernel_checks.SPLIT_VS_PLAIN_TOL
+                                          * plain_scale)
+  low, high = kernel_checks.CLASS_BANDS[precision]
+  err = max(float((g.double() - r).abs().max()) for g, r in zip(got, ref))
+  assert low < err / scale <= high, err / scale
+
+
+def test_uniform_split_refuses_past_its_panel(device):
+  """The 2D split kernel holds the operator in one panel of at most 128
+  rows (order 10): past it the launch raises and names use_kernels=False;
+  a layout of the wrong class is refused."""
+  rng = np.random.default_rng(0)
+  for k, ok in ((11, True), (12, False)):
+    m64 = rng.standard_normal((k * k, k * k))
+    split = torch.as_tensor(cuda_split.split_operator_np(m64),
+                            device=device).to(torch.bfloat16)
+    us = (torch.ones(k * k, 64, device=device),)
+    if ok:
+      cuda_split.stiffness_uniform_split(us, split[0], split[1], 3)
+      with pytest.raises(ValueError, match='uniform_split_layout'):
+        cuda_split.stiffness_uniform_split(
+            us, split[0], split[1], 3,
+            cuda_split.uniform_split_layout(split[0], split[1], k * k, 1))
+    else:
+      with pytest.raises(ValueError, match='use_kernels=False'):
+        cuda_split.stiffness_uniform_split(us, split[0], split[1], 3)

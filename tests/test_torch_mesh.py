@@ -92,7 +92,7 @@ def test_refined_box_mesh_identical(n, order, periodic, node_type, generic):
     assert tref.periodic_links is None
   else:
     np.testing.assert_array_equal(tref.periodic_links, jref.periodic_links)
-  _assert_mesh_equal(tref.finalize(), jref.finalize())
+  _assert_mesh_equal(tref.finalize(device='cpu'), jref.finalize())
 
 
 def test_refine_3d_generic_identical():
@@ -100,7 +100,7 @@ def test_refine_3d_generic_identical():
   tpm = unit_cube_mesh(2, ndim=3, periodic_dims=(2,)).replace(box_info=None)
   jgrid = jquad.Nodes1D.create(3, jquad.NodeType.GAUSS_LOBATTO_LEGENDRE)
   tgrid = quad.Nodes1D.create(3, quad.NodeType.GAUSS_LOBATTO_LEGENDRE)
-  _assert_mesh_equal(refine_premesh(tpm, tgrid).finalize(),
+  _assert_mesh_equal(refine_premesh(tpm, tgrid).finalize(device='cpu'),
                      jrefine(jpm, jgrid).finalize())
 
 
@@ -113,7 +113,7 @@ def test_gather_scatter_exchange_match(structured):
   jgrid = jquad.Nodes1D.create(5, jquad.NodeType.GAUSS_LOBATTO_LEGENDRE)
   tgrid = quad.Nodes1D.create(5, quad.NodeType.GAUSS_LOBATTO_LEGENDRE)
   jmesh = jrefine(jpm, jgrid).finalize()
-  tmesh = refine_premesh(tpm, tgrid).finalize()
+  tmesh = refine_premesh(tpm, tgrid).finalize(device='cpu')
   assert (tmesh.structured is not None) == structured
   rng = np.random.default_rng(1)
   u = rng.standard_normal(tmesh.num_nodes)
@@ -164,7 +164,7 @@ def test_periodic_cube_mesh_and_factors_match(n, order):
     jmesh = jrefine(jpm, jquad.Nodes1D.create(
         npts, getattr(jquad.NodeType, node_type))).finalize()
     tmesh = refine_premesh(tpm, quad.Nodes1D.create(
-        npts, getattr(quad.NodeType, node_type))).finalize()
+        npts, getattr(quad.NodeType, node_type))).finalize(device='cpu')
     _assert_mesh_equal(tmesh, jmesh)
     for q in quad_points:
       jspace = jfespace.FiniteElementSpace.create(
@@ -179,3 +179,25 @@ def test_periodic_cube_mesh_and_factors_match(n, order):
         got = getattr(tspace, name).numpy()
         want = np.asarray(getattr(jspace, name))
         assert np.abs(got - want).max() <= 1e-13 * np.abs(want).max(), name
+
+
+@pytest.mark.parametrize('entry', ['finalize', 'create', 'multiplicity_el'])
+def test_mesh_layer_takes_no_default_device(entry):
+  """The mesh layer's entry points name no device of their own: a caller
+  who leaves `device` out gets a TypeError, not the CPU."""
+  from swirlfem_tpu_torch.core.mesh import Mesh  # pylint: disable=import-outside-toplevel
+  from swirlfem_tpu_torch.ops import sem3d  # pylint: disable=import-outside-toplevel
+  pm = refine_premesh(unit_cube_mesh(2, ndim=3, periodic_dims=(0, 1, 2)),
+                      quad.Nodes1D.create(3, quad.NodeType.GAUSS_LOBATTO_LEGENDRE))
+  calls = {
+      'finalize': lambda **kw: pm.finalize(**kw),
+      'create': lambda **kw: Mesh.create(pm.node_coords, pm.elements,
+                                         gridpoints_1d=pm.gridpoints_1d,
+                                         **kw),
+      'multiplicity_el': lambda **kw: sem3d.multiplicity_el(pm.structured,
+                                                            **kw)}
+  with pytest.raises(TypeError, match='device'):
+    calls[entry]()
+  out = calls[entry](device='cpu')
+  tensor = out if isinstance(out, torch.Tensor) else out.node_coords
+  assert tensor.device.type == 'cpu'

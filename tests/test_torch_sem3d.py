@@ -134,7 +134,7 @@ def test_exchange_matches(shape):
   np.testing.assert_array_equal(
       got.numpy(), np.asarray(jsem3d.exchange_el(jnp.asarray(w), jinfo)))
   np.testing.assert_array_equal(
-      sem3d.multiplicity_el(info, dtype=torch.float64).numpy(),
+      sem3d.multiplicity_el(info, dtype=torch.float64, device='cpu').numpy(),
       np.asarray(jsem3d.multiplicity_el(jinfo, dtype=jnp.float64)))
   assert got.data_ptr() != torch.as_tensor(w).data_ptr()
 
