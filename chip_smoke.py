@@ -13,16 +13,19 @@ graded and sheared periodic box, all in float32.  Phases:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels (csrc/*.cu, nvcc, sm_90a);
   3. compare each kernel with its plain PyTorch version at the slice's
-     shapes: exchange2d bitwise, stiffness_uniform within 1e-5 of the
-     float64 operator;
+     shapes: exchange2d bitwise (one field, the step's two-field launch,
+     and odd shapes: scalar rows, long rows, k = 2 and 10, float64, four
+     fields), stiffness_uniform within 1e-5 of the float64 operator;
   4. run one 500-step datagen cycle through `run_simulation` (launch
-     counters reset just before);
+     counters reset just before; the exchange launches a step logged);
   5. run 20 certified-solve steps (FDM-seeded viscous CG, which runs the
      stiffness kernel) and hold them against the exact-solve steps;
   6. run 20 steps on the card and the same 20 through the plain path on the
      CPU, from one state, and compare;
   7. time each kernel against its plain version (CUDA events): device
      time alone ("ms") and per eager call, dispatch included ("call_ms");
+     the exchange's two-field launch against two one-field launches, and
+     its duration from the profiler ("kernel_us");
   8. the 3D kernels against their plain versions and the float64 operator
      at 16^3 elements, order 7, 3 components; the general one also at
      k = 10 (order 9) on a 3^3 box;
@@ -53,8 +56,10 @@ graded and sheared periodic box, all in float32.  Phases:
  17. time the 2D general, affine and Kronecker-form kernels against their
      plain versions and one library call (for the affine function one
      einsum of the same function, beside the GEMM of its stacked operator
-     alone), at the paths' shapes and the datagen shape, and the congruent
-     kernel at the uniform lid-driven shape;
+     alone), at the paths' shapes and the datagen shape (the general and
+     Kronecker-form ones there also in the kernels line, "datagen_ms"),
+     with the general kernel's duration from the profiler, and the
+     congruent kernel at the uniform lid-driven shape;
  18. the opt-in 3D stiffness kernels (dense, 3xTF32 within 1e-6; the
      bf16x3 pair, pair-general, pairz and pair-affine) against their plain
      versions and the float64 operator at 16^3 elements, order 7, 3
@@ -147,6 +152,11 @@ def rel_err(a, b) -> float:
     return max(rel_err(x, y) for x, y in zip(a, b))
   a, b = a.double().cpu(), b.double().cpu()
   return float((a - b).abs().max() / b.abs().max())
+
+
+def us_or_none(us) -> str:
+  """A profiler duration in microseconds, or why there is none."""
+  return 'not in the trace' if us is None else f'{us:.2f} us'
 
 
 def all_finite(tree) -> bool:
@@ -1041,6 +1051,12 @@ def run_walled_phases(torch, device, dtype, kernel_checks, times,
       f'operator alone {times["stiffness2d_affine"]["gemm_only_ms"] * 1e3:.2f}'
       f' us (the same function in one einsum '
       f'{times["stiffness2d_affine"]["library_ms"] * 1e3:.2f} us)')
+  for name, symbol in (('stiffness2d_general', 'stiffness2d_general_kernel'),
+                       ('stiffness2d_kron', 'stiffness2d_general_kernel')):
+    times[name]['kernel_us'] = kernel_checks.kernel_us(
+        timed[name][0], symbol, device=device)
+    log(f'[17] {name}: kernel {us_or_none(times[name]["kernel_us"])} '
+        f'(profiler)')
   itemsize = us_g[0].element_size()
   for name, ops, us, is_affine, check in (
       ('stiffness2d_general', general, us_g, False, checks['general C=2']),
@@ -1097,8 +1113,18 @@ def run_walled_phases(torch, device, dtype, kernel_checks, times,
              f'{kernel_checks.time_ms(library64, device=device) * 1e3:.2f} '
              f'us, the GEMM alone '
              f'{kernel_checks.time_ms(gemm64, device=device) * 1e3:.2f} us')
+    t_64 = kernel_checks.time_ms(fn, device=device)
+    own = ''
+    if name in ('general', 'kron'):
+      # Rows 3 and 5 at the datagen shape, in the kernels line.
+      own_us = kernel_checks.kernel_us(fn, 'stiffness2d_general_kernel',
+                                       device=device)
+      times[f'stiffness2d_{name}'].update(
+          datagen_ms=t_64, datagen_kernel_us=own_us,
+          datagen_bound_ms=b['bound_ms'])
+      own = f' (kernel {us_or_none(own_us)}, profiler)'
     log(f'[17] stiffness2d_{name} at the datagen shape (9, 9, 4096) x '
-        f'{num_c}: {kernel_checks.time_ms(fn, device=device) * 1e3:.2f} us, '
+        f'{num_c}: {t_64 * 1e3:.2f} us{own}, '
         f'bound {b["bound_ms"] * 1e3:.3f} us ({b["bound_by"]}){lib}')
   return {'affine': affine, 'affine64': affine64, 'uniform': uniform}
 
@@ -1487,6 +1513,24 @@ def main() -> int:
   ex = kernel_checks.check_exchange2d(w)
   log(f'[3] exchange2d {tuple(w.shape)} f32: {ex}')
   require(ex['bitwise_equal'], 'exchange2d differs from its plain version')
+  # The step's two-field launch (the velocity's components) and odd shapes:
+  # scalar rows (n1 not a multiple of the 16-byte chunk), rows of several
+  # warps, k = 2 and 10, float64, four fields.
+  w2 = (w, kernel_checks.random_field((k, k, n, n), dtype=dtype,
+                                      device=device, seed=1))
+  odd = {'2 fields': w2}
+  for shape, dt_, count in (((5, 5, 3, 7), dtype, 3), ((2, 2, 1, 1), dtype, 1),
+                            ((10, 10, 12, 20), torch.float64, 4),
+                            ((3, 3, 37, 600), dtype, 2),
+                            ((9, 9, 64, 64), torch.float64, 2)):
+    odd[f'{count} x {shape} {dt_}'] = tuple(
+        kernel_checks.random_field(shape, dtype=dt_, device=device, seed=s)
+        for s in range(count))
+  for name, fields in odd.items():
+    check = kernel_checks.check_exchange2d(fields)
+    log(f'[3] exchange2d {name}: {check}')
+    require(check['bitwise_equal'], (name, check))
+  del odd
   us = tuple(kernel_checks.random_field((k, k, n * n), dtype=dtype,
                                         device=device, seed=s)
              for s in (1, 2))
@@ -1512,7 +1556,8 @@ def main() -> int:
   ms_step = walls[0] / cfg.num_steps_per_cycle * 1e3
   log(f'[4] cycle of {cfg.num_steps_per_cycle} steps: {walls[0]:.3f} s, '
       f'{ms_step:.4f} ms/step, CFL {cfl:.5f}, exchange2d launches '
-      f'{exch_cycle} ({exch_cycle / cfg.num_steps_per_cycle:.1f}/step)')
+      f'{exch_cycle} ({exch_cycle / cfg.num_steps_per_cycle:.1f}/step: '
+      f'one a distinct exchange, the components in one launch)')
   require(all_finite(state), 'non-finite datagen state')
   require(exch_cycle > 0, 'the datagen cycle never launched exchange2d')
   require(0 < cfl < 1, cfl)
@@ -1575,6 +1620,25 @@ def main() -> int:
   }
   times = {}
   time_kernels(timed, times, kernel_checks, device, '[7]')
+  # The exchange's two-field launch, as the step makes it, against two
+  # one-field launches; beside each time between events, the kernel's own
+  # duration from the profiler.
+  ex_times = times['exchange2d']
+  ex_times['two_field_ms'] = kernel_checks.time_ms(
+      lambda: cuda_exchange.exchange2d(w2), device=device)
+  ex_times['two_launches_ms'] = kernel_checks.time_ms(
+      lambda: (cuda_exchange.exchange2d(w2[0]),
+               cuda_exchange.exchange2d(w2[1])), device=device)
+  ex_times['kernel_us'] = kernel_checks.kernel_us(
+      lambda: cuda_exchange.exchange2d(w), 'exchange2d_kernel', device=device)
+  ex_times['two_field_kernel_us'] = kernel_checks.kernel_us(
+      lambda: cuda_exchange.exchange2d(w2), 'exchange2d_kernel',
+      device=device)
+  log(f'[7] exchange2d: two fields in one launch '
+      f'{ex_times["two_field_ms"] * 1e3:.2f} us (kernel '
+      f'{us_or_none(ex_times["two_field_kernel_us"])}), two one-field '
+      f'launches {ex_times["two_launches_ms"] * 1e3:.2f} us; one field: '
+      f'kernel {us_or_none(ex_times["kernel_us"])} (profiler)')
   # Bounds: the exchange moves the field in and out and adds 2k values per
   # element; the stiffness reads A and the components, writes the outputs,
   # and does 2 k^4 flops per element and component.
@@ -1582,6 +1646,8 @@ def main() -> int:
   flops = 2 * k2 ** 2 * num_e * len(us)
   times['exchange2d'].update(kernel_checks.bound(
       2 * k * n * n, 2 * w.numel() * w.element_size()))
+  times['exchange2d']['two_field_bound_ms'] = kernel_checks.bound(
+      4 * k * n * n, 4 * w.numel() * w.element_size())['bound_ms']
   times['stiffness_uniform'].update(kernel_checks.bound(
       flops, (k2 * k2 + 2 * len(us) * k2 * num_e) * amat.element_size()))
   # GDOF/s as the JAX bench counts them: nodal velocity dofs per apply

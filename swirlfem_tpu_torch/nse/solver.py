@@ -791,8 +791,10 @@ def stokes_step_el(ops, us_el, ps_el, f_el, *, mu, dt, time_order,
   num_e = int(np.prod(eshape))
 
   wmass = ops.wmass.reshape((kk,) * d + eshape)
-  mult = exch(torch.ones((kk,) * d + eshape, dtype=wmass.dtype,
-                         device=wmass.device))
+  # `exch` takes a tuple of fields in one call (one kernel launch in 2D):
+  # the copy count and the assembled mass come from one exchange.
+  mult, wmass_sum = exch((torch.ones((kk,) * d + eshape, dtype=wmass.dtype,
+                                     device=wmass.device), wmass))
 
   def flat(w):
     return w.reshape((kk,) * d + (num_e,))
@@ -835,7 +837,7 @@ def stokes_step_el(ops, us_el, ps_el, f_el, *, mu, dt, time_order,
     if not diag_h:
       diag_h.append(exch((beta_k / dt) * wmass
                          + mu * unflat(ops.stiffness_diag_el())))
-    return tuple(exch(r) / diag_h[0] for r in rt)
+    return tuple(r / diag_h[0] for r in exch(tuple(rt)))
 
   # An exact FDM inverse seeds CG: the solve becomes a direct application
   # plus a convergence certificate (0-2 polish iterations in float32).
@@ -858,16 +860,15 @@ def stokes_step_el(ops, us_el, ps_el, f_el, *, mu, dt, time_order,
         interpolation_matrix_1d(low, grid_1d)
         @ interpolation_matrix_1d(grid_1d, low))
 
-    def filt(w):
-      fw = unflat(ops.interp_all(blend, flat(w)))
-      return (1.0 - alpha) * w + alpha * exch(fw) / mult
+    # The blend of every component first, then one exchange of them all.
+    fws = exch(tuple(unflat(ops.interp_all(blend, flat(w))) for w in u_star))
+    u_star = tuple((1.0 - alpha) * w + alpha * fw / mult
+                   for w, fw in zip(u_star, fws))
 
-    u_star = tuple(filt(w) for w in u_star)
-
-  diag_i = 1.0 / exch(wmass)
+  diag_i = 1.0 / wmass_sum
 
   def Q_t(ut):
-    return tuple((dt / beta_k) * diag_i * exch(w) for w in ut)
+    return tuple((dt / beta_k) * diag_i * w for w in exch(tuple(ut)))
 
   def E_fast(p):
     return div_el(Q_t(grad_el(p)))

@@ -20,6 +20,8 @@ import subprocess
 import tempfile
 import time
 
+import torch
+
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _CSRC = _PKG / 'csrc'
 _BUILD = _PKG / '_build'
@@ -39,16 +41,21 @@ _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _I = ctypes.c_int
 _SIGNATURES = {
-    # (w, out, k, n0, n1, stream)
-    'exchange2d_f32': (_P, _P, _I, _I, _I, _P),
-    'exchange2d_f64': (_P, _P, _I, _I, _I, _P),
+    # (ws[], outs[], num_fields, k, n0, n1, vec, tx, ty, shuffle, stream)
+    'exchange2d_f32': (_PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    'exchange2d_f64': (_PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # (amat layout, us[], outs[], num_c, k2, num_e, panels, rows, splits,
     #  blocks, stream)
     'stiffness_uniform_f32': (_P, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _P),
     'stiffness_uniform_f64': (_P, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _P),
-    # (dmat, us[], gs[3], outs[], num_c, k, num_e, stream)
-    'stiffness2d_general_f32': (_P, _PP, _PP, _PP, _I, _I, _I, _P),
-    'stiffness2d_general_f64': (_P, _PP, _PP, _PP, _I, _I, _I, _P),
+    # (dmat, us[], gs[3], outs[], num_c, k, num_e, tile_e, grid, span,
+    #  stream)
+    'stiffness2d_general_f32': (_P, _PP, _PP, _PP, _I, _I, _I, _I, _I, _I,
+                                _P),
+    'stiffness2d_general_f64': (_P, _PP, _PP, _PP, _I, _I, _I, _I, _I, _I,
+                                _P),
+    # (k, f64, tile_e, out[4]: tile_e, threads, shared bytes, blocks per SM)
+    'stiffness2d_general_layout': (_I, _I, _I, ctypes.POINTER(_I)),
     # (mstack layout, c_aff, us[], outs[], num_c, k2, num_e, panels, rows,
     #  splits, blocks, stream)
     'stiffness2d_affine_f32': (_P, _P, _PP, _PP, _I, _I, _I, _I, _I, _I, _I,
@@ -176,3 +183,25 @@ def check(rc: int, what: str) -> None:
   """Raises if a kernel's C entry point returned a CUDA error code."""
   if rc != 0:
     raise RuntimeError(f'{what}: CUDA error {rc} at launch')
+
+
+# Resident blocks per SM of each persistent kernel instance on each device.
+_OCCUPANCY = {}
+
+
+def blocks_per_sm(fn, args, want, what, device) -> int:
+  """Resident blocks per SM of one kernel instance (the C side's occupancy
+  query `fn(*args, out)`, which also returns its tile, threads and shared
+  memory, held against the host's mirror `want`); cached per kernel and
+  device."""
+  key = (what,) + tuple(args) + (device.index,)
+  if key not in _OCCUPANCY:
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+      check(fn(*args, out), what)
+    got = dict(tile_e=out[0], threads=out[1], smem_bytes=out[2])
+    if any(want[name] != got[name] for name in got) or out[3] < 1:
+      raise RuntimeError(f'{what} {tuple(args)}: the kernel has {got} and '
+                         f'{out[3]} blocks per SM, the host expects {want}')
+    _OCCUPANCY[key] = out[3]
+  return _OCCUPANCY[key]

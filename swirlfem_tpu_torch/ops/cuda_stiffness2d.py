@@ -25,6 +25,8 @@ it launches its kernel or raises, and counts the launch in
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -34,6 +36,10 @@ from swirlfem_tpu_torch.ops import cuda_stiffness
 # The general kernel is instantiated for k = order + 1 in [2, MAX_K].
 MAX_K = 10
 NUM_FACTORS = 3
+# Element tiles of the general kernel (csrc/stiffness2d_general.cu): wide
+# (128-byte rows in float32) where the units reach half the SMs, else
+# narrow (`general2d_tile`).
+WIDE_TILE, NARROW_TILE = 32, 8
 
 
 def stiffness2d_general_plain(us, gs, dmat: torch.Tensor):
@@ -81,6 +87,88 @@ def _check_fields(what, us, like: torch.Tensor, k2: int):
 _SUFFIX = {torch.float32: 'f32', torch.float64: 'f64'}
 
 
+def general2d_layout(k: int, itemsize: int = 4,
+                     tile_e: int = WIDE_TILE) -> dict:
+  """The general kernel's block at ``k = order + 1`` for a tile of `tile_e`
+  elements of `itemsize` bytes, as ``csrc/stiffness2d_general.cu:Layout``
+  computes it.
+
+  A thread owns one line of one element (``k tile_e`` threads, rounded up
+  to whole warps).  A tile holds a field's ``k^2`` nodes of the tile's
+  elements, ``line`` values a line of k nodes (padded by ``tile_e`` values
+  where ``tile_e`` < 32 and k is even, so that a warp's ``32 / tile_e``
+  lines start on distinct bank groups).  Shared memory (`smem_bytes`): in
+  float64 the tables D and D^T, rows padded to 16 bytes (float32 keeps D in
+  registers), two U tiles, R and two sets of the three factor tiles.
+  """
+  line = k * tile_e + (tile_e if tile_e < 32 and k % 2 == 0 else 0)
+  table = 0 if itemsize == 4 else 2 * k * (-(-k // 2) * 2)
+  smem = (table + (3 + 2 * NUM_FACTORS) * k * line) * itemsize
+  return dict(tile_e=tile_e, threads=-(-k * tile_e // 32) * 32, line=line,
+              smem_bytes=smem)
+
+
+def general2d_tile(num_e: int, num_c: int, itemsize: int,
+                   num_sms: int) -> int:
+  """The general kernel's element tile: `WIDE_TILE` in float32 where its
+  (component, tile) units reach half the SMs, else `NARROW_TILE` (float64:
+  always narrow, as the wide tiles do not fit at k = 10).  At the datagen
+  shape (E = 4096) one component's 128 wide units took 3.84 us, its 512
+  narrow ones 4.79 (kernel durations on an NVIDIA H100 80GB HBM3 at 700 W,
+  tests/torch_port_exchange_general2d_variants.py)."""
+  if itemsize == 4 and 2 * num_c * -(-num_e // WIDE_TILE) >= num_sms:
+    return WIDE_TILE
+  return NARROW_TILE
+
+
+def general2d_grid(num_e: int, num_c: int, tile_e: int, num_sms: int,
+                   blocks_per_sm: int) -> tuple:
+  """``(grid, span)``: persistent blocks of the general kernel and the units
+  in one run of a block's walk.  Where the card holds a block for every
+  (component, tile) unit, one each (span 1: the most blocks at once);
+  otherwise whole tiles (span C) on at most as many blocks as the card
+  holds, so that each tile's factor fields are read by one block."""
+  tiles = -(-num_e // tile_e)
+  if num_c * tiles <= num_sms * blocks_per_sm:
+    return num_c * tiles, 1
+  return min(tiles, num_sms * blocks_per_sm), num_c
+
+
+def general2d_walk(num_e: int, num_c: int, tile_e: int, grid: int,
+                   span: int = 1) -> list:
+  """The (tile, component) units each persistent block of the general kernel
+  walks: block b the contiguous range ``[b N / grid, (b + 1) N / grid)`` of
+  the ``N = U / span`` runs of `span` units of the ``U = C ceil(E /
+  tile_e)`` units, tile-major (a tile's components follow one another, so
+  a block keeps the tile's factor values)."""
+  runs = num_c * -(-num_e // tile_e) // span
+  return [[divmod(u, num_c) for u in range(b * runs // grid * span,
+                                           (b + 1) * runs // grid * span)]
+          for b in range(grid)]
+
+
+def _general2d_blocks_per_sm(k: int, dtype, tile_e: int, device) -> int:
+  f64 = int(dtype == torch.float64)
+  return cuda_build.blocks_per_sm(
+      cuda_build.library().stiffness2d_general_layout, (k, f64, tile_e),
+      general2d_layout(k, 8 if f64 else 4, tile_e),
+      'stiffness2d_general_layout', device)
+
+
+@functools.lru_cache(maxsize=256)
+def general2d_plan(num_e: int, k: int, num_c: int, dtype,
+                   device_index: int) -> tuple:
+  """``(tile_e, grid, span)`` of one launch shape on one card, made once
+  (the paths that call the kernel are host-bound)."""
+  device = torch.device('cuda', device_index)
+  num_sms = torch.cuda.get_device_properties(device).multi_processor_count
+  itemsize = torch.empty((), dtype=dtype).element_size()
+  tile_e = general2d_tile(num_e, num_c, itemsize, num_sms)
+  return (tile_e,) + general2d_grid(
+      num_e, num_c, tile_e, num_sms,
+      _general2d_blocks_per_sm(k, dtype, tile_e, device))
+
+
 def stiffness2d_general(us, gs, dmat: torch.Tensor):
   """General 2D stiffness of C components on three factor fields.
 
@@ -126,13 +214,19 @@ def _launch_general(us, gs, dmat: torch.Tensor):
     raise ValueError(f'stiffness2d_general kernel takes 2 <= k <= {MAX_K}, '
                      f'got {k}' + cuda_build.PLAIN_PATH_HINT)
   num_e = us[0].shape[-1]
+  if k * k * num_e >= 2 ** 31:
+    raise ValueError(f'stiffness2d_general kernel takes k^2 E < 2^31 '
+                     f'(32-bit offsets), got k = {k}, E = {num_e}')
+  tile_e, grid, span = general2d_plan(num_e, k, len(us), dmat.dtype,
+                                      dmat.device.index or 0)
   outs = tuple(torch.empty_like(u) for u in us)
   fn = getattr(cuda_build.library(),
                f'stiffness2d_general_{_SUFFIX[dmat.dtype]}')
   stream = torch.cuda.current_stream(dmat.device).cuda_stream
   cuda_build.check(fn(dmat.data_ptr(), cuda_stiffness.ptrs(us),
                       cuda_stiffness.ptrs(gs), cuda_stiffness.ptrs(outs),
-                      len(us), k, num_e, stream), 'stiffness2d_general')
+                      len(us), k, num_e, tile_e, grid, span, stream),
+                   'stiffness2d_general')
   return outs
 
 

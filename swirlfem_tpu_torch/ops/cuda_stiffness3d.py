@@ -539,7 +539,7 @@ def uniform3d_grid(num_e: int, k: int, num_c: int, num_sms: int,
 
 
 def _uniform3d_blocks_per_sm(k: int, dtype, device) -> int:
-  return _blocks_per_sm(
+  return cuda_build.blocks_per_sm(
       cuda_build.library().stiffness3d_uniform_layout,
       (k, int(dtype == torch.float64)),
       uniform3d_plan(k, torch.empty((), dtype=dtype).element_size()),
@@ -593,30 +593,9 @@ def general3d_grid(num_e: int, k: int, num_sms: int, blocks_per_sm: int,
   return max(1, min(tiles, num_sms * blocks_per_sm))
 
 
-# Resident blocks per SM of each persistent kernel instance on each device.
-_OCCUPANCY = {}
-
-
-def _blocks_per_sm(fn, args, want, what, device) -> int:
-  """Resident blocks per SM of one kernel instance (the C side's occupancy
-  query, which also returns its tile, threads and shared memory, held
-  against the host's mirror `want`); cached per kernel and device."""
-  key = (what,) + tuple(args) + (device.index,)
-  if key not in _OCCUPANCY:
-    out = (ctypes.c_int * 4)()
-    with torch.cuda.device(device):
-      cuda_build.check(fn(*args, out), what)
-    got = dict(tile_e=out[0], threads=out[1], smem_bytes=out[2])
-    if any(want[name] != got[name] for name in got) or out[3] < 1:
-      raise RuntimeError(f'{what} {tuple(args)}: the kernel has {got} and '
-                         f'{out[3]} blocks per SM, the host expects {want}')
-    _OCCUPANCY[key] = out[3]
-  return _OCCUPANCY[key]
-
-
 def _general3d_blocks_per_sm(k: int, dtype, device) -> int:
   itemsize = torch.empty((), dtype=dtype).element_size()
-  return _blocks_per_sm(
+  return cuda_build.blocks_per_sm(
       cuda_build.library().stiffness3d_general_layout,
       (k, int(dtype == torch.float64)), general3d_layout(k, itemsize),
       'stiffness3d_general_layout', device)
@@ -835,7 +814,7 @@ def _pair_columns_blocks_per_sm(k: int, variant: str, device) -> int:
     fn, args, what = (lib.stiffness3d_pair_columns_layout,
                       (k, int(variant == 'zeta')),
                       'stiffness3d_pair_columns_layout')
-  return _blocks_per_sm(fn, args, want, what, device)
+  return cuda_build.blocks_per_sm(fn, args, want, what, device)
 
 
 def _pair_columns_grid_on(us, k: int, variant: str, device) -> int:

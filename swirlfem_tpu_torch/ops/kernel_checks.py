@@ -126,13 +126,17 @@ def random_field(shape, *, dtype, device, seed=0) -> torch.Tensor:
                          device=device)
 
 
-def check_exchange2d(w: torch.Tensor) -> dict:
-  """exchange2d kernel vs `exchange2d_plain` on `w`: must be bitwise equal."""
-  got = cuda_exchange.exchange2d(w)
-  want = cuda_exchange.exchange2d_plain(w)
-  torch.cuda.synchronize(w.device)
-  return {'bitwise_equal': bool(torch.equal(got, want)),
-          'max_abs_err': float((got - want).abs().max())}
+def check_exchange2d(w) -> dict:
+  """exchange2d kernel vs `exchange2d_plain` on `w` (one field, or a tuple
+  of up to four in one launch): must be bitwise equal, field by field."""
+  ws = (w,) if isinstance(w, torch.Tensor) else tuple(w)
+  got = cuda_exchange.exchange2d(ws)
+  want = tuple(cuda_exchange.exchange2d_plain(x) for x in ws)
+  torch.cuda.synchronize(ws[0].device)
+  return {'bitwise_equal': all(bool(torch.equal(g, x))
+                               for g, x in zip(got, want)),
+          'max_abs_err': max(float((g - x).abs().max())
+                             for g, x in zip(got, want))}
 
 
 def check_stiffness_uniform(ops, us) -> dict:
@@ -406,3 +410,19 @@ def time_ms(fn, *, device, calls: int = 20, runs: int = 7, warmup: int = 10,
     torch.cuda.synchronize(device)
     samples.append(start.elapsed_time(end) / calls)
   return statistics.median(samples)
+
+
+def kernel_us(fn, symbol: str, *, device, calls: int = 20):
+  """The mean device duration of the kernels whose name holds `symbol` over
+  `calls` calls of `fn`, in microseconds, from the `torch.profiler` trace
+  (CUPTI); None where the trace records no such kernel."""
+  for _ in range(3):
+    fn()
+  torch.cuda.synchronize(device)
+  with torch.profiler.profile(
+      activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    for _ in range(calls):
+      fn()
+    torch.cuda.synchronize(device)
+  times = [e.device_time for e in prof.events() if symbol in e.name]
+  return sum(times) / len(times) if times else None

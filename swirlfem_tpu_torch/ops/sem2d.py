@@ -62,16 +62,19 @@ def nodal_to_el(u: torch.Tensor, info: StructuredInfo) -> torch.Tensor:
   return s1.permute(1, 3, 0, 2).reshape(p + 1, p + 1, n * n)
 
 
-def exchange_el(w: torch.Tensor, info: StructuredInfo) -> torch.Tensor:
+def exchange_el(w, info: StructuredInfo):
   """Direct-stiffness summation (Q Q^T) in element-local form, periodic box.
 
   Input/output ``(k, k, n, n)`` with element axes last (k = order+1 local
-  nodes, n elements per dim).  On a CUDA tensor this is one launch of the
-  hand-written kernel; on a CPU tensor the two-pass torch.roll version.
+  nodes, n elements per dim), or a tuple of up to four such fields (the
+  components of a velocity), returned as a tuple.  On CUDA tensors this is
+  one launch of the hand-written kernel for all the fields; on CPU tensors
+  the two-pass torch.roll version, field by field.
   """
-  if w.shape[0] != info.order + 1:
-    raise ValueError(f'expected {info.order + 1} local nodes, got '
-                     f'{tuple(w.shape)}')
+  for x in ((w,) if isinstance(w, torch.Tensor) else w):
+    if x.shape[0] != info.order + 1:
+      raise ValueError(f'expected {info.order + 1} local nodes, got '
+                       f'{tuple(x.shape)}')
   return cuda_exchange.exchange2d(w)
 
 

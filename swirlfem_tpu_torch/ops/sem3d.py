@@ -72,13 +72,17 @@ def el_to_nodal(w: torch.Tensor, info: StructuredInfo) -> torch.Tensor:
   return out.reshape(-1)
 
 
-def exchange_el(w: torch.Tensor, info: StructuredInfo) -> torch.Tensor:
+def exchange_el(w, info: StructuredInfo):
   """Direct-stiffness summation (Q Q^T) in element-local form, periodic box.
 
-  Input/output ``(k, k, k, n, n, n)``; three sequential axis passes of rolls
-  (later passes carry face sums on to edges and corners); the periodic
-  wraparound is the roll itself.  Plain PyTorch on every device.
+  Input/output ``(k, k, k, n, n, n)``, or a tuple of such fields, returned
+  as a tuple (the form `sem2d.exchange_el` takes, so that the el step has
+  one signature); three sequential axis passes of rolls (later passes carry
+  face sums on to edges and corners); the periodic wraparound is the roll
+  itself.  Plain PyTorch on every device.
   """
+  if not isinstance(w, torch.Tensor):
+    return tuple(exchange_el(x, info) for x in w)
   p = info.order
   if w.shape[0] != p + 1 or w.ndim != 6:
     raise ValueError(f'expected (k, k, k, n, n, n) with k = {p + 1}, got '

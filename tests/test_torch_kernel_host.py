@@ -13,7 +13,10 @@ and 'default' on the 2D operator): its operator layout is
 split_operator_np's split in wgmma's 32-byte swizzle at each panel, and its
 persistent walk covers every (component, panel, element unit) once.  The
 congruent FP32 3D kernel: its plan fits a block at every k and dtype, and
-its persistent walk covers every (component, tile) once.
+its persistent walk covers every (component, tile) once.  The periodic
+exchange: its launch geometry writes every entry of up to four fields once
+at every k.  The general 2D kernel: its block fits at every k and tile, and
+its persistent walk covers every (component, element) once.
 """
 
 import dataclasses
@@ -26,8 +29,10 @@ import torch
 from swirlfem_tpu_torch.core.quadrature import differentiation_matrix_1d
 from swirlfem_tpu_torch.core.quadrature import NodeType
 from swirlfem_tpu_torch.core.quadrature import Quadrature1D
+from swirlfem_tpu_torch.ops import cuda_exchange
 from swirlfem_tpu_torch.ops import cuda_split
 from swirlfem_tpu_torch.ops import cuda_stiffness
+from swirlfem_tpu_torch.ops import cuda_stiffness2d
 from swirlfem_tpu_torch.ops import cuda_stiffness3d
 from swirlfem_tpu_torch.utils.box import unit_cube_mesh
 from swirlfem_tpu_torch.nse.solver import StokesSEM
@@ -750,3 +755,148 @@ def test_uniform3d_walk_covers_every_unit_once(num_sms, blocks_per_sm):
   if num_sms == 132:
     walks = cuda_stiffness3d.uniform3d_walk(4096, 8, 3, 132)
     assert sum(map(len, walks)) == 384 and max(map(len, walks)) == 3
+
+
+# The periodic exchange (csrc/exchange2d.cu): its launch geometry.
+
+
+def _exchange_coverage(k, n0, n1, num_fields, geo):
+  """How often the kernel writes each entry of the fields, ``(F, k, k, n0,
+  n1)``, written out from csrc/exchange2d.cu: the plane (a, b) from
+  blockIdx.y, z, the field from threadIdx.z, the row blockIdx.x ty +
+  threadIdx.y (stored where below n0), the chunks threadIdx.x, + tx, ...
+  below n1 / width, each `width` values."""
+  chunks = n1 // geo.width
+  seen = np.zeros((num_fields, k, k, n0, n1), dtype=np.int64)
+  assert geo.grid[1:] == (k, k)
+  for bx, y, x in itertools.product(range(geo.grid[0]), range(geo.ty),
+                                    range(geo.tx)):
+    row = bx * geo.ty + y
+    if row >= n0:
+      continue
+    for c in range(x, chunks, geo.tx):
+      seen[:, :, :, row, c * geo.width:(c + 1) * geo.width] += 1
+  return seen
+
+
+@pytest.mark.parametrize('k', range(2, 11))
+def test_exchange2d_geometry_covers_every_entry_once(k):
+  """Every entry of every field written once, n0 != n1, n1 a multiple of 4
+  and not, both dtypes, 1-4 fields, aligned or not; 16-byte chunks exactly
+  where n1 and the pointers allow them; whole warps and a power-of-two row
+  within one where the neighbours travel by shuffle."""
+  for (n0, n1), itemsize, num_fields, aligned, threads in itertools.product(
+      ((3, 8), (5, 7), (20, 64), (1, 1), (64, 12), (2, 600)), (4, 8),
+      (1, 2, 3, 4), (True, False), (128, 256, 512)):
+    geo = cuda_exchange.launch_geometry(k, n0, n1, itemsize, num_fields,
+                                        aligned, threads)
+    seen = _exchange_coverage(k, n0, n1, num_fields, geo)
+    assert (seen == 1).all(), (k, n0, n1, itemsize, num_fields, geo)
+    width = 16 // itemsize
+    assert geo.vec == (aligned and n1 % width == 0)
+    assert geo.width == (width if geo.vec else 1)
+    assert geo.tx * geo.ty * num_fields <= threads and geo.ty <= n0
+    if geo.shuffle:
+      assert geo.tx == n1 // geo.width and geo.tx <= 32
+      assert 32 % geo.tx == 0 and geo.tx * geo.ty * num_fields % 32 == 0
+
+
+def test_exchange2d_geometry_at_the_datagen_shape():
+  """(9, 9, 64, 64) float32: 16-byte chunks, a row of 16 lanes, shuffles;
+  one field 4 x 81 blocks of 256 threads, two fields in one launch the
+  same threads a block over twice the bands."""
+  one = cuda_exchange.launch_geometry(9, 64, 64, 4, 1)
+  two = cuda_exchange.launch_geometry(9, 64, 64, 4, 2)
+  assert one == cuda_exchange.Geometry(True, 4, 16, 16, True, (4, 9, 9))
+  assert two == cuda_exchange.Geometry(True, 4, 16, 8, True, (8, 9, 9))
+
+
+def test_exchange2d_takes_up_to_four_fields():
+  """One field in, one out; a tuple in, a tuple out; more than four fields,
+  or fields of different shapes, are refused."""
+  rng = np.random.default_rng(0)
+  ws = tuple(torch.as_tensor(rng.standard_normal((3, 3, 4, 5)))
+             for _ in range(5))
+  assert isinstance(cuda_exchange.exchange2d(ws[0]), torch.Tensor)
+  outs = cuda_exchange.exchange2d(ws[:4])
+  assert isinstance(outs, tuple) and len(outs) == 4
+  for w, o in zip(ws, outs):
+    assert torch.equal(o, cuda_exchange.exchange2d_plain(w))
+  with pytest.raises(ValueError, match='1..4 fields'):
+    cuda_exchange.exchange2d(ws)
+  with pytest.raises(ValueError, match='share shape'):
+    cuda_exchange.exchange2d((ws[0], ws[1][..., :4]))
+
+
+# The general 2D stiffness (csrc/stiffness2d_general.cu): its block and its
+# persistent blocks' walk.
+
+
+@pytest.mark.parametrize('k', range(2, cuda_stiffness2d.MAX_K + 1))
+def test_general2d_layout_fits_one_block(k):
+  """A thread a line of an element, whole warps; nine tiles (and, in
+  float64, the tables of D and D^T) within one block's shared memory at
+  every k, the tiles of 8 and 32 elements in float32 and of 8 in float64;
+  at 8 a warp's four lines start on distinct bank groups, rows and columns
+  alike."""
+  for itemsize, te in ((4, 32), (4, 8), (8, 8)):
+    lay = cuda_stiffness2d.general2d_layout(k, itemsize, te)
+    assert lay['tile_e'] == te
+    assert lay['threads'] % 32 == 0
+    assert lay['threads'] - 32 < k * te <= lay['threads'] <= 1024
+    assert lay['smem_bytes'] <= 232448
+    table = 0 if itemsize == 4 else 2 * k * (-(-k // 2) * 2)  # f64: D, D^T
+    assert lay['smem_bytes'] == (table + 9 * k * lay['line']) * itemsize
+    assert lay['line'] >= k * te
+    if itemsize == 4 and te < 32:
+      lines = np.arange(32 // te)  # a warp's lines
+      for q in range(k):
+        rows = (lines * lay['line'] + q * te) % 32 // te  # row a = line
+        cols = (q * lay['line'] + lines * te) % 32 // te  # column b = line
+        assert len(set(rows)) == len(set(cols)) == 32 // te, (k, te, q)
+  # The path shapes: the heated cavity's order 7 narrow, 64^2 order 8 wide.
+  assert cuda_stiffness2d.general2d_layout(8, 4, 8)['threads'] == 64
+  assert cuda_stiffness2d.general2d_layout(9, 4, 32)['threads'] == 288
+
+
+@pytest.mark.parametrize('num_sms,blocks_per_sm', [(132, 2), (7, 1)])
+def test_general2d_walk_covers_every_unit_once(num_sms, blocks_per_sm):
+  """Each (component, element) in exactly one block's contiguous range at
+  E = 144 (the heated cavity), 4096 (the datagen shape) and ragged E, for
+  C = 1-4, tile-major (a block's units of one tile follow one another),
+  whole tiles a block where the units outnumber the blocks; wide tiles only
+  where their units reach half the SMs."""
+  for num_e, num_c, itemsize in itertools.product((1, 37, 144, 1001, 4096),
+                                                  (1, 2, 3, 4), (4, 8)):
+    te = cuda_stiffness2d.general2d_tile(num_e, num_c, itemsize, num_sms)
+    tiles = -(-num_e // te)
+    units = num_c * tiles
+    if te == cuda_stiffness2d.WIDE_TILE:
+      assert itemsize == 4 and 2 * units >= num_sms
+    else:
+      assert itemsize == 8 or 2 * num_c * -(-num_e // 32) < num_sms
+    grid, span = cuda_stiffness2d.general2d_grid(num_e, num_c, te, num_sms,
+                                                 blocks_per_sm)
+    if units <= num_sms * blocks_per_sm:
+      assert (grid, span) == (units, 1)
+    else:
+      assert (grid, span) == (min(tiles, num_sms * blocks_per_sm), num_c)
+    seen = np.zeros((num_c, tiles * te), dtype=np.int64)
+    walks = cuda_stiffness2d.general2d_walk(num_e, num_c, te, grid, span)
+    assert len(walks) == grid and all(walks)
+    for walk in walks:
+      assert walk == sorted(walk) and len(walk) % span == 0
+      assert walk[0][1] == 0 or span == 1  # whole tiles
+      for tile, comp in walk:
+        seen[comp, tile * te:(tile + 1) * te] += 1
+    assert (seen == 1).all(), (num_e, num_c, itemsize)
+  if num_sms == 132:
+    # The heated cavity (E = 144, C = 2): 36 narrow units, one a block; the
+    # datagen shape: 128 wide tiles, one a block with its two components at
+    # C = 2, one component at C = 1.
+    assert cuda_stiffness2d.general2d_tile(144, 2, 4, 132) == 8
+    assert cuda_stiffness2d.general2d_grid(144, 2, 8, 132, 6) == (36, 1)
+    assert cuda_stiffness2d.general2d_tile(4096, 2, 4, 132) == 32
+    assert cuda_stiffness2d.general2d_grid(4096, 2, 32, 132, 1) == (128, 2)
+    assert cuda_stiffness2d.general2d_tile(4096, 1, 4, 132) == 32
+    assert cuda_stiffness2d.general2d_grid(4096, 1, 32, 132, 1) == (128, 1)

@@ -49,13 +49,31 @@ def _solver(device, dtype, resolution=8, order=8):
   return cfg, datagen.build_solver(cfg, device=device, dtype=dtype)
 
 
+@pytest.mark.parametrize('num_fields', [1, 2, 4])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('shape', [(9, 9, 64, 64), (5, 5, 8, 8),
-                                   (4, 4, 3, 7), (2, 2, 1, 1)])
-def test_exchange2d_bitwise_equals_plain(device, shape, dtype):
-  w = kernel_checks.random_field(shape, dtype=dtype, device=device)
-  result = kernel_checks.check_exchange2d(w)
+                                   (4, 4, 3, 7), (2, 2, 1, 1),
+                                   (10, 10, 12, 20), (2, 2, 64, 64),
+                                   (3, 3, 37, 600), (9, 9, 7, 5)])
+def test_exchange2d_bitwise_equals_plain(device, shape, dtype, num_fields):
+  """One launch of up to four fields: the datagen shape, odd shapes (rows
+  of scalars, of several warps, ragged bands), k = 2 and 10, both dtypes;
+  bitwise the plain version field by field, one launch counted."""
+  ws = tuple(kernel_checks.random_field(shape, dtype=dtype, device=device,
+                                        seed=s) for s in range(num_fields))
+  before = cuda_exchange.exchange2d.launches
+  result = kernel_checks.check_exchange2d(ws)
   assert result['bitwise_equal'], result
+  assert cuda_exchange.exchange2d.launches == before + 1
+
+
+def test_exchange2d_takes_unaligned_fields(device):
+  """Views one value into larger buffers: the scalar rows, still bitwise."""
+  k, n = 9, 16
+  ws = tuple(torch.as_tensor(np.random.default_rng(s).standard_normal(
+      k * k * n * n + 1), dtype=torch.float32, device=device)[1:].view(
+          k, k, n, n) for s in range(2))
+  assert kernel_checks.check_exchange2d(ws)['bitwise_equal']
 
 
 # The static-operator 2D kernels (congruent and affine, 'highest'): the
@@ -671,9 +689,11 @@ _CASES_2D = [(12, 7), (16, 7), (64, 8), (3, 4)]
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('n_el,order', _CASES_2D)
-@pytest.mark.parametrize('num_c', [1, 2])
+@pytest.mark.parametrize('num_c', [1, 2, 3, 4])
 def test_stiffness2d_general_matches_f64_operator(device, n_el, order,
                                                   num_c, dtype):
+  """The sine-graded boxes (E = 144, 256, 4096 and 9), C = 1-4, on their own
+  and on random factor fields: within 1e-5 of the float64 operator."""
   del device
   ops = _walled_ops('general', n_el, order, dtype)
   us = _fields2d(ops, num_c, 1)
@@ -681,6 +701,52 @@ def test_stiffness2d_general_matches_f64_operator(device, n_el, order,
   for gs in (None, _fields2d(ops, 3, 10)):  # the box's fields, random ones
     result = kernel_checks.check_stiffness2d_general(ops, us, gs)
     assert result['rel_err_f64'] <= tol, result
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('offset', [0, 1], ids=['aligned', 'unaligned'])
+@pytest.mark.parametrize('num_e', [144, 4096, 37])
+@pytest.mark.parametrize('num_c', [1, 2, 3, 4])
+@pytest.mark.parametrize('k', range(2, cuda_stiffness2d.MAX_K + 1))
+def test_stiffness2d_general_every_k(device, k, num_c, num_e, offset, dtype):
+  """The general 2D kernel at k = 2-10, C = 1-4, E = 144 (narrow tiles),
+  4096 (wide ones in float32) and 37 (ragged), the fields views `offset`
+  values into larger buffers (the element-wise copies), random factor
+  fields and D: within 1e-5 of the float64 operator on the same inputs
+  (1e-13 in float64)."""
+  rng = np.random.default_rng(1000 * k + 10 * num_c + num_e + offset)
+
+  def field():
+    buf = torch.as_tensor(rng.standard_normal(k * k * num_e + offset),
+                          dtype=dtype, device=device)
+    return buf[offset:].view(k, k, num_e)
+  us = tuple(field() for _ in range(num_c))
+  gs = tuple(field() for _ in range(3))
+  dmat = torch.as_tensor(rng.standard_normal((k, k)), dtype=dtype,
+                         device=device)
+  before = cuda_stiffness2d.stiffness2d_general.launches
+  got = cuda_stiffness2d.stiffness2d_general(us, gs, dmat)
+  assert cuda_stiffness2d.stiffness2d_general.launches == before + 1
+  ref = cuda_stiffness2d.stiffness2d_general_plain(
+      tuple(u.double() for u in us), tuple(g.double() for g in gs),
+      dmat.double())
+  torch.cuda.synchronize(device)
+  tol = kernel_checks.STIFFNESS_REL_TOL if dtype == torch.float32 else 1e-13
+  scale = max(float(r.abs().max()) for r in ref)
+  for g, r in zip(got, ref):
+    assert g.shape == r.shape and g.is_contiguous()
+    assert float((g.double() - r).abs().max()) <= tol * scale
+
+
+def test_general2d_layout_matches_the_kernel(device):
+  """The host's mirror of the general 2D kernel's block (the grid depends on
+  it) is the kernel's, at every k and tile, in both dtypes."""
+  for k in range(2, cuda_stiffness2d.MAX_K + 1):
+    for dtype, tile_e in ((torch.float32, 8), (torch.float32, 32),
+                          (torch.float64, 8)):
+      # Raises where the C side's tile, threads or shared memory differ.
+      assert cuda_stiffness2d._general2d_blocks_per_sm(  # pylint: disable=protected-access
+          k, dtype, tile_e, device) >= 1
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])

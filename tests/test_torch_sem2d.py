@@ -171,6 +171,87 @@ def test_exchange_plain_exactly_equals_pallas(shape, dtype):
   assert cuda_exchange.exchange2d.launches == before
 
 
+@pytest.mark.parametrize('num_fields', [2, 3, 4])
+@pytest.mark.parametrize('dtype', ['float32', 'float64'])
+@pytest.mark.parametrize('shape', [(5, 5, 8, 8), (4, 4, 3, 5), (9, 9, 4, 4)])
+def test_exchange_tuple_equals_per_field_and_pallas(shape, dtype, num_fields):
+  """The tuple form of `sem2d.exchange_el` (the velocity's components in
+  one call) on CPU tensors: bitwise the plain version field by field, the
+  Pallas kernel in interpret mode and, on square grids, the JAX
+  `sem2d.exchange_el`."""
+  k, _, n0, n1 = shape
+  rng = np.random.default_rng(sum(shape) + num_fields)
+  ws = tuple(rng.standard_normal(shape).astype(dtype)
+             for _ in range(num_fields))
+  info = StructuredInfo(num_elements_per_dim=n0, order=k - 1, ndim=2,
+                        continuous=True)
+  got = sem2d.exchange_el(tuple(torch.as_tensor(w) for w in ws), info)
+  assert isinstance(got, tuple) and len(got) == num_fields
+  for w, g in zip(ws, got):
+    g = g.numpy()
+    np.testing.assert_array_equal(
+        g, cuda_exchange.exchange2d_plain(torch.as_tensor(w)).numpy())
+    np.testing.assert_array_equal(
+        g, np.asarray(exchange2d_pallas(jnp.asarray(w), interpret=True)))
+    if n0 == n1:
+      jinfo = jsem2d.StructuredInfo(num_elements_per_dim=n0, order=k - 1,
+                                    ndim=2, continuous=True)
+      np.testing.assert_array_equal(
+          g, np.asarray(jsem2d.exchange_el(jnp.asarray(w), jinfo)))
+
+
+def test_datagen_step_exchanges_take_the_tuple_route(monkeypatch):
+  """One exact datagen step (float64, 4x4 elements, order 4) whose
+  exchanges go through the tuple form: four calls a step (the copy count
+  with the mass; the filter's blend of both components; the pressure
+  operator's and the correction's gradients), each of them a tuple, and
+  the step agrees with the JAX package's step to 1e-10."""
+  from swirlfem_tpu.niles import datagen as jdg
+  from swirlfem_tpu.nse import solver as jsolver
+  from swirlfem_tpu_torch.niles import datagen
+  cfg = datagen.DatagenConfig(resolution=4, order=4, reynolds_number=1000.0,
+                              dt=2e-3, num_cycles=1, num_steps_per_cycle=1,
+                              snapshot_every=1)
+  pm = dict(ndim=2, periodic_dims=(0, 1))
+  jsem = jsolver.StokesSEM.create(junit_cube_mesh(cfg.resolution, **pm), {},
+                                  order=cfg.order)
+  sem = StokesSEM.create(unit_cube_mesh(cfg.resolution, **pm), {},
+                         order=cfg.order, device='cpu', dtype=torch.float64)
+  rng = np.random.default_rng(0)
+  coords = sem.velocity.mesh.node_coords.numpy()
+  conv = datagen.make_one_step(sem, cfg).conv_el
+  us, ps, cus = [], [], []
+  for _ in range(cfg.time_order):
+    u = datagen.u_init(coords) + 0.05 * rng.standard_normal(coords.shape)
+    u_el = sem.velocity_to_el((u[:, 0], u[:, 1]))
+    us.append(u_el)
+    cus.append(conv(u_el))
+    ps.append(sem.pressure_to_el(
+        rng.standard_normal(sem.pressure.pspace.mesh.num_nodes)))
+  state = tuple(us), tuple(ps), tuple(cus)
+  calls = []
+  plain = sem2d.exchange_el
+
+  def spy(w, info):
+    calls.append(isinstance(w, tuple) and len(w))
+    return plain(w, info)
+
+  monkeypatch.setattr(sem2d, 'exchange_el', spy)
+  got, _ = datagen.make_step_fn(sem, cfg)(*state)
+  assert calls == [2, 2, 2, 2], calls
+  jstate = tuple(tuple(tuple(jnp.asarray(c.numpy()) for c in x)
+                       if isinstance(x, tuple) else jnp.asarray(x.numpy())
+                       for x in part) for part in state)
+  want, _ = jdg.make_step_fn(
+      jsem, jdg.DatagenConfig(**dataclasses.asdict(cfg)))(*jstate)
+  flat = lambda tree: [t for x in tree for t in
+                       (x if isinstance(x, tuple) else (x,))]
+  for part_got, part_want in zip(got, want):
+    for g, w in zip(flat(part_got), flat(part_want)):
+      w = np.asarray(w)
+      assert np.abs(g.numpy() - w).max() <= 1e-10 * np.abs(w).max()
+
+
 def test_stiffness_uniform_plain_matches_pallas(uniform_ops):
   jops, ops = uniform_ops
   k = ops.vinfo.order + 1
