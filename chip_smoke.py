@@ -8,7 +8,10 @@ the 3D Taylor-Green vortex (Re 1600, 16^3 elements, order 7, BDF2, filter
 elements, order 7, grading 0.5, Pr 0.71, tol 3e-6), the lid-driven cavity
 (16x16, order 7, Re 100, dt 1e-3) and the CG-solved 3D el step (16^3
 elements, order 7, BDF2, filter 0.05) on the Taylor-Green box and on a
-graded and sheared periodic box, all in float32.  Phases:
+graded and sheared periodic box, all in float32, and the NiLES training
+step (12x12 elements, order 4, 8-step rollouts through the multiscale
+transformer with its latent SDE, gradients through both solves) on the
+datagen cycle's frames.  Phases:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels (csrc/*.cu, nvcc, sm_90a);
@@ -106,7 +109,27 @@ graded and sheared periodic box, all in float32.  Phases:
      the uniform lid-driven shape);
  28. one 3D stiffness apply at order 10 (k = 11, past every 3D kernel) on
      the card through `use_kernels=False`, against the float64 operator,
-     and the kernels' refusal of it.
+     and the kernels' refusal of it;
+ 29. the training path's kernels at its shape (12x12 elements, order 4:
+     k = 5, E = 144, C = 2): exchange2d bitwise, stiffness_uniform within
+     1e-5 of the float64 operator, and their autograd (each backward pass
+     launches the same kernel: QQ^T g bitwise, A g within 1e-5); phase 4's
+     frames restricted to the training mesh; one training step whose
+     forcing requires grad, with the kernels against `use_kernels=False` on
+     the card (loss within 1e-5; gradient within 1e-4 in float64 and 3e-4
+     in the training's float32; a missing or zero gradient fails);
+ 30. NiLES training at the full default configuration (the model under
+     bf16 autocast, the solver float32): 5 train steps at batch 16 on
+     windows of those frames, each step's loss, CG telemetry, host-clock
+     time and row 1 and 2 launches, one more step under `torch.profiler`
+     (the device's busy share), then one eval at batch 4 with its rollout
+     shortened to 16 steps (the model and the no-model baseline);
+ 31. one train step at the tests' tiny configuration on the card (float32)
+     against the CPU plain path (float64 solver), from the same
+     parameters, batch and draws: loss and global gradient norm within
+     1e-4; then the card at the configuration's own bfloat16 against the
+     same reference (loss within 1e-2, norm within 5e-2), its model output
+     float32 and more than 1e-4 from the float32 model's.
 
 Each kernel's count is set to 0 just before the path that launches it and
 read just after.  Every kernel's bound is the larger of its bytes (each
@@ -126,6 +149,7 @@ import importlib.util
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1429,6 +1453,330 @@ def run_split_phases(torch, device, dtype, tgv, kernel_checks, times,
         f'{b["bound_ms"] * 1e3:.3f} us ({b["bound_by"]})')
 
 
+
+def grad_norm(grads) -> float:
+  return math.sqrt(sum(float(g.double().square().sum()) for g in grads))
+
+
+def run_training_phases(torch, device, kernel_checks, frames) -> dict:
+  """Phases 29-30: the NiLES training slice at the default configuration.
+  Returns the train and eval step's times, the launches of rows 1 and 2
+  per train step and the device's busy share."""
+  import numpy as np
+  from swirlfem_tpu_torch.linalg.linear_solve import linear_solve
+  from swirlfem_tpu_torch.niles import coarsen
+  from swirlfem_tpu_torch.niles import config as niles_config
+  from swirlfem_tpu_torch.niles import input_pipeline
+  from swirlfem_tpu_torch.niles import profile_datagen
+  from swirlfem_tpu_torch.niles import train
+  from swirlfem_tpu_torch.ops import cuda_exchange
+  from swirlfem_tpu_torch.ops import cuda_stiffness
+
+  counters = (cuda_exchange.exchange2d, cuda_stiffness.stiffness_uniform)
+
+  def reset():
+    for c in counters:
+      c.launches = 0
+
+  def read():
+    return tuple(c.launches for c in counters)
+
+  # -- 29. rows 1 and 2 at the training shape, and their autograd --------
+  cfg = niles_config.get_config()
+  cfg.drag_coeff = 0.05  # the datagen's, whose frames train here
+  sem = train.build_solver(cfg, device=device)
+  ops = sem.fast_ops
+  k, n = cfg.order + 1, cfg.element_grid_size
+  require(ops.c_uniform is not None and ops.stiffness_key == (
+      'congruent', 'highest'), ops.stiffness_key)
+  w = tuple(kernel_checks.random_field((k, k, n, n), dtype=torch.float32,
+                                       device=device, seed=s) for s in (1, 2))
+  for fields in (w[0], w):
+    ex = kernel_checks.check_exchange2d(fields)
+    log(f'[29] exchange2d {1 if fields is w[0] else 2} x {(k, k, n, n)} '
+        f'f32: {ex}')
+    require(ex['bitwise_equal'], ex)
+  us = tuple(x.reshape(k, k, n * n).contiguous() for x in w)
+  st = kernel_checks.check_stiffness_uniform(ops, us)
+  log(f'[29] stiffness_uniform 2 x {tuple(us[0].shape)} f32: {st}')
+  require(st['rel_err_f64'] <= kernel_checks.STIFFNESS_REL_TOL, st)
+  # Autograd: each function's backward is the same kernel on the gradient.
+  g_out = tuple(kernel_checks.random_field((k, k, n, n), dtype=torch.float32,
+                                           device=device, seed=s)
+                for s in (3, 4))
+  wg = tuple(x.clone().requires_grad_() for x in w)
+  reset()
+  out = cuda_exchange.exchange2d(wg)
+  got = torch.autograd.grad(out, wg, g_out)
+  ex_launches = read()[0]
+  want = tuple(cuda_exchange.exchange2d_plain(g) for g in g_out)
+  require(ex_launches == 2, ex_launches)
+  require(all(torch.equal(a, b) for a, b in zip(got, want)),
+          'exchange2d backward differs from QQ^T of the gradient')
+  ug = tuple(u.clone().requires_grad_() for u in us)
+  gu = tuple(g.reshape(k, k, n * n) for g in g_out)
+  reset()
+  out = ops.stiffness_el_multi(ug)
+  got = torch.autograd.grad(out, ug, gu)
+  st_launches = read()[1]
+  a64 = torch.as_tensor(cuda_stiffness.uniform_amat_np(
+      ops.c_uniform, ops.wq2d, ops.dmat), device=device)
+  want = tuple((a64 @ g.double().reshape(k * k, -1)).reshape(g.shape)
+               for g in gu)
+  err_st = rel_err(got, want)
+  log(f'[29] autograd: exchange2d backward bitwise QQ^T g ({ex_launches} '
+      f'launches, forward + backward); stiffness backward vs float64 A g '
+      f'{err_st:.3e} ({st_launches} launches)')
+  require(st_launches == 2 and err_st <= kernel_checks.STIFFNESS_REL_TOL,
+          (st_launches, err_st))
+
+  # One training el step whose forcing requires grad: the kernels against
+  # the plain versions (use_kernels=False) on the card.
+  restrict = coarsen.make_restriction(64, 8, cfg)
+  dns = {key: np.concatenate([f[key] for f in frames]) for key in ('u', 'p')}
+  les = restrict(dns)
+  nf = les['u'].shape[0]
+  log(f'[29] {nf} datagen frames restricted 64^2 order 8 -> '
+      f'{n}^2 order {cfg.order}: u {les["u"].shape}, p {les["p"].shape}')
+  require(np.isfinite(les['u']).all() and np.isfinite(les['p']).all(),
+          'non-finite restricted frames')
+  # Half the squared distance to the next frame, over its value at the
+  # start.  In float64 both paths solve to rounding.  In float32 (the
+  # training's dtype) the transpose solves stop at the absolute atol = 1e-7
+  # of the training step or run to their cap on the rounding floor, and
+  # the two paths' gradients have read 5.5e-5 to 9.1e-5 apart (PERF.md):
+  # gated at 3e-4, three times the largest reading.
+  rng = np.random.default_rng(29)
+  misfit = float(np.square(les['u'][cfg.time_order].astype(np.float64)
+                           - les['u'][cfg.time_order - 1]).sum())
+  f0 = 1e-2 * rng.standard_normal(les['u'].shape[1:])
+  for dtype, tol_l, tol_g in ((torch.float64, 1e-5, 1e-4),
+                              (torch.float32, 1e-5, 3e-4)):
+    results = []
+    for use_kernels in (True, False):
+      solver = train.build_solver(cfg, device=device, dtype=dtype,
+                                  use_kernels=use_kernels)
+      frame = lambda key, i: torch.as_tensor(les[key][i], dtype=dtype,
+                                             device=device)
+      hist = [frame('u', i) for i in range(cfg.time_order)]
+      ps = [frame('p', i) for i in range(cfg.time_order)]
+      target = frame('u', cfg.time_order)
+      f = torch.as_tensor(f0, dtype=dtype, device=device).requires_grad_()
+      cus = [solver.C(u) for u in hist]
+      reset()
+      solves = linear_solve.transpose_solves
+      u, _, _, cg = train.solve_one_step(
+          hist, ps, cus, f, solver, cfg,
+          train.make_solver_preconds(solver, cfg))
+      fwd = read()
+      loss = 0.5 * (u - target).square().sum() / misfit
+      (g,) = torch.autograd.grad(loss, f)
+      torch.cuda.synchronize(device)
+      results.append((float(loss), g, fwd, tuple(
+          b - a for a, b in zip(fwd, read())),
+          linear_solve.transpose_solves - solves, cg))
+    (l_k, g_k, fwd_k, bwd_k, ns_k, cg_k), (l_p, g_p, fwd_p, bwd_p, _, _) = (
+        results)
+    dl = abs(l_k - l_p) / abs(l_p)
+    dg = rel_err(g_k, g_p)
+    gmax = float(g_k.abs().max())
+    log(f'[29] {dtype} el step with grad, kernels vs use_kernels=False on '
+        f'the card: loss {l_k:.10e} vs {l_p:.10e} (rel {dl:.3e}), d loss / '
+        f'd f rel {dg:.3e} (max |g| {gmax:.3e}; tolerances {tol_l:g}, '
+        f'{tol_g:g}); launches (exchange2d, stiffness_uniform) forward '
+        f'{fwd_k}, backward {bwd_k} ({ns_k} transpose solves); plain path '
+        f'{fwd_p}, {bwd_p}; CG {cg_k}')
+    require(math.isfinite(l_k) and gmax > 0 and all_finite(g_k),
+            'missing or zero gradient through the step')
+    require(dl <= tol_l and dg <= tol_g, (dtype, dl, dg))
+    require(min(fwd_k + bwd_k) > 0 and ns_k == 2, (fwd_k, bwd_k, ns_k))
+    require(bwd_p[1] == 0, bwd_p)
+
+  # -- 30. training at the full default configuration ----------------------
+  cfg.batch_size = 16
+  steps_run, eval_steps = 5, 16
+  torch.manual_seed(cfg.seed)
+  model = train.create_model(cfg).to(device)
+  state = train.create_train_state(model, cfg)
+  num_params = sum(p.numel() for p in model.parameters())
+  it = input_pipeline.create_split(cfg.batch_size, True, cfg, prefetch=0,
+                                   frames=[les])
+  n_windows = input_pipeline.get_num_examples(
+      '', True, cfg.train_window_size, cfg.train_window_stride, frames=[les])
+  spe = max(1, n_windows // cfg.batch_size)
+  lr_fn = train.create_learning_rate_fn(
+      cfg, cfg.learning_rate * cfg.batch_size / 256.0, spe)
+  kl_fn = train.create_kl_penalty_fn(cfg, spe)
+  preconds = train.make_solver_preconds(sem, cfg)
+  log(f'[30] {cfg.element_grid_size}^2 order {cfg.order}, Re '
+      f'{cfg.reynolds_number:g}, dt {cfg.dt:g}, BDF{cfg.time_order}, '
+      f'{cfg.num_steps}-step rollouts ({cfg.num_pushforward_steps} '
+      f'pushforward), model width {cfg.model.width} depth {cfg.model.depth} '
+      f'dtype {cfg.model.dtype}, {num_params} parameters; {n_windows} '
+      f'train windows of {cfg.train_window_size}, batch {cfg.batch_size}, '
+      f'{steps_run} steps')
+  before = [p.detach().clone() for p in model.parameters()]
+  step_ms, step_launches, losses, cg_iters, tr_iters = [], [], [], [], []
+  for step in range(steps_run):
+    batch = {key: torch.as_tensor(v, device=device)
+             for key, v in next(it).items()}
+    draws = train.make_draws_fn(model, cfg.batch_size, cfg.seed, step, device)
+    torch.cuda.synchronize(device)
+    reset()
+    solves, iters = (linear_solve.transpose_solves,
+                     linear_solve.transpose_iterations)
+    t0 = time.perf_counter()
+    state, metrics, _ = train.train_step(state, batch, draws, lr_fn, kl_fn,
+                                         sem, cfg, preconds)
+    torch.cuda.synchronize(device)
+    step_ms.append((time.perf_counter() - t0) * 1e3)
+    step_launches.append(read())
+    m = train.metrics_to_host(metrics)
+    losses.append(m['loss'])
+    cg_iters.append(m['cg_max_iters'])
+    tr_iters.append((linear_solve.transpose_solves - solves,
+                     linear_solve.transpose_iterations - iters))
+    log(f'[30] step {step}: loss {m["loss"]:.6e} (mse {m["mse"]:.6e}, kl '
+        f'{m["kl"]:.3e}), lr {m["learning_rate"]:.3e}, cg_max_iters '
+        f'{m["cg_max_iters"]:g}, cg_max_resid {m["cg_max_resid"]:.2e}, '
+        f'{step_ms[-1]:.1f} ms, launches (exchange2d, stiffness_uniform) '
+        f'{step_launches[-1]}, backward solves {tr_iters[-1][0]} '
+        f'({tr_iters[-1][1]} CG iterations)')
+  changed = sum(float((p.detach() - b).abs().max()) for p, b in
+                zip(model.parameters(), before))
+  require(all(math.isfinite(x) for x in losses), losses)
+  require(changed > 0, 'the parameters did not change')
+  require(max(cg_iters) < 50, cg_iters)
+  require(all(min(x) > 0 for x in step_launches), step_launches)
+  # One more step under the profiler (the CUDA activity alone: a step makes
+  # ~500k launches, and the per-op tables would take minutes).
+  batch = {key: torch.as_tensor(v, device=device)
+           for key, v in next(it).items()}
+  draws = train.make_draws_fn(model, cfg.batch_size, cfg.seed, steps_run,
+                              device)
+  t0 = time.perf_counter()
+  prof = profile_datagen.device_busy(
+      lambda: train.train_step(state, batch, draws, lr_fn, kl_fn, sem, cfg,
+                               preconds), device)
+  busy = None if prof is None else prof['busy_share']
+  log(f'[30] profiled train step: {prof} ({time.perf_counter() - t0:.1f} s '
+      f'with the trace\'s reading); busy '
+      f'{"not measured" if prof is None else prof["busy_ms"]} ms against '
+      f'the unprofiled steps\' median below')
+  # One eval at batch 4, its rollout shortened from 125 to 16 steps.
+  cfg.eval_num_steps = eval_steps
+  cfg.eval_window_size = eval_steps + 3
+  cfg.eval_baseline = True
+  ev_it = input_pipeline.create_split(4, False, cfg, prefetch=0,
+                                      frames=[les])
+  ebatch = {key: torch.as_tensor(v, device=device)
+            for key, v in next(ev_it).items()}
+  to_grid = train.make_uniform_transfer(sem, cfg)
+  torch.cuda.synchronize(device)
+  reset()
+  t0 = time.perf_counter()
+  ev = train.metrics_to_host(train.eval_step(
+      state, ebatch, train.make_draws_fn(model, 4, cfg.seed + 1, 0, device),
+      kl_fn, sem, to_grid, cfg, preconds))
+  torch.cuda.synchronize(device)
+  eval_ms = (time.perf_counter() - t0) * 1e3
+  eval_launches = read()
+  log(f'[30] eval at batch 4, rollout shortened to {eval_steps} steps (the '
+      f'config has {niles_config.get_config().eval_num_steps}): mse '
+      f'{ev["mse"]:.6e} (no-model baseline {ev["mse_baseline"]:.6e}), '
+      f'tke_err {ev["tke_err"]:.4e} (baseline {ev["tke_err_baseline"]:.4e}), '
+      f'cg_max_iters {ev["cg_max_iters"]:g}, {eval_ms:.1f} ms, launches '
+      f'{eval_launches} (the eval step runs the model and the no-model '
+      f'baseline)')
+  require(all(math.isfinite(v) for v in ev.values()), ev)
+  train_ms = statistics.median(step_ms[1:])
+  busy_text = ('not measured' if prof is None else
+               f'{prof["busy_ms"]:.1f} ms: {100 * busy:.1f}% of the profiled '
+               f'step, {100 * prof["busy_ms"] / train_ms:.1f}% of the median')
+  log(f'[30] train step (batch {cfg.batch_size}, host clock, median of '
+      f'steps 1-{steps_run - 1}): {train_ms:.1f} ms; launches per train step '
+      f'(exchange2d, stiffness_uniform) {step_launches[-1]}; device busy '
+      f'{busy_text}; backward solves per step {tr_iters[-1][0]}, '
+      f'{tr_iters[-1][1]} CG iterations in all')
+
+  return {'train_step_ms': train_ms, 'eval_ms': eval_ms,
+          'train_step_launches': dict(zip(('exchange2d', 'stiffness_uniform'),
+                                          step_launches[-1])),
+          'busy': prof}
+
+
+def run_tiny_train_phase(torch, device) -> None:
+  """Phase 31: one train step at the tests' tiny configuration, the card
+  against the CPU plain path."""
+  from swirlfem_tpu_torch.niles import config as niles_config
+  from swirlfem_tpu_torch.niles import input_pipeline
+  from swirlfem_tpu_torch.niles import train
+
+  # At the tests' tiny configuration: the model in float32 on both sides
+  # (its inputs cast to float32, as in the JAX package), the solvers in
+  # float32 on the card and float64 on the CPU.  Then the card again at
+  # the configuration's own bfloat16 (autocast around the encoder and
+  # decoder blocks), against the same CPU reference.
+  tiny = niles_config.set_fields(niles_config.get_config(),
+                                 niles_config.tiny_fields())
+  require(tiny.model.dtype == 'bfloat16', tiny.model.dtype)
+  tiny.model.dtype = 'float32'
+  torch.manual_seed(31)
+  model_c = train.create_model(tiny)
+  with torch.no_grad():
+    for p in model_c.parameters():
+      p.add_(0.05 * torch.randn(p.shape))
+  batch = next(input_pipeline.create_split(tiny.batch_size, True, tiny,
+                                           prefetch=0))
+  g = torch.Generator().manual_seed(31)
+  draws = [model_c.sample_draws(tiny.batch_size, generator=g)
+           for _ in range(tiny.num_steps)]
+
+  def tiny_model(model_dtype, dev):
+    tiny.model.dtype = model_dtype
+    m = train.create_model(tiny)
+    m.load_state_dict(model_c.state_dict())
+    return m.to(dev)
+
+  out = []
+  for dev, dtype, model_dtype in ((device, torch.float32, 'float32'),
+                                  ('cpu', torch.float64, 'float32'),
+                                  (device, torch.float32, 'bfloat16')):
+    st_ = train.create_train_state(tiny_model(model_dtype, dev), tiny)
+    solver = train.build_solver(tiny, device=dev, dtype=dtype)
+    tb = {key: torch.as_tensor(v, dtype=dtype, device=dev)
+          for key, v in batch.items()}
+    dr = [{key: v.to(dev) for key, v in d.items()} for d in draws]
+    _, met, grads = train.train_step(
+        st_, tb, lambda i: dr[i], lambda s: 1e-2, lambda s: 1e-3, solver,
+        tiny, train.make_solver_preconds(solver, tiny))
+    out.append((float(met['loss']), grad_norm(grads)))
+  (l_c, n_c), (l_h, n_h), (l_b, n_b) = out
+  dl, dn = abs(l_c - l_h) / abs(l_h), abs(n_c - n_h) / n_h
+  log(f'[31] tiny config train step, card f32 vs CPU plain path f64: loss '
+      f'{l_c:.8e} vs {l_h:.8e} (rel {dl:.3e}), global gradient norm '
+      f'{n_c:.6e} vs {n_h:.6e} (rel {dn:.3e}); tolerance 1e-4 each')
+  require(dl <= 1e-4 and dn <= 1e-4, (dl, dn))
+  # bfloat16: the step within a bfloat16-class tolerance of the reference
+  # (on the CPU's autocast the same step reads up to 3e-4 on the loss and
+  # 7.3e-3 on the norm), and the model's output rounded (more than 1e-4
+  # from the float32 model on the same input and draws) yet float32.
+  dl_b, dn_b = abs(l_b - l_h) / abs(l_h), abs(n_b - n_h) / n_h
+  x = torch.randn((tiny.batch_size, tiny.num_elements, tiny.num_channels),
+                  generator=torch.Generator().manual_seed(32)).to(device)
+  d0 = {key: v.to(device) for key, v in draws[0].items()}
+  with torch.no_grad():
+    y_b, _ = tiny_model('bfloat16', device)(x, draws=d0)
+    y_f, _ = tiny_model('float32', device)(x, draws=d0)
+  dy = rel_err(y_b, y_f)
+  log(f'[31] tiny config train step, card bf16 autocast vs CPU plain path '
+      f'f64: loss {l_b:.8e} (rel {dl_b:.3e}, tolerance 1e-2), global '
+      f'gradient norm {n_b:.6e} (rel {dn_b:.3e}, tolerance 5e-2); model '
+      f'output {y_b.dtype}, {dy:.3e} from the f32 model (must exceed 1e-4)')
+  require(dl_b <= 1e-2 and dn_b <= 5e-2, (dl_b, dn_b))
+  require(y_b.dtype == torch.float32 and dy > 1e-4, (y_b.dtype, dy))
+
+
 def run_knob_phase(torch, device, dtype) -> None:
   """Phase 28: one 3D stiffness apply at order 10 (k = 11, past every 3D
   kernel) on the card through `use_kernels=False`, against the float64
@@ -1544,9 +1892,11 @@ def main() -> int:
     log('[4] h5py not installed: frames are kept, no shard is written')
   cuda_exchange.exchange2d.launches = 0
   cuda_stiffness.stiffness_uniform.launches = 0
+  frames = []  # the cycle's frames: phase 30's training data
   with tempfile.TemporaryDirectory() as tmp:
     walls, sem, state = datagen.run_simulation(
-        tmp if have_h5py else None, cfg, device=device, dtype=dtype)
+        tmp if have_h5py else None, cfg, device=device, dtype=dtype,
+        frames_out=frames)
     if have_h5py:
       log(f'[4] shards written: {os.listdir(tmp)}')
   exch_cycle = cuda_exchange.exchange2d.launches
@@ -1671,17 +2021,22 @@ def main() -> int:
   run_split_phases(torch, device, dtype, tgv, kernel_checks, times,
                    launches, dg, walled, tgv_box)
   run_knob_phase(torch, device, dtype)
+  training = run_training_phases(torch, device, kernel_checks, frames)
+  run_tiny_train_phase(torch, device)
 
   kernels = [
       {'name': 'exchange2d', 'route': 'cuda',
        'source': 'swirlfem_tpu_torch/csrc/exchange2d.cu',
        'replaces': 'swirlfem_tpu/ops/pallas_exchange.py:43',
        'launches': launches['exchange2d'],
+       'train_step_launches': training['train_step_launches']['exchange2d'],
        'max_abs_err': ex['max_abs_err'], **times['exchange2d']},
       {'name': 'stiffness_uniform', 'route': 'cuda',
        'source': 'swirlfem_tpu_torch/csrc/stiffness_uniform.cu',
        'replaces': 'swirlfem_tpu/ops/pallas_stiffness.py:323',
        'launches': launches['stiffness_uniform'],
+       'train_step_launches':
+           training['train_step_launches']['stiffness_uniform'],
        'max_abs_err': st['max_abs_err'], **times['stiffness_uniform']},
       {'name': 'stiffness2d_general', 'route': 'cuda',
        'source': 'swirlfem_tpu_torch/csrc/stiffness2d_general.cu',

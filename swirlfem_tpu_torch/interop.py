@@ -1,10 +1,11 @@
-"""Builds the port's solver state from numpy arrays.
+"""Builds the port's solver state and model weights from numpy arrays.
 
-There are no learned weights on the solver paths; the state carried across
-is the solver's factor fields and the time history, el-form (periodic
-boxes) or nodal (walled boxes).  These helpers take plain numpy arrays (for
-instance the fields of a JAX ``Sem2DOps`` or ``Sem3DOps`` and a JAX
-solver's nodal histories), so the port's step can run on exactly the state
+The state carried across on the solver paths is the solver's factor fields
+and the time history, el-form (periodic boxes) or nodal (walled boxes);
+on the training path also the closure model's weights.  These helpers take
+plain numpy arrays (for instance the fields of a JAX ``Sem2DOps`` or
+``Sem3DOps``, a JAX solver's nodal histories, or a flax parameter tree of
+the JAX package's transformer), so the port can run on exactly the state
 another implementation built.
 """
 
@@ -116,3 +117,60 @@ def nodal_state_from_arrays(us, ps, thetas=(), cus=(), *, device, dtype):
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
   return tuple(tuple(dev(a) for a in seq) for seq in (us, ps, thetas, cus))
+
+
+# Flax scopes of the lifted SDE transform -> the port's `NNSDE` path.
+_FLAX_SCOPES = {'Core_sdeintTransformerDynamics_0': 'sde.dynamics',
+                'Core_sdeintVariationalDriftDiffusion_0': 'sde.dynamics'}
+
+
+def _flax_leaves(tree, prefix=()):
+  for key, value in tree.items():
+    if isinstance(value, Mapping):
+      yield from _flax_leaves(value, prefix + (key,))
+    else:
+      yield prefix + (key,), np.asarray(value)
+
+
+def transformer_params_from_flax(params, model: torch.nn.Module) -> None:
+  """Loads a flax parameter tree of ``swirlfem_tpu.models.transformer.
+  Model`` (the ``'params'`` collection, nested dicts of arrays) into the
+  port's `models.transformer.Model`.
+
+  Names map one to one (the port's modules carry the flax names; the
+  lifted SDE scope becomes ``sde.dynamics``).  Dense kernels (in, out)
+  become `nn.Linear` weights (out, in); ``DenseGeneral`` kernels over two
+  input axes, (heads, head_dim, features) of an ``out`` projection, and
+  (features, heads, head_dim) of an attention projection, are flattened to
+  two axes first; LayerNorm ``scale`` becomes ``weight``.  A flax key the
+  model lacks, a model parameter the tree lacks, or a shape that does not
+  match raises `ValueError`.
+  """
+  target = model.state_dict()
+  mapped = {}
+  for path, value in _flax_leaves(params):
+    names = [_FLAX_SCOPES.get(n, n) for n in path[:-1]]
+    leaf = path[-1]
+    if leaf == 'kernel':
+      if value.ndim == 3:
+        split = 2 if names[-1] == 'out' else 1
+        value = value.reshape(int(np.prod(value.shape[:split])), -1)
+      value, leaf = value.T, 'weight'
+    elif leaf == 'scale':
+      leaf = 'weight'
+    elif leaf == 'bias':
+      value = value.reshape(-1)
+    key = '.'.join(names + [leaf])
+    if key not in target:
+      raise ValueError(f'flax parameter {"/".join(path)} has no counterpart '
+                       f'({key}) in the model')
+    if tuple(target[key].shape) != value.shape:
+      raise ValueError(f'{"/".join(path)}: shape {value.shape} against the '
+                       f'model\'s {tuple(target[key].shape)} ({key})')
+    mapped[key] = torch.tensor(np.ascontiguousarray(value),
+                               dtype=target[key].dtype,
+                               device=target[key].device)
+  missing = sorted(set(target) - set(mapped))
+  if missing:
+    raise ValueError(f'the flax tree lacks model parameters {missing}')
+  model.load_state_dict(mapped, strict=True)

@@ -88,8 +88,8 @@ def make_one_step(sem, cfg: DatagenConfig, exact_solves: bool = True):
   """
   if sem.fast_ops is None or not sem._fully_periodic:  # pylint: disable=protected-access
     raise NotImplementedError(
-        'only the fully periodic structured el path is ported (ROADMAP.md, '
-        'Queue 1 item 9)')
+        'the datagen step runs on fully periodic structured boxes (the el '
+        'path); walled boxes take StokesSEM.stokes_one_step')
   mu = 1.0 / cfg.reynolds_number
   ext = [float(c) for c in navier_stokes.extk_coeffs(k=cfg.time_order - 1)]
   ops = sem.fast_ops
@@ -222,14 +222,17 @@ def build_solver(cfg: DatagenConfig, *, device: torch.device | str,
 
 
 def run_simulation(workdir: str | None, cfg: DatagenConfig | None = None, *,
-                   device: torch.device | str, dtype: torch.dtype):
+                   device: torch.device | str, dtype: torch.dtype,
+                   frames_out: list | None = None):
   """Full DNS run: `num_cycles` cycles of `num_steps_per_cycle` steps.
 
   Builds the solver on the host and moves its step fields to `device`.
   Returns ``(cycle_walls, sem, state)``: the per-cycle walltimes in seconds
   (excluding the host-side frame conversion and HDF5 write), the solver,
   and the final el-form history ``(us, ps, cus)``.  `workdir=None` writes
-  no shards.
+  no shards.  `frames_out`, a list, receives each cycle's frames (the
+  shard's ``t``, ``u``, ``p`` arrays), which the training input pipeline
+  reads in memory.
   """
   cfg = cfg or DatagenConfig()
   sem = build_solver(cfg, device=device, dtype=dtype)
@@ -247,10 +250,12 @@ def run_simulation(workdir: str | None, cfg: DatagenConfig | None = None, *,
              cfg.warmup_cycles * cfg.num_steps_per_cycle * cfg.dt)
   cycle_walls = []
   for cycle in range(cfg.warmup_cycles, cfg.warmup_cycles + cfg.num_cycles):
-    us, ps, cus, wall, _ = one_cycle(sem, cfg, advance,
-                                     cycle * cfg.num_steps_per_cycle, us, ps,
-                                     cus, workdir)
+    us, ps, cus, wall, frames = one_cycle(sem, cfg, advance,
+                                          cycle * cfg.num_steps_per_cycle,
+                                          us, ps, cus, workdir)
     cycle_walls.append(wall)
+    if frames_out is not None:
+      frames_out.append(frames)
     u_last = sem.velocity_from_el(us[-1])
     cfl = max(float(c.abs().max()) for c in u_last) * cfg.dt / dx
     log.info('cycle %d: CFL %f', cycle, cfl)

@@ -101,5 +101,29 @@ def profile_steps(run, steps: int, device, rows: int = 25) -> dict | None:
                                     for e in kernels[:rows]}}
 
 
+def device_busy(run, device) -> dict | None:
+  """The device's busy time while `run` runs, under `torch.profiler` with
+  the CUDA activity alone, summed from the raw trace's device events.
+
+  For runs of very many launches (a NiLES train step makes ~500k): the
+  per-op tables of `profile_steps` take minutes to build there.  Returns
+  the wall and busy ms, their ratio and the device events counted (kernels
+  and copies), or None when the profiler saw no device event.
+  """
+  with torch.profiler.profile(
+      activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize(device)
+    wall_ns = (time.perf_counter() - t0) * 1e9
+  events = [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+  if not events:
+    return None
+  busy_ns = sum(e.duration_ns() for e in events)
+  return {'wall_ms': wall_ns / 1e6, 'busy_ms': busy_ns / 1e6,
+          'busy_share': busy_ns / wall_ns, 'device_events': len(events)}
+
+
 if __name__ == '__main__':
   main()

@@ -8,9 +8,9 @@ companion of the velocity step, built on the generic q-function forms
 kernels:
 
   * implicit Helmholtz ``H = (beta_k/dt) B + kappa A`` on the order-N GLL
-    space shared with the velocity, solved by CG (a forward-only call here;
-    its ``custom_linear_solve`` autograd belongs to the training slice,
-    ROADMAP.md, Queue 1 item 9);
+    space shared with the velocity, solved by CG through
+    `linalg.linear_solve` (differentiable in the rhs and in `kappa`, as
+    ``lax.custom_linear_solve`` is in the JAX package);
   * dealiased convection ``int (u . grad theta) v`` on the overintegration
     rule, extrapolated explicitly with EXTk;
   * homogeneous Dirichlet by row elision (the `interior_mask` convention),
@@ -32,6 +32,7 @@ from swirlfem_tpu_torch.core.fespace import grad
 from swirlfem_tpu_torch.core.fespace import inner
 from swirlfem_tpu_torch.linalg.cg import cg
 from swirlfem_tpu_torch.linalg.cg import vdot
+from swirlfem_tpu_torch.linalg.linear_solve import linear_solve
 from swirlfem_tpu_torch.nse.solver import bdfk_coeffs
 from swirlfem_tpu_torch.nse.solver import extk_coeffs
 from swirlfem_tpu_torch.nse.solver import StokesSEM
@@ -141,7 +142,7 @@ class ScalarTransport:
   # -- time step -------------------------------------------------------------
 
   def one_step(self, thetas: Sequence[torch.Tensor],
-               us: Sequence[torch.Tensor], *, kappa: float, dt: float,
+               us: Sequence[torch.Tensor], *, kappa, dt: float,
                time_order: int, forcing: torch.Tensor | None = None,
                theta_boundary: torch.Tensor | None = None,
                tol: float = 1e-8, atol: float = 0.0,
@@ -152,7 +153,8 @@ class ScalarTransport:
       thetas: the ``time_order`` most recent scalar fields, OLDEST first,
         FULL fields (boundary values included); so is the result.
       us: velocity fields aligned with ``thetas`` (us[-1] = current).
-      kappa: diffusivity.
+      kappa: diffusivity, a float or a 0-d tensor (the step is then
+        differentiable in it).
       forcing: nodal source ``q`` (applied through the mass matrix).
       theta_boundary: static non-homogeneous Dirichlet lift; the solve runs
         on the homogeneous remainder and the lift is added back.
@@ -193,10 +195,13 @@ class ScalarTransport:
     def m_op(r):
       return dinv * self.mesh.exchange(r)
 
-    b = self.interior_mask * rhs
-    x0 = None if preconditioner is None else preconditioner(b)
-    theta, info = cg(h_op, b, x0=x0, M=m_op, tol=tol, atol=atol,
-                     dot_fn=vdot, maxiter=maxiter)
+    def solve(matvec, b):
+      b = self.interior_mask * b
+      x0 = None if preconditioner is None else preconditioner(b)
+      return cg(matvec, b, x0=x0, M=m_op, tol=tol, atol=atol, dot_fn=vdot,
+                maxiter=maxiter)
+
+    theta, info = linear_solve(h_op, rhs, solve, params=(kappa,))
     if theta_boundary is not None:
       theta = theta + theta_boundary
     return theta, info

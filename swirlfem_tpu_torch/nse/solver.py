@@ -11,11 +11,11 @@ lift), with the exact FDM inverses of ops.fdm_pressure.
 `StokesSEM.create` builds every host table in numpy / float64 on the CPU
 and then moves the fields the step reads (the `Sem2DOps` / `Sem3DOps`
 factors, and on first use the nodal tables of `StokesSEM.nodal`) to
-`device`, in `dtype`, once.  The step runs eagerly; the linear solves are
-plain function calls, forward only: the differentiable
-``lax.custom_linear_solve`` of the JAX package becomes a
-``torch.autograd.Function`` in the training slice (ROADMAP.md, Queue 1
-item 9).
+`device`, in `dtype`, once.  The step runs eagerly.  Each linear solve
+goes through `linalg.linear_solve`, the counterpart of the JAX package's
+``lax.custom_linear_solve``: with inputs that require grad, the backward
+pass solves the transposed (the same, symmetric) system with the same
+solver; without, the solve is a plain call.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from swirlfem_tpu_torch.linalg.cg import cg
 from swirlfem_tpu_torch.linalg.cg import near_exact_solve
 from swirlfem_tpu_torch.linalg.cg import vdot
 from swirlfem_tpu_torch.linalg.cg import tree_map
+from swirlfem_tpu_torch.linalg.linear_solve import linear_solve
 from swirlfem_tpu_torch.ops import sem2d
 from swirlfem_tpu_torch.ops import sem3d
 
@@ -428,9 +429,8 @@ class StokesSEM:
     a nodal covector (or 0), all on `device`.  `u_boundary` is a static
     Dirichlet lift.  Only the structured fast path is ported: the
     projection history and the element FDM of the generic path are
-    ROADMAP.md, Queue 1 items 15-16.  Both solves are forward-only calls
-    here; their ``custom_linear_solve`` autograd belongs to the training
-    slice (Queue 1 item 9).
+    ROADMAP.md, Queue 1 items 15-16.  Both solves are differentiable
+    (`linalg.linear_solve`).
     """
     if self.fast_ops is None:
       raise NotImplementedError(
@@ -564,11 +564,14 @@ class StokesSEM:
     def exch_t(ut):
       return tuple(vmesh.exchange(u) / diag_h for u in ut)
 
-    rhs = tuple(mask * r for r in f)
-    x0 = (None if viscous_preconditioner is None
-          else tuple(viscous_preconditioner(r) for r in rhs))
-    u_star, u_info = cg(H_t, rhs, x0=x0, M=exch_t, tol=tol, atol=atol,
-                        dot_fn=self.dot, maxiter=maxiter)
+    def vsolve(matvec, rhs):
+      rhs = tuple(mask * r for r in rhs)
+      x0 = (None if viscous_preconditioner is None
+            else tuple(viscous_preconditioner(r) for r in rhs))
+      return cg(matvec, rhs, x0=x0, M=exch_t, tol=tol, atol=atol,
+                dot_fn=self.dot, maxiter=maxiter)
+
+    u_star, u_info = linear_solve(H_t, f, vsolve)
     if u_boundary is not None:
       u_star = tree_map(operator.add, u_star, u_boundary)
     if alpha:
@@ -582,19 +585,20 @@ class StokesSEM:
     def E_fast(p):
       return self._fast_D(Q_t(self._fast_Dt(p)))
 
-    # Enclosed flow: E is singular with a constant nullspace; project the
-    # rhs onto range(E).
-    rhs = -self._fast_D(u_star)
-    if project_out_nullspace:
-      ones = torch.ones_like(rhs)
-      rhs = rhs - (self.dot(ones, rhs) / self.dot(ones, ones)) * ones
-    if getattr(pressure_preconditioner, 'near_exact', False):
-      dp, p_info = near_exact_solve(E_fast, rhs, pressure_preconditioner,
-                                    tol=tol, atol=atol, dot_fn=self.dot,
-                                    maxiter=maxiter)
-    else:
-      dp, p_info = cg(E_fast, rhs, M=pressure_preconditioner, tol=tol,
-                      atol=atol, dot_fn=self.dot, maxiter=maxiter)
+    def psolve(matvec, rhs):
+      # Enclosed flow: E is singular with a constant nullspace; project the
+      # rhs onto range(E).
+      if project_out_nullspace:
+        ones = torch.ones_like(rhs)
+        rhs = rhs - (self.dot(ones, rhs) / self.dot(ones, ones)) * ones
+      if getattr(pressure_preconditioner, 'near_exact', False):
+        return near_exact_solve(matvec, rhs, pressure_preconditioner,
+                                tol=tol, atol=atol, dot_fn=self.dot,
+                                maxiter=maxiter)
+      return cg(matvec, rhs, M=pressure_preconditioner, tol=tol, atol=atol,
+                dot_fn=self.dot, maxiter=maxiter)
+
+    dp, p_info = linear_solve(E_fast, -self._fast_D(u_star), psolve)
 
     u = tree_map(operator.add, u_star, Q_t(self._fast_Dt(dp)))
     p = p_ext + dp
@@ -666,8 +670,8 @@ class StokesSEM:
     """
     if not self._fully_periodic:
       raise NotImplementedError(
-          'the el-form step runs on fully periodic boxes only (walls: '
-          'ROADMAP.md, Queue 1 item 9)')
+          'the el-form step runs on fully periodic boxes only; walled boxes '
+          'take the nodal step, `stokes_one_step`')
     vinfo = self.fast_ops.vinfo
     eshape = (vinfo.num_elements_per_dim,) * vinfo.ndim
     return stokes_step_el(
@@ -839,18 +843,20 @@ def stokes_step_el(ops, us_el, ps_el, f_el, *, mu, dt, time_order,
                          + mu * unflat(ops.stiffness_diag_el())))
     return tuple(r / diag_h[0] for r in exch(tuple(rt)))
 
-  # An exact FDM inverse seeds CG: the solve becomes a direct application
-  # plus a convergence certificate (0-2 polish iterations in float32).
-  if exact_solves and viscous_preconditioner is not None:
-    u_star = viscous_preconditioner(f_el)
-    u_info = {'residual': torch.zeros((), dtype=wmass.dtype,
-                                      device=wmass.device),
-              'num_iterations': 0}
-  else:
+  def vsolve(matvec, rhs):
+    # An exact FDM inverse seeds CG: the solve becomes a direct application
+    # plus a convergence certificate (0-2 polish iterations in float32).
+    if exact_solves and viscous_preconditioner is not None:
+      return viscous_preconditioner(rhs), {
+          'residual': torch.zeros((), dtype=wmass.dtype,
+                                  device=wmass.device),
+          'num_iterations': 0}
     x0 = (None if viscous_preconditioner is None
-          else viscous_preconditioner(f_el))
-    u_star, u_info = cg(H_t, f_el, x0=x0, M=M_t, tol=tol, atol=atol,
-                        dot_fn=dot, maxiter=maxiter)
+          else viscous_preconditioner(rhs))
+    return cg(matvec, rhs, x0=x0, M=M_t, tol=tol, atol=atol, dot_fn=dot,
+              maxiter=maxiter)
+
+  u_star, u_info = linear_solve(H_t, f_el, vsolve)
 
   # Modal filter in el form (exchange-averaged).
   if alpha:
@@ -881,28 +887,29 @@ def stokes_step_el(ops, us_el, ps_el, f_el, *, mu, dt, time_order,
   if pressure_preconditioner is None and project_out_nullspace:
     pressure_preconditioner = project
 
-  rhs = -div_el(u_star)
-  if project_out_nullspace:
-    rhs = project(rhs)
-  if exact_solves and had_preconditioner:
-    # One direct application + a true-residual check; a second defect
-    # sweep runs only when float32 noise left the residual above tolerance.
-    dp = pressure_preconditioner(rhs)
-    r = rhs - E_fast(dp)
-    thr = torch.clamp(tol**2 * dot(rhs, rhs), min=atol**2)
-    if bool(dot(r, r) > thr):
-      dp = dp + pressure_preconditioner(r)
-      r = rhs - E_fast(dp)
-    p_info = {'residual': dot(r, r), 'num_iterations': 1}
-  elif not had_preconditioner:
-    dp, p_info = cg(E_fast, rhs, M=pressure_preconditioner, tol=tol,
-                    atol=atol, dot_fn=dot, maxiter=maxiter)
-  else:
+  def psolve(matvec, rhs):
+    if project_out_nullspace:
+      rhs = project(rhs)
+    if exact_solves and had_preconditioner:
+      # One direct application + a true-residual check; a second defect
+      # sweep runs only when float32 noise left the residual above
+      # tolerance.
+      x = pressure_preconditioner(rhs)
+      r = rhs - matvec(x)
+      thr = torch.clamp(tol**2 * dot(rhs, rhs), min=atol**2)
+      if bool(dot(r, r) > thr):
+        x = x + pressure_preconditioner(r)
+        r = rhs - matvec(x)
+      return x, {'residual': dot(r, r), 'num_iterations': 1}
+    if not had_preconditioner:
+      return cg(matvec, rhs, M=pressure_preconditioner, tol=tol, atol=atol,
+                dot_fn=dot, maxiter=maxiter)
     # A near-exact inverse cannot serve as a CG preconditioner in finite
     # precision (see linalg.cg.near_exact_solve).
-    dp, p_info = near_exact_solve(E_fast, rhs, pressure_preconditioner,
-                                  tol=tol, atol=atol, dot_fn=dot,
-                                  maxiter=maxiter)
+    return near_exact_solve(matvec, rhs, pressure_preconditioner, tol=tol,
+                            atol=atol, dot_fn=dot, maxiter=maxiter)
+
+  dp, p_info = linear_solve(E_fast, -div_el(u_star), psolve)
 
   u = tree_map(operator.add, u_star, Q_t(grad_el(dp)))
   p_el = p_ext + dp

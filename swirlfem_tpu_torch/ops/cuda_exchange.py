@@ -10,7 +10,10 @@ the shape allows it (`launch_geometry`, mirrored and checked by the C
 entry).
 
 `exchange2d` takes the plain version only for CPU tensors.  For CUDA
-tensors it launches the kernel or raises.
+tensors it launches the kernel or raises.  It is differentiable: where a
+field requires grad it runs inside `_Exchange2D`, whose backward pass is
+the same exchange (the same kernel on CUDA) on the incoming gradients,
+since QQ^T is symmetric.
 """
 
 from __future__ import annotations
@@ -96,13 +99,26 @@ def _check(ws):
                        'device')
 
 
+class _Exchange2D(torch.autograd.Function):
+  """QQ^T with its own transpose as the backward pass."""
+
+  @staticmethod
+  def forward(ctx, *ws):
+    return _exchange(ws)
+
+  @staticmethod
+  def backward(ctx, *grads):
+    return _exchange(tuple(g.contiguous() for g in grads))
+
+
 def exchange2d(w):
   """QQ^T on a periodic ``(k, k, n0, n1)`` element grid.
 
   `w` is one field or a tuple of up to `MAX_FIELDS` fields of one shape
   (the result has the same form).  CPU tensors: `exchange2d_plain` per
   field.  CUDA tensors: one launch of the hand-written kernel for all the
-  fields; `exchange2d.launches` counts its launches.
+  fields; `exchange2d.launches` counts its launches.  Differentiable in
+  every field (`_Exchange2D`).
   """
   single = isinstance(w, torch.Tensor)
   ws = (w,) if single else tuple(w)
@@ -110,10 +126,19 @@ def exchange2d(w):
     raise ValueError(f'exchange2d takes 1..{MAX_FIELDS} fields, got '
                      f'{len(ws)}')
   _check(ws)
+  if torch.is_grad_enabled() and any(x.requires_grad for x in ws):
+    outs = _Exchange2D.apply(*ws)
+  else:
+    outs = _exchange(ws)
+  return outs[0] if single else outs
+
+
+def _exchange(ws):
+  """The plain version (CPU) or one kernel launch (CUDA) on a tuple of
+  checked fields; returns a tuple."""
   device = ws[0].device
   if device.type == 'cpu':
-    outs = tuple(exchange2d_plain(x) for x in ws)
-    return outs[0] if single else outs
+    return tuple(exchange2d_plain(x) for x in ws)
   if device.type != 'cuda':
     raise ValueError(f'exchange2d: unsupported device {device}')
   if ws[0].dtype not in _ENTRY:
@@ -131,7 +156,7 @@ def exchange2d(w):
                       len(ws), k, n0, n1, int(geo.vec), geo.tx, geo.ty,
                       int(geo.shuffle), stream), 'exchange2d')
   exchange2d.launches += 1
-  return outs[0] if single else outs
+  return outs
 
 
 exchange2d.launches = 0

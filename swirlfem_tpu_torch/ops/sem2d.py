@@ -183,6 +183,23 @@ STIFFNESS_DISPATCH = {
 }
 
 
+class _Stiffness2D(torch.autograd.Function):
+  """The element stiffness A with its own transpose as the backward pass:
+  A is symmetric, so the gradient is the same dispatched apply (the same
+  kernel on CUDA) on the incoming gradients."""
+
+  @staticmethod
+  def forward(ctx, ops, *us):
+    ctx.ops = ops
+    return tuple(ops._stiffness_apply(us))  # pylint: disable=protected-access
+
+  @staticmethod
+  def backward(ctx, *grads):
+    outs = ctx.ops._stiffness_apply(  # pylint: disable=protected-access
+        tuple(g.contiguous() for g in grads))
+    return (None, *outs)
+
+
 # -- factor container --------------------------------------------------------
 
 
@@ -348,8 +365,14 @@ class Sem2DOps:
   def stiffness_el_multi(self, us):
     """A_local on a tuple of components, in one call of the dispatched
     implementation (one kernel launch on CUDA, unless `use_kernels` is
-    False)."""
+    False).  Differentiable in the components (`_Stiffness2D`); the
+    operator's factors are constants."""
     us = tuple(us)
+    if torch.is_grad_enabled() and any(u.requires_grad for u in us):
+      return _Stiffness2D.apply(self, *us)
+    return self._stiffness_apply(us)
+
+  def _stiffness_apply(self, us):
     entry = STIFFNESS_DISPATCH[self.stiffness_key]
     use_kernel = us[0].is_cuda and self.use_kernels
     return (entry.kernel if use_kernel else entry.plain)(self, us)

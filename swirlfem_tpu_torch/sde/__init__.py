@@ -1,0 +1,1 @@
+"""sde modules of the PyTorch port (see the package docstring)."""

@@ -1,8 +1,10 @@
 """The port's Hopper kernels against their plain PyTorch versions, on a card.
 
 The same checks as ``chip_smoke.py`` (``swirlfem_tpu_torch.ops
-.kernel_checks``) plus wrapper validation and short datagen, Taylor-Green,
-CG-solved affine-box and walled-cavity runs on the card against the CPU.  Every test is marked
+.kernel_checks``) plus wrapper validation, the exchange's and the 2D
+stiffness's autograd (each backward pass launches the same kernel), and
+short datagen, Taylor-Green, CG-solved affine-box, walled-cavity and
+training-step-gradient runs on the card against the CPU.  Every test is marked
 ``cuda`` and skips without a CUDA device.  On a GPU host (no JAX needed):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
@@ -1099,3 +1101,82 @@ def test_uniform_split_refuses_past_its_panel(device):
     else:
       with pytest.raises(ValueError, match='use_kernels=False'):
         cuda_split.stiffness_uniform_split(us, split[0], split[1], 3)
+
+
+@pytest.mark.parametrize('num_fields', [1, 2])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_exchange2d_autograd_launches_the_kernel(device, dtype, num_fields):
+  """The backward pass of exchange2d is the same kernel on the gradient:
+  bitwise QQ^T g, and equal to the CPU plain path's autograd."""
+  fields = tuple(kernel_checks.random_field((5, 5, 12, 12), dtype=dtype,
+                                            device=device, seed=s)
+                 for s in range(num_fields))
+  grads = tuple(kernel_checks.random_field((5, 5, 12, 12), dtype=dtype,
+                                           device=device, seed=10 + s)
+                for s in range(num_fields))
+  ws = tuple(w.clone().requires_grad_() for w in fields)
+  before = cuda_exchange.exchange2d.launches
+  got = torch.autograd.grad(cuda_exchange.exchange2d(ws), ws, grads)
+  assert cuda_exchange.exchange2d.launches == before + 2
+  for g, gw in zip(got, grads):
+    assert torch.equal(g, cuda_exchange.exchange2d_plain(gw))
+  ws_cpu = tuple(w.cpu().requires_grad_() for w in fields)
+  want = torch.autograd.grad(tuple(cuda_exchange.exchange2d_plain(w)
+                                   for w in ws_cpu), ws_cpu,
+                             tuple(g.cpu() for g in grads))
+  tol = 1e-6 if dtype == torch.float32 else 1e-14
+  for g, w in zip(got, want):
+    assert float((g.cpu() - w).abs().max() / w.abs().max()) <= tol
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_stiffness_autograd_launches_the_kernel(device, dtype):
+  """The backward pass of the congruent stiffness (row 2) is the same
+  kernel: A g, against the float64 operator."""
+  _, sem = _solver(device, dtype, resolution=12, order=4)
+  ops = sem.fast_ops
+  us = tuple(kernel_checks.random_field((5, 5, 144), dtype=dtype,
+                                        device=device, seed=s).requires_grad_()
+             for s in (1, 2))
+  gs = tuple(kernel_checks.random_field((5, 5, 144), dtype=dtype,
+                                        device=device, seed=s) for s in (3, 4))
+  before = cuda_stiffness.stiffness_uniform.launches
+  got = torch.autograd.grad(ops.stiffness_el_multi(us), us, gs)
+  assert cuda_stiffness.stiffness_uniform.launches == before + 2
+  a64 = torch.as_tensor(cuda_stiffness.uniform_amat_np(
+      ops.c_uniform, ops.wq2d, ops.dmat), device=device)
+  for g, gin in zip(got, gs):
+    want = (a64 @ gin.double().reshape(25, -1)).reshape(gin.shape)
+    err = float((g.double() - want).abs().max() / want.abs().max())
+    assert err <= (kernel_checks.STIFFNESS_REL_TOL
+                   if dtype == torch.float32 else 1e-12), err
+
+
+def test_training_step_gradient_on_card_matches_cpu(device):
+  """One training el step (12x12, order 4, FDM preconditioners) whose
+  forcing requires grad, float64: the card's gradient, through the kernels'
+  autograd and both transpose solves, equals the CPU plain path's."""
+  from swirlfem_tpu_torch.niles import config as niles_config
+  from swirlfem_tpu_torch.niles import train
+  cfg = niles_config.get_config()
+  rng = np.random.default_rng(0)
+  out = []
+  for dev in (device, torch.device('cpu')):
+    sem = train.build_solver(cfg, device=dev, dtype=torch.float64)
+    n = sem.velocity.mesh.num_nodes
+    npn = sem.pressure.pspace.mesh.num_nodes
+    rng = np.random.default_rng(0)
+    us = [torch.as_tensor(0.1 * rng.standard_normal((n, 2)), device=dev)
+          for _ in range(3)]
+    ps = [torch.as_tensor(rng.standard_normal(npn), device=dev)
+          for _ in range(3)]
+    w = torch.as_tensor(rng.standard_normal((n, 2)), device=dev)
+    f = torch.as_tensor(rng.standard_normal((n, 2)), device=dev)
+    f.requires_grad_()
+    u, p, _, _ = train.solve_one_step(us, ps, [sem.C(x) for x in us], f, sem,
+                                      cfg, train.make_solver_preconds(sem,
+                                                                      cfg))
+    (g,) = torch.autograd.grad((u * w).sum() + p.square().sum(), f)
+    out.append(g.cpu())
+  err = float((out[0] - out[1]).abs().max() / out[1].abs().max())
+  assert float(out[1].abs().max()) > 0 and err <= 1e-9, err

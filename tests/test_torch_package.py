@@ -1,5 +1,7 @@
-"""The port imports torch and never JAX or the JAX package."""
+"""The port imports torch and never JAX, flax, optax, ml_collections or the
+JAX package; nor does chip_smoke.py."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -22,9 +24,16 @@ MODULES = [
     'swirlfem_tpu_torch.examples.natural_convection',
     'swirlfem_tpu_torch.examples.taylor_green_3d',
     'swirlfem_tpu_torch.linalg.cg',
+    'swirlfem_tpu_torch.linalg.linear_solve',
+    'swirlfem_tpu_torch.models.transformer',
+    'swirlfem_tpu_torch.niles.coarsen',
+    'swirlfem_tpu_torch.niles.config',
     'swirlfem_tpu_torch.niles.datagen',
     'swirlfem_tpu_torch.niles.datagen_config',
+    'swirlfem_tpu_torch.niles.input_pipeline',
+    'swirlfem_tpu_torch.niles.main',
     'swirlfem_tpu_torch.niles.profile_datagen',
+    'swirlfem_tpu_torch.niles.train',
     'swirlfem_tpu_torch.nse.scalar',
     'swirlfem_tpu_torch.nse.solver',
     'swirlfem_tpu_torch.ops.cuda_build',
@@ -37,6 +46,8 @@ MODULES = [
     'swirlfem_tpu_torch.ops.kernel_checks',
     'swirlfem_tpu_torch.ops.sem2d',
     'swirlfem_tpu_torch.ops.sem3d',
+    'swirlfem_tpu_torch.sde.nn_sde',
+    'swirlfem_tpu_torch.sde.sdeint',
     'swirlfem_tpu_torch.utils.box',
     'swirlfem_tpu_torch.utils.facets',
 ]
@@ -45,7 +56,8 @@ CHECK = """
 import importlib, sys
 for name in sys.argv[1:]:
   importlib.import_module(name)
-banned = ('jax', 'jaxlib', 'flax', 'swirlfem_tpu')
+banned = ('jax', 'jaxlib', 'flax', 'optax', 'ml_collections', 'orbax',
+          'clu', 'absl', 'h5py', 'swirlfem_tpu')
 bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)
 assert not bad, bad
 from swirlfem_tpu_torch.ops import cuda_build
@@ -75,3 +87,20 @@ def test_module_list_covers_the_package():
   packages = {m for m in found if m.count('.') == 1
               and os.path.isdir(os.path.join(REPO, *m.split('.')))}
   assert found - packages == set(MODULES), found ^ set(MODULES)
+
+
+BANNED_ROOTS = ('jax', 'jaxlib', 'flax', 'optax', 'ml_collections', 'orbax',
+                'clu', 'absl', 'swirlfem_tpu')
+
+
+def test_chip_smoke_imports_no_jax():
+  with open(os.path.join(REPO, 'chip_smoke.py'), encoding='utf-8') as f:
+    tree = ast.parse(f.read())
+  roots = set()
+  for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+      roots.update(a.name.split('.')[0] for a in node.names)
+    elif isinstance(node, ast.ImportFrom) and node.module:
+      roots.add(node.module.split('.')[0])
+  assert 'swirlfem_tpu_torch' in roots
+  assert not roots & set(BANNED_ROOTS), roots & set(BANNED_ROOTS)
