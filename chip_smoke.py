@@ -129,7 +129,30 @@ datagen cycle's frames.  Phases:
      parameters, batch and draws: loss and global gradient norm within
      1e-4; then the card at the configuration's own bfloat16 against the
      same reference (loss within 1e-2, norm within 5e-2), its model output
-     float32 and more than 1e-4 from the float32 model's.
+     float32 and more than 1e-4 from the float32 model's;
+ 32. the general 2D stiffness kernel (row 3) on the cylinder channel's own
+     factor fields at its ragged element counts (k = 6, E = 228 and k = 4,
+     E = 122, C = 2): within 1e-5 of its plain version and of the float64
+     operator; timed at E = 228 against its plain version, one library
+     `einsum` and its bound ("cylinder_ms" in the kernels line);
+ 33. the Schaefer-Turek cylinder (228 elements, order 5, Re 100, BDF2, dt
+     2.5e-4, float32) on the generic path: build and dense Schur assembly
+     seconds, 410 steps of `run_cylinder_scan` with the forces and the
+     Fischer history (finite states, pressure CG <= 3 iterations every
+     step from the fifth on, positive drag); ms/step over steps 11-400,
+     CG iterations, and launches a step from the profiler over steps
+     401-410 of the live loop;
+ 34. the same 410 steps with `unstructured_el_ops=True` (row 3 launched on
+     every viscous matvec, counted; the same dense Schur inverse), and the
+     generic path with the same solves (no history): the two paths'
+     velocities within 1e-4 relative, pressures within 7e-3 (the
+     generic path against itself reads up to 2.0e-3);
+ 35. 20 steps of the small cylinder (122 elements, order 3) on the card in
+     float32 against the CPU plain path in float64, on both paths
+     (velocities within 3e-4, pressures 5e-3: up to 1.2e-4 and 1.5e-3
+     over 12 runs; the JAX package's own float32 run reads 1.7e-4 and
+     4.5e-4 there);
+     `solve_poisson` on the card against the exact solution.
 
 Each kernel's count is set to 0 just before the path that launches it and
 read just after.  Every kernel's bound is the larger of its bytes (each
@@ -1777,6 +1800,212 @@ def run_tiny_train_phase(torch, device) -> None:
   require(y_b.dtype == torch.float32 and dy > 1e-4, (y_b.dtype, dy))
 
 
+def run_cylinder_phases(torch, device, kernel_checks, times, launches,
+                        num_steps: int = 400) -> None:
+  """Phases 32-35: the unstructured-mesh path on the Schaefer-Turek cylinder
+  channel (228 elements, order 5, Re 100, BDF2, dt 2.5e-4, filter 0.05,
+  float32; the dense Schur inverse, the Fischer history on the generic
+  path).  Fills `times['stiffness2d_general']` with the cylinder's timings
+  and `launches['stiffness2d_general_cylinder']` with row 3's launches on
+  the E-last cylinder path."""
+  import numpy as np
+  from swirlfem_tpu_torch.core.bc import BCType
+  from swirlfem_tpu_torch.core.quadrature import Nodes1D, NodeType
+  from swirlfem_tpu_torch.core.refine import refine_premesh
+  from swirlfem_tpu_torch.examples import cylinder as cyl
+  from swirlfem_tpu_torch.examples import poisson
+  from swirlfem_tpu_torch.niles.profile_datagen import StepProfiler
+  from swirlfem_tpu_torch.ops import cuda_stiffness2d
+  from swirlfem_tpu_torch.utils.box import unit_cube_mesh
+  dtype = torch.float32
+  small = dict(ns=4, nr=3, nx_down=10)
+  general = cuda_stiffness2d.stiffness2d_general
+  START_STEPS = 4  # pylint: disable=invalid-name
+
+  # -- 32. row 3 on the cylinder's own factor fields -------------------------
+  t0 = time.perf_counter()
+  sem_el = cyl.make_cylinder_sem(device=device, dtype=dtype,
+                                 unstructured_el_ops=True)
+  small_el = cyl.make_cylinder_sem(3, **small, device=device, dtype=dtype,
+                                   unstructured_el_ops=True)
+  log(f'[32] E-last cylinder solvers built in {time.perf_counter() - t0:.2f}'
+      f' s: keys {sem_el.fast_ops.stiffness_key}, '
+      f'{small_el.fast_ops.stiffness_key}')
+  checks = {}
+  for name, ops in (('k=6 E=228', sem_el.fast_ops),
+                    ('k=4 E=122', small_el.fast_ops)):
+    require(ops.stiffness_key[0] == 'general' and ops.vinfo is None,
+            (name, ops.stiffness_key))
+    k, num_e = ops.wmass.shape[0], ops.wmass.shape[-1]
+    us = tuple(kernel_checks.random_field((k, k, num_e), dtype=dtype,
+                                          device=device, seed=s)
+               for s in (1, 2))
+    check = kernel_checks.check_stiffness2d_general(ops, us)
+    plain = cuda_stiffness2d.stiffness2d_general_plain(
+        us, (ops.g11, ops.g12, ops.g22), ops.mats['dmat'])
+    check['rel_err_plain'] = check['max_abs_err'] / max(
+        float(p.abs().max()) for p in plain)
+    checks[name] = (ops, us, check)
+    log(f'[32] stiffness2d_general on the cylinder, {name}, C = 2: {check}')
+    require(check['rel_err_plain'] <= 1e-5, (name, check))
+    require(check['rel_err_f64'] <= kernel_checks.STIFFNESS_REL_TOL,
+            (name, check))
+  ops, us, check = checks['k=6 E=228']
+  gs, dmat = (ops.g11, ops.g12, ops.g22), ops.mats['dmat']
+  cyl_t = {
+      'ms': kernel_checks.time_ms(
+          lambda: ops.stiffness_el_multi(us), device=device),
+      'plain_ms': kernel_checks.time_ms(
+          lambda: cuda_stiffness2d.stiffness2d_general_plain(us, gs, dmat),
+          device=device, calls=PLAIN_CALLS),
+      'library_ms': kernel_checks.time_ms(
+          kernel_checks.library_general(us, gs, dmat), device=device)}
+  flops, nbytes = cuda_stiffness2d.stiffness2d_counts(
+      5, us[0].shape[-1], len(us), affine=False, dtype_bytes=4)
+  cyl_t.update(kernel_checks.bound(flops, nbytes))
+  log(f'[32] stiffness2d_general at the cylinder shape {tuple(us[0].shape)} '
+      f'x 2: {cyl_t["ms"] * 1e3:.2f} us (plain {cyl_t["plain_ms"] * 1e3:.2f}'
+      f', library {cyl_t["library_ms"] * 1e3:.2f}, bound '
+      f'{cyl_t["bound_ms"] * 1e3:.3f} us, {cyl_t["bound_by"]})')
+  times['stiffness2d_general'].update(
+      {f'cylinder_{key}': val for key, val in cyl_t.items()})
+  times['stiffness2d_general']['cylinder_max_abs_err'] = check['max_abs_err']
+
+  # -- 33. the default cylinder on the generic path -------------------------
+  dt = 2.5e-4
+  t0 = time.perf_counter()
+  sem = cyl.make_cylinder_sem(device=device, dtype=dtype)
+  build_s = time.perf_counter() - t0
+  # One dense Schur inverse for both paths: it is assembled from the
+  # generic operators on the host, which the E-last solver shares.
+  precond = sem.dense_pressure_preconditioner(dt, 2)
+  mesh = sem.velocity.mesh
+  log(f'[33] cylinder: {mesh.num_elements} elements, order {mesh.order}, '
+      f'{mesh.num_nodes} velocity / {sem.pressure.pspace.mesh.num_nodes} '
+      f'pressure nodes; build {build_s:.2f} s, dense Schur assembly and '
+      f'pinv {precond.assembly_seconds:.2f} s (float64, host); '
+      f'nullspace {getattr(precond, "has_nullspace", False)}')
+  require(sem.fast_ops is None and sem.assembled_ops is not None,
+          'the cylinder must take the generic path with assembled D')
+  require(not getattr(precond, 'has_nullspace', False),
+          'the outflow makes E nonsingular')
+
+  # Each run takes num_steps + 10 steps in chunks of 10.  The host clock
+  # reads steps 11 to num_steps (past the impulsive start's first chunk);
+  # the profiler, where asked, the live loop's last chunk, which holds its
+  # solve history.
+  chunk, total = 10, num_steps + 10
+  runs, profiles = {}, {}
+  for name, s, kw in (('generic', sem, {}),
+                      ('el', sem_el, dict(use_projection=False)),
+                      ('generic, no history', sem,
+                       dict(use_projection=False))):
+    marks, window = {}, None
+    if name != 'generic, no history':
+      window = StepProfiler(chunk, device, rows=8)
+
+    def on_chunk(done, marks=marks, window=window, name=name):
+      if done in (chunk, num_steps):
+        torch.cuda.synchronize(device)
+        marks[done] = time.perf_counter()
+      if window is not None and done == num_steps:
+        window.start()
+      elif window is not None and done == total:
+        profiles[name] = window.stop()
+
+    if name == 'el':
+      general.launches = 0
+    tele = {}
+    u, p, trace, forces = cyl.run_cylinder_scan(
+        s, dt=dt, num_steps=total, steps_per_dispatch=chunk,
+        compute_forces=True, pressure_preconditioner=precond, telemetry=tele,
+        on_chunk=on_chunk, **kw)
+    torch.cuda.synchronize(device)
+    runs[name] = (u, p, forces, tele)
+    if name == 'el':
+      launches['stiffness2d_general_cylinder'] = general.launches
+    ms = (marks[num_steps] - marks[chunk]) / (num_steps - chunk) * 1e3
+    vi, pi = tele['viscous_iterations'], tele['pressure_iterations']
+    cd = float(forces[-1, 0]) * 20.0
+    log(f'[{33 if name == "generic" else 34}] cylinder {name}: '
+        f'{total} steps, {ms:.3f} ms/step (host clock, steps {chunk + 1}-'
+        f'{num_steps}), viscous CG iterations mean {np.mean(vi):.2f} max '
+        f'{max(vi)}, pressure CG first steps {pi[:START_STEPS]}, max after '
+        f'{max(pi[START_STEPS:])}, C_d at the end {cd:.4f}, probe '
+        f'{trace[-1]:+.5f}')
+    if profiles.get(name) is not None:
+      log(f'[33/34] cylinder {name}: '
+          f'{profiles[name]["launches_per_step"]:.1f} launches a step, '
+          f'device busy {100 * profiles[name]["busy_share"]:.1f} % (steps '
+          f'{num_steps + 1}-{total} of the live loop, profiled)')
+    require(all_finite((u, p)) and np.isfinite(forces).all(), name)
+    # From the fifth step on: the impulsive start's first float32 pressure
+    # solves sit on the rounding floor of the dense inverse (the JAX package
+    # in float32: 945 iterations at the first step of this mesh).
+    require(max(pi[START_STEPS:]) <= 3, (name, pi[:START_STEPS + 3]))
+    require(forces[-1, 0] > 0, (name, forces[-1]))
+  vi_el = runs['el'][3]['viscous_iterations']
+  per_step = launches['stiffness2d_general_cylinder'] / total
+  log(f'[34] stiffness2d_general launches on the E-last cylinder path: '
+      f'{launches["stiffness2d_general_cylinder"]} in {total} steps '
+      f'({per_step:.2f} a step; {sum(vi_el)} viscous CG iterations)')
+  # Every viscous matvec is a launch: the lift's H, CG's initial residual
+  # and one a CG iteration at least.
+  require(launches['stiffness2d_general_cylinder'] >= sum(vi_el)
+          + 2 * total, 'a viscous matvec ran without row 3')
+  du = rel_err(runs['el'][0], runs['generic, no history'][0])
+  dp = rel_err(runs['el'][1], runs['generic, no history'][1])
+  du_h = rel_err(runs['el'][0], runs['generic'][0])
+  dp_h = rel_err(runs['el'][1], runs['generic'][1])
+  log(f'[34] E-last vs generic path, the same solves (no history): u rel '
+      f'{du:.3e}, p rel {dp:.3e}; vs phase 33 (with the history: CG paths '
+      f'differ at the 1e-5 tolerance) u rel {du_h:.3e}, p rel {dp_h:.3e}')
+  # About 3x the largest readings (PERF.md section 6): u 3.1e-5, p 2.4e-3
+  # over 25 pairs of runs on the card.  The pressure carries float32
+  # rounding through E's conditioning, and the scatters' atomic adds run in
+  # no fixed order: the generic path against itself reads p up to 2.0e-3.
+  require(du <= 1e-4 and dp <= 7e-3, (du, dp))
+
+  # -- 35. the small cylinder, card (f32) vs CPU (f64); Poisson ------------
+  cpu = cyl.make_cylinder_sem(3, **small, device='cpu', dtype=torch.float64)
+  cpu_el = cyl.make_cylinder_sem(3, **small, device='cpu',
+                                 dtype=torch.float64,
+                                 unstructured_el_ops=True)
+  card = cyl.make_cylinder_sem(3, **small, device=device, dtype=dtype)
+  for name, a, b, kw in (('generic', card, cpu, {}),
+                         ('el', small_el, cpu_el,
+                          dict(use_projection=False))):
+    outs = []
+    for s in (a, b):
+      outs.append(cyl.run_cylinder_scan(
+          s, dt=5e-4, num_steps=20, steps_per_dispatch=10, kick_steps=10,
+          tol=1e-6, **kw))
+    du = rel_err(outs[0][0], outs[1][0])
+    dp = rel_err(outs[0][1], outs[1][1])
+    log(f'[35] small cylinder {name} path, 20 steps card f32 vs CPU f64: '
+        f'u rel {du:.3e}, p rel {dp:.3e}')
+    # About 3x the largest readings over 12 runs a path on the card
+    # (PERF.md section 6): u 1.2e-4, p 1.5e-3 (p from 7.8e-5 up: the first
+    # pressure solves of the impulsive start sit on float32's rounding
+    # floor, and the scatters add in no fixed order).  The JAX package's
+    # own float32 run is 1.7e-4 (u) and 4.5e-4 (p) from its float64 run.
+    require(du <= 3e-4 and dp <= 5e-3, (name, du, dp))
+  for p_dtype, gate in ((torch.float64, 1e-8), (torch.float32, 1e-4)):
+    pm = refine_premesh(unit_cube_mesh(8, ndim=2), Nodes1D.create(
+        7, NodeType.GAUSS_LOBATTO_LEGENDRE))
+    c = pm.node_coords
+    exact = np.sin(np.pi * c[:, 0]) * np.sin(np.pi * c[:, 1])
+    u = poisson.solve_poisson(pm.finalize(device=device, dtype=p_dtype),
+                              2 * np.pi ** 2 * exact,
+                              {'boundary': (BCType.DIRICHLET, 0)},
+                              rtol=1e-10 if p_dtype == torch.float64
+                              else 1e-6)
+    err = float(np.abs(u.cpu().double().numpy() - exact).max())
+    log(f'[35] solve_poisson on the card, 8x8 order 6, {p_dtype}: max error '
+        f'against the exact sine {err:.3e} (gate {gate:g})')
+    require(err <= gate, (p_dtype, err))
+
+
 def run_knob_phase(torch, device, dtype) -> None:
   """Phase 28: one 3D stiffness apply at order 10 (k = 11, past every 3D
   kernel) on the card through `use_kernels=False`, against the float64
@@ -2023,6 +2252,7 @@ def main() -> int:
   run_knob_phase(torch, device, dtype)
   training = run_training_phases(torch, device, kernel_checks, frames)
   run_tiny_train_phase(torch, device)
+  run_cylinder_phases(torch, device, kernel_checks, times, launches)
 
   kernels = [
       {'name': 'exchange2d', 'route': 'cuda',
@@ -2042,6 +2272,7 @@ def main() -> int:
        'source': 'swirlfem_tpu_torch/csrc/stiffness2d_general.cu',
        'replaces': 'swirlfem_tpu/ops/pallas_stiffness.py:165',
        'launches': launches['stiffness2d_general'],
+       'cylinder_launches': launches['stiffness2d_general_cylinder'],
        **times['stiffness2d_general']},
       {'name': 'stiffness2d_affine', 'route': 'cuda',
        'source': 'swirlfem_tpu_torch/csrc/stiffness2d_affine.cu',

@@ -13,6 +13,9 @@ product's ``O(N^{2d})``).
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from swirlfem_tpu_torch.core.quadrature import interpolation_grad_matrix_1d
@@ -75,6 +78,22 @@ class BarycentricInterpolator:
   def _is_identity(self) -> bool:
     return self.gridpoints_1d == self.evalpoints_1d
 
+  # ---- full Kronecker matrices (host-side numpy, for assembly) -------------
+
+  def interpolation_matrix(self) -> np.ndarray:
+    """Full ``(q^d, n^d)`` Kronecker interpolation matrix."""
+    return functools.reduce(np.kron, [self.interp_1d] * self.ndim)
+
+  def interpolation_matrix_grad(self) -> np.ndarray:
+    """Full ``(q^d, n^d, d)`` Kronecker gradient matrices: component i is
+    ``M (x) .. (x) G (x) .. (x) M`` with G in position i."""
+    cols = []
+    for i in range(self.ndim):
+      mats = [self.interp_1d] * self.ndim
+      mats[i] = self.interp_grad_1d
+      cols.append(functools.reduce(np.kron, mats))
+    return np.stack(cols, axis=-1)
+
   # ---- sum-factorized paths ------------------------------------------------
 
   def _copy_array(self, name, make, like: torch.Tensor) -> torch.Tensor:
@@ -121,4 +140,17 @@ class BarycentricInterpolator:
     q = self.evalpoints_1d.num_points
     mt = self._factors(w).T
     out = apply_factors(_as_nd(w, q, self.ndim), [mt] * self.ndim)
+    return _as_flat(out, self.ndim)
+
+  def interpolate_grad_t(self, w: torch.Tensor) -> torch.Tensor:
+    """Transpose of `interpolate_grad`: ``(..., q^d, d) -> (..., n^d)``."""
+    q = self.evalpoints_1d.num_points
+    mt = self._factors(w).T
+    gt = self._grad_factors(w).T
+    out = None
+    for i in range(self.ndim):
+      mats = [mt] * self.ndim
+      mats[i] = gt
+      part = apply_factors(_as_nd(w[..., i], q, self.ndim), mats)
+      out = part if out is None else out + part
     return _as_flat(out, self.ndim)

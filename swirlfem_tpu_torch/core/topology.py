@@ -39,8 +39,12 @@ def scatter(u: torch.Tensor, indices: torch.Tensor,
     raise ValueError(f'shape mismatch: {tuple(u.shape)} vs '
                      f'{tuple(indices.shape)}')
   mask = indices != SENTINEL
-  out = torch.zeros(num_nodes, dtype=u.dtype, device=u.device)
-  return out.index_add_(0, indices[mask], u[mask])
+  # SENTINEL entries add zero at slot 0: no boolean index (which would read
+  # the device).  `new_zeros` of `u` is batched under `torch.func.vmap`, so
+  # the in-place add also runs there.
+  out = u.new_zeros(num_nodes)
+  return out.index_add_(0, indices.clamp(min=0).reshape(-1),
+                        torch.where(mask, u, 0.0).reshape(-1))
 
 
 def exchange(u: torch.Tensor, gather_indices: torch.Tensor | None,
@@ -68,7 +72,7 @@ def exchange(u: torch.Tensor, gather_indices: torch.Tensor | None,
   if unique_indices is not None:
     if not num_unique:
       num_unique = int(unique_indices.max()) + 1
-    summed = torch.zeros(num_unique, dtype=u.dtype, device=u.device)
+    summed = own.new_zeros(num_unique)
     summed = summed.index_add_(0, unique_indices, own)[unique_indices]
   else:
     summed = own

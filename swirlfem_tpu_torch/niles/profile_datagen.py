@@ -68,37 +68,57 @@ def profile_steps(run, steps: int, device, rows: int = 25) -> dict | None:
   the device's busy share of the profiled wall time, and returns those
   numbers (None when the profiler saw no device kernel).
   """
-  activities = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-  with torch.profiler.profile(activities=activities) as prof:
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize(device)
-    wall_us = (time.perf_counter() - t0) * 1e6
-  kernels = [e for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and _self_device_us(e) > 0]
-  if not kernels:
-    print('device kernel time: not measured (the profiler saw no kernels)')
-    return None
-  busy_us = sum(_self_device_us(e) for e in kernels)
-  launches = sum(e.count for e in kernels)
-  print(f'profiled {steps} steps: wall {wall_us / 1e3:.3f} ms, device '
-        f'busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), '
-        f'{launches / steps:.1f} kernel launches/step, '
-        f'{busy_us / launches:.2f} us/kernel on average')
-  kernels.sort(key=_self_device_us, reverse=True)
-  print(f'{"self device us/step":>20} {"share":>6} {"calls/step":>10}  kernel')
-  for e in kernels[:rows]:
-    print(f'{_self_device_us(e) / steps:20.2f} '
-          f'{100 * _self_device_us(e) / busy_us:5.1f}% '
-          f'{e.count / steps:10.1f}  {e.key[:110]}')
-  return {'wall_ms_per_step': wall_us / 1e3 / steps,
-          'busy_ms_per_step': busy_us / 1e3 / steps,
-          'busy_share': busy_us / wall_us,
-          'launches_per_step': launches / steps,
-          'by_kernel_us_per_step': {e.key: _self_device_us(e) / steps
-                                    for e in kernels[:rows]}}
+  window = StepProfiler(steps, device, rows)
+  window.start()
+  run()
+  return window.stop()
+
+
+class StepProfiler:
+  """`profile_steps` over a window that a running loop opens (`start`) and
+  closes (`stop`, which returns the numbers) at its own step boundaries."""
+
+  def __init__(self, steps: int, device, rows: int = 25):
+    self.steps, self.device, self.rows = steps, device, rows
+    self._prof = self._t0 = None
+
+  def start(self) -> None:
+    self._prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+    self._prof.__enter__()
+    self._t0 = time.perf_counter()
+
+  def stop(self) -> dict | None:
+    torch.cuda.synchronize(self.device)
+    wall_us = (time.perf_counter() - self._t0) * 1e6
+    self._prof.__exit__(None, None, None)
+    steps, rows = self.steps, self.rows
+    kernels = [e for e in self._prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and _self_device_us(e) > 0]
+    if not kernels:
+      print('device kernel time: not measured (the profiler saw no kernels)')
+      return None
+    busy_us = sum(_self_device_us(e) for e in kernels)
+    launches = sum(e.count for e in kernels)
+    print(f'profiled {steps} steps: wall {wall_us / 1e3:.3f} ms, device '
+          f'busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), '
+          f'{launches / steps:.1f} kernel launches/step, '
+          f'{busy_us / launches:.2f} us/kernel on average')
+    kernels.sort(key=_self_device_us, reverse=True)
+    print(f'{"self device us/step":>20} {"share":>6} {"calls/step":>10}  '
+          f'kernel')
+    for e in kernels[:rows]:
+      print(f'{_self_device_us(e) / steps:20.2f} '
+            f'{100 * _self_device_us(e) / busy_us:5.1f}% '
+            f'{e.count / steps:10.1f}  {e.key[:110]}')
+    return {'wall_ms_per_step': wall_us / 1e3 / steps,
+            'busy_ms_per_step': busy_us / 1e3 / steps,
+            'busy_share': busy_us / wall_us,
+            'launches_per_step': launches / steps,
+            'by_kernel_us_per_step': {e.key: _self_device_us(e) / steps
+                                      for e in kernels[:rows]}}
 
 
 def device_busy(run, device) -> dict | None:

@@ -1,12 +1,16 @@
-"""Spectral-element fractional-step Navier-Stokes solver, structured slices.
+"""Spectral-element fractional-step Navier-Stokes solver.
 
-Counterpart of ``swirlfem_tpu/nse/solver.py`` for the 2D and 3D,
-single-device, structured path: the P_N - P_{N-2} pressure-projection scheme
-(GLL velocity, discontinuous GL pressure, BDF-k with extrapolated pressure,
-modal filter), stepped either on element-local (E-last) states
-(`stokes_step_el`, fully periodic boxes) or on nodal component tuples
-(`StokesSEM.stokes_one_step`, walled boxes, with or without a Dirichlet
-lift), with the exact FDM inverses of ops.fdm_pressure.
+Counterpart of ``swirlfem_tpu/nse/solver.py`` on one device: the
+P_N - P_{N-2} pressure-projection scheme (GLL velocity, discontinuous GL
+pressure, BDF-k with extrapolated pressure, modal filter), stepped on
+element-local (E-last) states (`stokes_step_el`, fully periodic boxes), on
+nodal component tuples through the E-last element operators
+(`StokesSEM.stokes_one_step` on structured boxes, and on unstructured 2D
+meshes with ``unstructured_el_ops=True``), or on nodal ``(N, d)`` states
+through the generic operators (every other mesh: the curved cylinder
+channel, Gmsh meshes), with the solve history of `linalg.projection`, the
+assembled divergence of ops.assembled and the element FDM of
+ops.fdm_element.
 
 `StokesSEM.create` builds every host table in numpy / float64 on the CPU
 and then moves the fields the step reads (the `Sem2DOps` / `Sem3DOps`
@@ -37,6 +41,7 @@ from swirlfem_tpu_torch.core.quadrature import Nodes1D
 from swirlfem_tpu_torch.core.quadrature import NodeType
 from swirlfem_tpu_torch.core.quadrature import Quadrature1D
 from swirlfem_tpu_torch.core.refine import refine_premesh
+from swirlfem_tpu_torch.core.tensor import BarycentricInterpolator
 from swirlfem_tpu_torch.linalg.cg import cg
 from swirlfem_tpu_torch.linalg.cg import near_exact_solve
 from swirlfem_tpu_torch.linalg.cg import vdot
@@ -86,6 +91,21 @@ def _refine(premesh: Premesh, gridpoints: Nodes1D, coord_transform):
 
 
 @dataclasses.dataclass(frozen=True)
+class StokesProjection:
+  """Solve-history pair for `stokes_one_step(projection_state=...)`: pass it
+  in, read the updated one from ``aux['projection_state']``
+  (`linalg.projection`)."""
+
+  viscous: Any
+  pressure: Any
+
+
+def _weighted_jacdets(space: FiniteElementSpace) -> torch.Tensor:
+  """``w_q |J|`` at the space's quadrature points, ``(E, Q)``."""
+  return space.jacdets * space._weights(space.jacdets)  # pylint: disable=protected-access
+
+
+@dataclasses.dataclass(frozen=True)
 class StokesPressure:
   """Discontinuous Gauss-Legendre pressure space of order N-2."""
 
@@ -100,13 +120,35 @@ class StokesPressure:
         device=device, dtype=dtype)
     return cls(pspace=FiniteElementSpace.create(pmesh, quadrature))
 
+  def to(self, device, dtype: torch.dtype) -> 'StokesPressure':
+    return StokesPressure(pspace=self.pspace.to(device, dtype))
+
+  def gather(self, p: torch.Tensor) -> torch.Tensor:
+    return self.pspace.mesh.gather(p)
+
+  def scatter(self, p_local: torch.Tensor) -> torch.Tensor:
+    return self.pspace.mesh.scatter(p_local)
+
   def exchange(self, p: torch.Tensor) -> torch.Tensor:
     return self.pspace.mesh.exchange(p)
+
+  def B(self, p: torch.Tensor) -> torch.Tensor:
+    """Pressure mass operator."""
+    ps = self.pspace
+    pq = ps.interpolator.interpolate(self.gather(p))
+    return self.scatter(ps.interpolator.interpolate_t(
+        pq * _weighted_jacdets(ps)))
 
 
 @dataclasses.dataclass(frozen=True)
 class StokesVelocity:
-  """Continuous Gauss-Lobatto-Legendre velocity space of order N."""
+  """Continuous Gauss-Lobatto-Legendre velocity space of order N.
+
+  The generic element forms (`A_local`, `B_local`, `C_local`) are the
+  sum-factorized transposes of the JAX package's q-function forms, written
+  out (so that they carry an autograd graph): interpolate, weight by
+  ``w_q |J|`` and the inverse Jacobians, interpolate back transposed.
+  """
 
   vspace: FiniteElementSpace
   overint_space: FiniteElementSpace
@@ -150,14 +192,26 @@ class StokesVelocity:
                                       dtype=dtype, device=device))
 
   def gather(self, u: torch.Tensor) -> torch.Tensor:
+    """Nodal ``(N, d)`` -> element-local ``(E, n^d, d)``."""
+    if self.mesh.structured is None:  # one index of the element table
+      return u[self.mesh.elements]
     return torch.stack([self.mesh.gather(u[..., i])
                         for i in range(u.shape[-1])], dim=-1)
 
   def scatter(self, u_local: torch.Tensor) -> torch.Tensor:
+    """Element-local ``(E, n^d, d)`` -> nodal, summing shared nodes."""
+    if self.mesh.structured is None:  # one index_add of all components
+      d = u_local.shape[-1]
+      out = u_local.new_zeros((self.mesh.num_nodes, d))
+      return out.index_add_(0, self.mesh.elements.reshape(-1),
+                            u_local.reshape(-1, d))
     return torch.stack([self.mesh.scatter(u_local[..., i])
                         for i in range(u_local.shape[-1])], dim=-1)
 
   def exchange(self, u: torch.Tensor) -> torch.Tensor:
+    if self.mesh.exchange_gather_indices is None or (
+        self.mesh.exchange_gather_indices.numel() == 0):
+      return u
     return torch.stack([self.mesh.exchange(u[..., i])
                         for i in range(u.shape[-1])], dim=-1)
 
@@ -165,20 +219,54 @@ class StokesVelocity:
     """Vector mass: form ``int u . v`` (diagonal on collocated GLL)."""
     return self.vspace.mass_local(u_local)
 
+  def A_local(self, u_local: torch.Tensor) -> torch.Tensor:
+    """Vector stiffness: form ``int grad(u) : grad(v)``, ``(E, n^d, d)``."""
+    vs = self.vspace
+    interp = vs.interpolator
+    ref = interp.interpolate_grad(u_local.movedim(-1, 1))    # (E, k, Q, i)
+    g = torch.einsum('ekqi,eqji->ekqj', ref, vs.invjacs)     # d u_k/d x_j
+    g = g * _weighted_jacdets(vs)[:, None, :, None]
+    cov = torch.einsum('ekqj,eqji->ekqi', g, vs.invjacs)
+    return interp.interpolate_grad_t(cov).movedim(1, -1)
+
+  def C_local(self, u_local: torch.Tensor) -> torch.Tensor:
+    """Dealiased convection: trilinear ``int (u . grad) u . v`` on the
+    overintegrated rule (``swirlfem_tpu/nse/solver.py:234-243``)."""
+    os_ = self.overint_space
+    interp = os_.interpolator
+    u = u_local.movedim(-1, 1)                                # (E, k, n)
+    uq = interp.interpolate(u)                                # (E, i, Q)
+    ref = interp.interpolate_grad(u)                          # (E, k, Q, a)
+    g = torch.einsum('ekqa,eqia->eqik', ref, os_.invjacs)     # d u_k/d x_i
+    conv = torch.einsum('eiq,eqik->ekq', uq, g) * _weighted_jacdets(os_)[
+        :, None, :]
+    return interp.interpolate_t(conv).movedim(1, -1)
+
+  def C(self, u: torch.Tensor) -> torch.Tensor:
+    return self.interior_mask * self.scatter(self.C_local(self.gather(u)))
+
 
 @dataclasses.dataclass(frozen=True)
 class NodalTables:
-  """The nodal tables the walled step reads, on the solver's device.
+  """The nodal tables the nodal steps read, on the solver's device.
 
-  `velocity` is a device copy of the host `StokesVelocity` (its mesh's
-  gather, scatter and exchange tables, the generic-form spaces, the
-  Dirichlet mask); `mass_diag` the assembled lumped velocity mass
-  ``(N, d)`` and `mult` the nodal copy multiplicity ``(N,)``.
+  `velocity` and `pressure` are device copies of the host spaces (the
+  meshes' gather, scatter and exchange tables, the generic-form geometry,
+  the Dirichlet mask); `mass_diag` the assembled lumped velocity mass
+  ``(N, d)``; `mult` the nodal copy multiplicity ``(N,)`` (periodic images
+  included); `assembled` the device copy of the assembled divergence
+  blocks, or None; `v_el_t` / `p_el_t` the transposed element tables
+  ``(n^d, E)`` of an unstructured mesh, whose index gives the E-last layout
+  directly (None on structured boxes).
   """
 
   velocity: StokesVelocity
+  pressure: StokesPressure
   mass_diag: torch.Tensor
   mult: torch.Tensor
+  assembled: Any = None
+  v_el_t: torch.Tensor | None = None
+  p_el_t: torch.Tensor | None = None
 
   @property
   def mask(self) -> torch.Tensor:
@@ -189,9 +277,11 @@ class NodalTables:
 class StokesSEM:
   """Operator algebra + fractional-step update for the NSE system.
 
-  `velocity`, `pressure` and `velocity_mass_diag` are host-side (CPU,
-  float64) setup tables; `fast_ops` holds the step's fields on `device` in
-  `dtype`, and `nodal` the walled step's nodal tables there (built on first
+  `velocity`, `pressure`, `velocity_mass_diag` and `assembled_ops` are
+  host-side (CPU, float64) setup tables; `fast_ops` holds the E-last
+  element operators' fields on `device` in `dtype` (structured boxes, and
+  unstructured 2D meshes with ``unstructured_el_ops=True``; None
+  elsewhere), and `nodal` the nodal steps' tables there (built on first
   use, like the Jacobi diagonals, into `cache`).
   """
 
@@ -201,6 +291,9 @@ class StokesSEM:
   fast_ops: Any
   device: torch.device
   dtype: torch.dtype
+  # Assembled mixed-divergence blocks (unstructured meshes; ops.assembled),
+  # float64 on the host: D and Dt become one batched block product each.
+  assembled_ops: Any = None
   cache: dict = dataclasses.field(default_factory=dict, repr=False,
                                   compare=False)
 
@@ -208,7 +301,9 @@ class StokesSEM:
   def create(cls, premesh: Premesh, boundary_conditions, order: int, *,
              device: torch.device | str, dtype: torch.dtype,
              kernel_precision: str = 'highest',
-             coord_transform=None, use_kernels: bool = True) -> 'StokesSEM':
+             coord_transform=None, use_kernels: bool = True,
+             unstructured_el_ops: bool = False,
+             use_assembled_ops: bool | str = 'auto') -> 'StokesSEM':
     """Builds the solver on the host and moves the step's fields.
 
     `coord_transform(refined_premesh) -> node_coords` moves the refined
@@ -220,6 +315,12 @@ class StokesSEM:
     key's hand-written kernel on CUDA tensors, within its orders (every 3D
     kernel takes order <= 9, and a launch beyond raises, naming this knob);
     False runs the key's plain version on every device, at any order.
+    Structured boxes step through the E-last element operators
+    (`fast_ops`).  Unstructured meshes step through the generic operators,
+    or in 2D with `unstructured_el_ops` through the E-last ones on
+    gather/scatter layout transforms (opt-in, as in the JAX package).
+    `use_assembled_ops` ('auto': on meshes without `fast_ops`, up to 16M
+    block entries) assembles D and D^T into element blocks.
     """
     if premesh.order != 1:
       raise ValueError(f'expected an order-1 premesh, got {premesh.order}')
@@ -247,31 +348,71 @@ class StokesSEM:
       pressure = StokesPressure(pspace=dataclasses.replace(
           pressure.pspace, invjacs=vs.invjacs, jacdets=vs.jacdets,
           quad_coords=vs.quad_coords))
-    if (velocity.mesh.structured is None
-        or pressure.pspace.mesh.structured is None):
-      raise NotImplementedError(
-          'only structured boxes are ported (unstructured meshes: '
-          'ROADMAP.md, Queue 1 item 16)')
-    if premesh.ndim == 2:
+    structured = (velocity.mesh.structured is not None
+                  and pressure.pspace.mesh.structured is not None)
+    device = torch.device(device)
+    fast_ops = None
+    if premesh.ndim == 2 and (structured or unstructured_el_ops):
       fast_ops = sem2d.build_sem2d_ops(velocity, pressure,
                                        kernel_precision=kernel_precision,
                                        use_kernels=use_kernels)
-    else:
+    elif premesh.ndim == 3 and structured:
       fast_ops = sem3d.build_sem3d_ops(velocity, pressure,
                                        use_kernels=use_kernels)
-    device = torch.device(device)
-    return cls(velocity=velocity, pressure=pressure,
-               velocity_mass_diag=velocity_mass_diag,
-               fast_ops=fast_ops.to(device, dtype), device=device,
-               dtype=dtype)
+    sem = cls(velocity=velocity, pressure=pressure,
+              velocity_mass_diag=velocity_mass_diag,
+              fast_ops=None if fast_ops is None else fast_ops.to(device,
+                                                                 dtype),
+              device=device, dtype=dtype)
+    if use_assembled_ops == 'auto':
+      entries = (premesh.num_elements
+                 * pressure.pspace.mesh.num_nodes_per_element
+                 * velocity.mesh.num_nodes_per_element * premesh.ndim)
+      use_assembled_ops = fast_ops is None and entries <= 16_000_000
+    if use_assembled_ops:
+      if fast_ops is not None:
+        raise ValueError('use_assembled_ops requires a mesh without the '
+                         'E-last fast path')
+      from swirlfem_tpu_torch.ops.assembled import build_assembled_mixed
+      sem = dataclasses.replace(sem, assembled_ops=build_assembled_mixed(sem))
+    return sem
 
   def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return vdot(a, b)
 
+  def host_copy(self) -> 'StokesSEM':
+    """This solver's generic operators on the host in float64 (the setup
+    of the dense and FFT pressure inverses applies them there)."""
+    return dataclasses.replace(self, device=torch.device('cpu'),
+                               dtype=torch.float64, fast_ops=None, cache={})
+
+  def initial_projection_state(self, k_viscous: int = 4,
+                               k_pressure: int = 8) -> 'StokesProjection':
+    """Empty Fischer solve history for the generic `stokes_one_step`.
+
+    K sizes trade memory (``2 K`` state-sized vectors per solve) against
+    guess quality; BDF time stepping saturates around 4-8 entries.
+    """
+    from swirlfem_tpu_torch.linalg.projection import ProjectionState
+    nv = self.velocity.mesh.num_nodes
+    npn = self.pressure.pspace.mesh.num_nodes
+    d = self.velocity.mesh.ndim
+    like = dict(dtype=self.dtype, device=self.device)
+    return StokesProjection(
+        viscous=ProjectionState.create(torch.zeros((nv, d), **like),
+                                       k_viscous),
+        pressure=ProjectionState.create(torch.zeros(npn, **like),
+                                        k_pressure))
+
   @property
   def _elops(self):
     """The dimension-matched element-operator module (sem2d / sem3d)."""
-    return sem3d if self.fast_ops.vinfo.ndim == 3 else sem2d
+    return sem3d if self.velocity.mesh.ndim == 3 else sem2d
+
+  @property
+  def _structured_fast(self) -> bool:
+    """Structured fast path: index-free transforms + roll exchange."""
+    return self.fast_ops is not None and self.fast_ops.vinfo is not None
 
   @property
   def _fully_periodic(self) -> bool:
@@ -307,19 +448,25 @@ class StokesSEM:
                               kinv_o=compress(ops.kinv_o))
     return dataclasses.replace(self, fast_ops=ops)
 
-  # -- nodal operators (walled fast path) -----------------------------------
+  # -- nodal operators -------------------------------------------------------
 
   @property
   def nodal(self) -> NodalTables:
-    """The walled step's nodal tables on `device`, built on first use."""
+    """The nodal steps' tables on `device`, built on first use."""
     if 'nodal' not in self.cache:
       vel = self.velocity.to(self.device, self.dtype)
+      pres = self.pressure.to(self.device, self.dtype)
       ones = torch.ones(self.velocity.mesh.elements.shape, **_HOST)
       mult = self.velocity.mesh.exchange(self.velocity.mesh.scatter(ones))
+      el_t = lambda mesh: (None if mesh.structured is not None else
+                           mesh.elements.T.contiguous())
       self.cache['nodal'] = NodalTables(
-          velocity=vel,
+          velocity=vel, pressure=pres,
           mass_diag=self.velocity_mass_diag.to(self.device, self.dtype),
-          mult=mult.to(self.device, self.dtype))
+          mult=mult.to(self.device, self.dtype),
+          assembled=(None if self.assembled_ops is None
+                     else self.assembled_ops.to(self.device, self.dtype)),
+          v_el_t=el_t(vel.mesh), p_el_t=el_t(pres.pspace.mesh))
     return self.cache['nodal']
 
   def B(self, u):
@@ -334,26 +481,141 @@ class StokesSEM:
     diag = torch.where(d > 0, 1.0 / torch.where(d > 0, d, 1.0), 0.0)
     return diag * vel.exchange(u)
 
+  def A(self, u):
+    """Velocity stiffness (row-masked), generic forms."""
+    vel = self.nodal.velocity
+    return vel.interior_mask * vel.scatter(vel.A_local(vel.gather(u)))
+
   def C(self, u):
     """Dealiased convection covector (row-masked), nodal ``(N, d)``."""
-    out = self._fast_C(tuple(u[..., i] for i in range(u.shape[-1])))
-    return self.nodal.velocity.interior_mask * torch.stack(out, dim=-1)
+    if self.fast_ops is not None:
+      out = self._fast_C(tuple(u[..., i] for i in range(u.shape[-1])))
+      return self.nodal.velocity.interior_mask * torch.stack(out, dim=-1)
+    return self.nodal.velocity.C(u)
+
+  def D_local(self, u_local):
+    """Mixed divergence form ``b(v, q) = int div(v) q`` acting on v:
+    ``(E, n^d, d) -> (E, m^d)``."""
+    vs = self.nodal.velocity.vspace
+    ps = self.nodal.pressure.pspace
+    ref = vs.interpolator.interpolate_grad(u_local.movedim(-1, 1))
+    div = torch.einsum('ekqi,eqki->eq', ref, vs.invjacs)
+    return ps.interpolator.interpolate_t(div * _weighted_jacdets(ps))
+
+  def Dt_local(self, p_local):
+    """The transposed mixed form acting on q: ``(E, m^d) -> (E, n^d, d)``."""
+    vs = self.nodal.velocity.vspace
+    ps = self.nodal.pressure.pspace
+    q = ps.interpolator.interpolate(p_local) * _weighted_jacdets(vs)
+    cov = q[:, None, :, None] * vs.invjacs.movedim(2, 1)     # (E, k, Q, i)
+    return vs.interpolator.interpolate_grad_t(cov).movedim(1, -1)
+
+  def D(self, u):
+    """Divergence: velocity -> pressure."""
+    nodal = self.nodal
+    if nodal.assembled is not None:
+      return nodal.assembled.D(nodal.velocity, nodal.pressure.pspace.mesh, u)
+    return nodal.pressure.scatter(self.D_local(nodal.velocity.gather(u)))
+
+  def Dt(self, p):
+    """Gradient (transpose of D): pressure -> velocity, row-masked."""
+    nodal = self.nodal
+    vel = nodal.velocity
+    if nodal.assembled is not None:
+      return nodal.assembled.Dt(vel, nodal.pressure.pspace.mesh,
+                                vel.interior_mask, p)
+    return vel.interior_mask * vel.scatter(
+        self.Dt_local(nodal.pressure.gather(p)))
+
+  def Q(self, u, dt, time_order: int):
+    """Q = (dt / beta_k) B^-1."""
+    beta_k = float(bdfk_coeffs(time_order)[-1])
+    return (dt / beta_k) * self.Bi(u)
+
+  def E(self, p, dt, time_order: int):
+    """Pressure Schur operator E = D Q D^T."""
+    return self.D(self.Q(self.Dt(p), dt=dt, time_order=time_order))
+
+  def filter(self, u, alpha: float = 0.05):
+    """Modal low-pass stabilization: restrict to order N-1 and back, blend;
+    averaged over every copy of a dof (periodic images too)."""
+    nodal = self.nodal
+    vel = nodal.velocity
+    if 'filter' not in self.cache:
+      grid = vel.mesh.gridpoints_1d
+      low = Nodes1D.create(num_points=grid.num_points - 1,
+                           node_type=grid.node_type)
+      self.cache['filter'] = (BarycentricInterpolator(vel.mesh.ndim, grid,
+                                                      low),
+                              BarycentricInterpolator(vel.mesh.ndim, low,
+                                                      grid))
+    down, up = self.cache['filter']
+    moved = vel.gather(u).movedim(-1, 1)                   # (E, d, n^d)
+    filtered = up.interpolate(down.interpolate(moved)).movedim(1, -1)
+    total = vel.exchange(vel.scatter(filtered))
+    mult = nodal.mult
+    averaged = total / torch.where(mult > 0, mult, 1.0)[:, None]
+    return (1.0 - alpha) * u + alpha * averaged
+
+  def _viscous_jacobi_diag(self, mu, dt, time_order: int):
+    """Assembled diag((beta_k/dt) B + mu A) on the nodes (generic path),
+    in float64 on the host, moved once per (mu, dt, time_order)."""
+    key = ('jacobi_generic', float(mu), float(dt), int(time_order))
+    if key not in self.cache:
+      vspace = self.velocity.vspace
+      gradmat = torch.as_tensor(
+          vspace.interpolator.interpolation_matrix_grad(), **_HOST)
+      weights = torch.as_tensor(
+          vspace.quadrature.weights_nd(self.velocity.mesh.ndim), **_HOST)
+      g = torch.einsum('qnd,eqjd->eqjn', gradmat, vspace.invjacs)
+      diag_a_local = torch.einsum('eqjn,eqjn,eq,q->en', g, g,
+                                  vspace.jacdets, weights)
+      beta_k = float(bdfk_coeffs(time_order)[-1])
+      mesh = self.velocity.mesh
+      diag = mesh.exchange((beta_k / dt) * self.velocity_mass_diag[..., 0]
+                           + mu * mesh.scatter(diag_a_local))
+      self.cache[key] = torch.where(diag > 0, diag, 1.0).to(self.device,
+                                                           self.dtype)
+    return self.cache[key]
+
+  def _pressure_ones(self, like):
+    """Valid-pressure-dof indicator (the constant-nullspace direction): ones
+    on an unpartitioned mesh."""
+    return torch.ones_like(like)
 
   # Layout transforms between flat nodal arrays and E-last element-local
-  # ``(q, .., q, E)`` blocks (index-free on structured boxes).  `*_cov`
+  # ``(q, .., q, E)`` blocks: index-free on structured boxes, one index of
+  # the transposed element table on unstructured meshes.  `*_cov`
   # transposes sum covector copies (direct stiffness).
 
+  def _el_shape(self, mesh):
+    return (mesh.order + 1,) * mesh.ndim + (mesh.num_elements,)
+
   def _v_el(self, u):
-    return self._elops.nodal_to_el(u, self.fast_ops.vinfo)
+    if self._structured_fast:
+      return self._elops.nodal_to_el(u, self.fast_ops.vinfo)
+    mesh = self.velocity.mesh
+    return u[self.nodal.v_el_t].reshape(self._el_shape(mesh))
 
   def _v_el_cov(self, w):
-    return self._elops.el_to_nodal(w, self.fast_ops.vinfo)
+    if self._structured_fast:
+      return self._elops.el_to_nodal(w, self.fast_ops.vinfo)
+    idx = self.nodal.v_el_t
+    return w.new_zeros(self.velocity.mesh.num_nodes).index_add_(
+        0, idx.reshape(-1), w.reshape(-1))
 
   def _p_el(self, p):
-    return self._elops.nodal_to_el(p, self.fast_ops.pinfo)
+    if self._structured_fast:
+      return self._elops.nodal_to_el(p, self.fast_ops.pinfo)
+    mesh = self.pressure.pspace.mesh
+    return p[self.nodal.p_el_t].reshape(self._el_shape(mesh))
 
   def _p_el_cov(self, w):
-    return self._elops.el_to_nodal(w, self.fast_ops.pinfo)
+    if self._structured_fast:
+      return self._elops.el_to_nodal(w, self.fast_ops.pinfo)
+    idx = self.nodal.p_el_t
+    return w.new_zeros(self.pressure.pspace.mesh.num_nodes).index_add_(
+        0, idx.reshape(-1), w.reshape(-1))
 
   def _fast_stiffness(self, ut):
     a_el = self.fast_ops.stiffness_el_multi(tuple(self._v_el(u) for u in ut))
@@ -404,42 +666,197 @@ class StokesSEM:
   def _pressure_project_out_nullspace(self, p):
     """Removes the constant (all-ones) nullspace component from p, in the
     euclidean inner product (``swirlfem_tpu/nse/solver.py:95-107``)."""
-    w = self.pressure.exchange(p)
-    q = torch.ones_like(p)
+    w = self.nodal.pressure.exchange(p)
+    q = self._pressure_ones(p)
     return w - (self.dot(q, w) / self.dot(q, q)) * q
 
   def stokes_one_step(self, us, ps, f, mu: float, dt: float, time_order: int,
                       alpha: float = 0.05, u_boundary=None,
                       pressure_preconditioner=None,
                       viscous_preconditioner=None,
+                      viscous_matvec=None, viscous_fdm=None,
                       project_out_nullspace: bool = True,
                       tol: float = 1e-8, atol: float = 0.0,
-                      maxiter: int | None = None):
+                      maxiter: int | None = None, projection_state=None):
     """Advances the (linear) Stokes system by one BDF-k step.
 
-    Fractional-step scheme (``swirlfem_tpu/nse/solver.py:784-842``):
+    Fractional-step scheme (``swirlfem_tpu/nse/solver.py:784-990``):
       1. tentative velocity: H(u*) = b with H = (beta_k/dt) B + mu A,
          b = f + D^T(p_ext) - B(sum_j beta_j u^{n-j}) / dt,
       2. filter-based stabilization of u*,
       3. pressure correction: D Q D^T (dp) = -D u*,
       4. u^{n+1} = u* + Q D^T dp;  p^{n+1} = p_ext + dp.
 
-    Velocities are nodal ``(N, d)`` tensors or component tuples (the result
-    comes back in the same form), pressures nodal ``(P,)`` tensors and `f`
-    a nodal covector (or 0), all on `device`.  `u_boundary` is a static
-    Dirichlet lift.  Only the structured fast path is ported: the
-    projection history and the element FDM of the generic path are
-    ROADMAP.md, Queue 1 items 15-16.  Both solves are differentiable
-    (`linalg.linear_solve`).
+    Velocities are nodal ``(N, d)`` tensors (on the E-last paths also
+    component tuples; the result comes back in the same form), pressures
+    nodal ``(P,)`` tensors and `f` a nodal covector (or 0), all on
+    `device`.  `u_boundary` is a static Dirichlet lift.  Both solves are
+    differentiable (`linalg.linear_solve`).
+
+    Generic path only (meshes without `fast_ops`):
+    ``viscous_matvec`` replaces the H apply inside the viscous CG (e.g.
+    `assembled_viscous_matvec`; it must equal H to rounding);
+    ``viscous_fdm`` (`ops.fdm_element.build_element_fdm(sem)`) upgrades the
+    viscous Jacobi projector to the element FDM additive Schwarz;
+    ``projection_state`` (`initial_projection_state`) starts both solves
+    from the A-optimal guess in the span of earlier increments (Fischer),
+    solving ``x = x0 + A^{-1}(b - A x0)``; the updated state comes back in
+    ``aux['projection_state']``.
     """
-    if self.fast_ops is None:
-      raise NotImplementedError(
-          'only the structured fast path is ported (ROADMAP.md, Queue 1 '
-          'item 16)')
-    return self._stokes_one_step_fast(
+    if self.fast_ops is not None:
+      if projection_state is not None:
+        raise NotImplementedError(
+            'projection_state is for the generic path; the E-last fast '
+            'path does not take it')
+      if viscous_fdm is not None:
+        raise NotImplementedError(
+            'viscous_fdm is for the generic path; the E-last fast path '
+            'does not take it')
+      return self._stokes_one_step_fast(
+          us, ps, f, mu, dt, time_order, alpha, u_boundary,
+          pressure_preconditioner, project_out_nullspace, tol, atol, maxiter,
+          viscous_preconditioner=viscous_preconditioner)
+    return self._stokes_one_step_generic(
         us, ps, f, mu, dt, time_order, alpha, u_boundary,
-        pressure_preconditioner, project_out_nullspace, tol, atol, maxiter,
-        viscous_preconditioner=viscous_preconditioner)
+        pressure_preconditioner, viscous_preconditioner, viscous_matvec,
+        viscous_fdm, project_out_nullspace, tol, atol, maxiter,
+        projection_state)
+
+  def _stokes_one_step_generic(self, us, ps, f, mu, dt, time_order, alpha,
+                               u_boundary, pressure_preconditioner,
+                               viscous_preconditioner, viscous_matvec,
+                               viscous_fdm, project_out_nullspace, tol, atol,
+                               maxiter, projection_state):
+    """The fractional step on nodal ``(N, d)`` states through the generic
+    operators (``swirlfem_tpu/nse/solver.py:843-990``)."""
+    from swirlfem_tpu_torch.linalg import projection as proj
+    vel = self.nodal.velocity
+    mask = vel.interior_mask
+    if pressure_preconditioner is None and project_out_nullspace:
+      pressure_preconditioner = self._pressure_project_out_nullspace
+    near_exact = getattr(pressure_preconditioner, 'near_exact', False)
+
+    # Linear pressure extrapolation; zeroth order with one history entry.
+    if len(ps) >= 2:
+      ext = [float(c) for c in extk_coeffs(k=1)]
+      p_ext = sum(ext[-i] * ps[-i] for i in range(1, len(ext) + 1))
+    else:
+      p_ext = ps[-1]
+    if isinstance(f, (int, float)) and f == 0:
+      f = torch.zeros_like(us[-1])
+    f = f + self.Dt(p_ext)
+
+    coeffs = [float(c) for c in bdfk_coeffs(time_order)]
+    beta_hist, beta_k = coeffs[:-1], coeffs[-1]
+
+    def H(u):
+      return (beta_k / dt) * self.B(u) + mu * self.A(u)
+
+    f = f - self.B(sum(c * u for c, u in zip(beta_hist, us)) / dt)
+    if u_boundary is not None:
+      f = f - H(u_boundary)
+
+    # Jacobi-preconditioned continuity projector M(r) = exchange(r)/diag(H)
+    # (assembled diagonal; constant across dof copies, so M is symmetric),
+    # or with `viscous_fdm` the element-local FDM additive Schwarz.
+    diag_h = self._viscous_jacobi_diag(mu, dt, time_order)
+    if viscous_fdm is not None:
+      from swirlfem_tpu_torch.ops.fdm_element import (
+          element_fdm_viscous_preconditioner)
+      m_viscous = element_fdm_viscous_preconditioner(
+          self, viscous_fdm, mu, dt, time_order)
+    else:
+      m_viscous = lambda r: vel.exchange(r) / diag_h[:, None]
+
+    # Fischer successive-rhs projection: x = x0 + H^{-1}(b - H x0) with the
+    # A-optimal x0 from the history; x0 and H x0 are detached (they change
+    # the CG path, not its limit).  The stopping test stays anchored to the
+    # ORIGINAL rhs; the relative term remains as a floor for the transpose
+    # solves, whose rhs scale is unrelated.
+    atol_v = atol
+    if projection_state is not None:
+      b_v = mask * f
+      x0v, ax0v = proj.project_guess(projection_state.viscous, b_v.detach())
+      x0v, ax0v = x0v.detach(), ax0v.detach()
+      f = f - ax0v
+      mb = vel.exchange(b_v) / diag_h[:, None]
+      sv = self.dot(b_v, mb).detach()
+      atol_v = torch.sqrt(torch.clamp(tol * tol * sv, min=atol * atol))
+
+    def vsolve(matvec, rhs):
+      if viscous_matvec is not None:
+        matvec = viscous_matvec
+      rhs = mask * rhs
+      x0 = None
+      if viscous_preconditioner is not None:
+        x0 = torch.stack([viscous_preconditioner(rhs[..., j])
+                          for j in range(rhs.shape[-1])], dim=-1)
+      return cg(matvec, rhs, x0=x0, M=m_viscous, tol=tol, atol=atol_v,
+                dot_fn=self.dot, maxiter=maxiter)
+
+    u_star, u_info = linear_solve(H, f, vsolve)
+    if projection_state is not None:
+      u_star = u_star + x0v
+      with torch.no_grad():
+        new_viscous = proj.update_history(
+            projection_state.viscous, u_star.detach(), x0v,
+            viscous_matvec if viscous_matvec is not None else H, vdot,
+            ax0=ax0v)
+    if u_boundary is not None:
+      u_star = u_star + u_boundary
+
+    u_star = self.filter(u_star, alpha=alpha)
+
+    def psolve(matvec, rhs):
+      # An assembled E (dense, block) replaces the matrix-free chain where
+      # only the operator's action is needed.
+      matvec = getattr(pressure_preconditioner, 'fast_matvec', None) or matvec
+      if project_out_nullspace:
+        ones = self._pressure_ones(rhs)
+        rhs = rhs - (self.dot(ones, rhs) / self.dot(ones, ones)) * ones
+      if near_exact:
+        return near_exact_solve(matvec, rhs, pressure_preconditioner,
+                                tol=tol, atol=atol_p, dot_fn=self.dot,
+                                maxiter=maxiter)
+      return cg(matvec, rhs, M=pressure_preconditioner, tol=tol, atol=atol_p,
+                dot_fn=self.dot, maxiter=maxiter)
+
+    e_op = lambda p: self.E(p, dt=dt, time_order=time_order)
+    b_p = -self.D(u_star)
+    atol_p = atol
+    if projection_state is not None:
+      e_matvec = (getattr(pressure_preconditioner, 'fast_matvec', None)
+                  or e_op)
+      # History entries are mean-free, so the coefficients are insensitive
+      # to b's mean; the stopping test is anchored to the projected rhs.
+      x0p, ax0p = proj.project_guess(projection_state.pressure, b_p.detach())
+      x0p, ax0p = x0p.detach(), ax0p.detach()
+      bp0 = b_p.detach()
+      if project_out_nullspace:
+        q = self._pressure_ones(bp0)
+        bp0 = bp0 - (self.dot(q, bp0) / self.dot(q, q)) * q
+      if near_exact or pressure_preconditioner is None:
+        sp = self.dot(bp0, bp0)
+      else:
+        sp = self.dot(bp0, pressure_preconditioner(bp0))
+      atol_p = torch.sqrt(torch.clamp(tol * tol * sp.detach(),
+                                      min=atol * atol))
+      b_p = b_p - ax0p
+
+    dp, p_info = linear_solve(e_op, b_p, psolve)
+    aux = {'u_star_info': u_info, 'dp_info': p_info}
+    if projection_state is not None:
+      dp = dp + x0p
+      with torch.no_grad():
+        new_pressure = proj.update_history(
+            projection_state.pressure, dp.detach(), x0p, e_matvec, vdot,
+            ax0=ax0p)
+      aux['projection_state'] = StokesProjection(viscous=new_viscous,
+                                                 pressure=new_pressure)
+
+    u = u_star + self.Q(self.Dt(dp), dt=dt, time_order=time_order)
+    p = p_ext + dp
+    return u, p, aux
 
   def _stokes_one_step_el(self, us, ps, f, mu, dt, time_order, alpha,
                           pressure_preconditioner, project_out_nullspace,
@@ -522,7 +939,7 @@ class StokesSEM:
     if u_boundary is not None:
       u_boundary = tup(u_boundary)
 
-    if u_boundary is None and self._fully_periodic:
+    if u_boundary is None and self._structured_fast and self._fully_periodic:
       return self._stokes_one_step_el(
           us, ps, f, mu, dt, time_order, alpha, pressure_preconditioner,
           project_out_nullspace, tol, atol, maxiter, as_tuple_input,
@@ -587,7 +1004,10 @@ class StokesSEM:
 
     def psolve(matvec, rhs):
       # Enclosed flow: E is singular with a constant nullspace; project the
-      # rhs onto range(E).
+      # rhs onto range(E).  With outflow E is nonsingular and projecting
+      # would corrupt dp.  An assembled E (the dense inverse's) replaces
+      # the element-operator chain where only its action is needed.
+      matvec = getattr(pressure_preconditioner, 'fast_matvec', None) or matvec
       if project_out_nullspace:
         ones = torch.ones_like(rhs)
         rhs = rhs - (self.dot(ones, rhs) / self.dot(ones, ones)) * ones
@@ -640,18 +1060,79 @@ class StokesSEM:
 
     return precondition
 
-  def best_pressure_preconditioner(self, dt, time_order: int):
-    """The strongest pressure preconditioner ported for this geometry.
+  def fft_pressure_preconditioner(self, dt, time_order: int):
+    """Near-exact block-FFT pressure inverse for uniform periodic 2D boxes.
 
-    Separable boxes get the exact FDM inverse.  The JAX package falls back
-    to the block-FFT and the dense Schur inverses elsewhere; those are not
-    ported (ROADMAP.md, Queue 1 item 16), so this raises there.
+    Returns the inverse composed with the nullspace projection (pressure CG
+    in O(1) iterations), or None when the mesh is not a uniform
+    fully-periodic structured 2D box.  See ops.fft_pressure.
     """
+    from swirlfem_tpu_torch.ops.fft_pressure import (
+        build_fft_pressure_solver, is_uniform_periodic)
+    if not is_uniform_periodic(self):
+      return None
+    solve = build_fft_pressure_solver(self, dt, time_order)
+
+    def precondition(p):
+      w = solve(p)
+      ones = torch.ones_like(w)
+      return w - (self.dot(ones, w) / self.dot(ones, ones)) * ones
+
+    precondition.jacobi_diag_el = solve.jacobi_diag_el
+    precondition.near_exact = True
+    return precondition
+
+  def dense_pressure_preconditioner(self, dt, time_order: int,
+                                    max_dofs: int = 20000):
+    """Exact dense Schur inverse for small (unstructured) meshes.
+
+    Assembles E in float64 on the host and pseudo-inverts it; applied as
+    one dense product on the device.  None above `max_dofs` pressure dofs.
+    Where E is nonsingular (outflow present) the result is the inverse
+    itself and callers pass ``project_out_nullspace=False``; where the
+    constant pressure is null it is composed with the projection.  See
+    ops.dense_schur.
+    """
+    from swirlfem_tpu_torch.ops.dense_schur import build_dense_pressure_solver
+    solve = build_dense_pressure_solver(self, dt, time_order,
+                                        max_dofs=max_dofs)
+    if solve is None:
+      return None
+    solve.near_exact = True
+    if not solve.has_nullspace:
+      return solve
+
+    def precondition(p):
+      w = solve(p)
+      ones = torch.ones_like(w)
+      return w - (self.dot(ones, w) / self.dot(ones, ones)) * ones
+
+    precondition.has_nullspace = True
+    precondition.near_exact = True
+    precondition.fast_matvec = solve.fast_matvec
+    precondition.assembly_seconds = solve.assembly_seconds
+    return precondition
+
+  def assembled_viscous_matvec(self, mu, dt, time_order: int):
+    """Assembled element-block H apply for the viscous CG (generic path):
+    one ``(E, n^d, n^d)`` batched product between a gather and a scatter,
+    equal to ``mask ((beta_k/dt) B + mu A)`` to rounding.  Pass as
+    ``stokes_one_step(viscous_matvec=...)``.  See ops.assembled."""
+    from swirlfem_tpu_torch.ops.assembled import build_helmholtz_matvec
+    return build_helmholtz_matvec(self, mu, dt, time_order)
+
+  def best_pressure_preconditioner(self, dt, time_order: int):
+    """The strongest pressure preconditioner available for this geometry,
+    as the JAX package chooses it: the exact FDM inverse on separable
+    boxes, else the block-FFT one on uniform periodic 2D boxes, else the
+    dense Schur inverse up to its size limit, else None (projected CG).
+    Unstructured meshes beyond the dense range need the two-level Schwarz
+    preconditioner, not ported yet (ROADMAP.md, Queue 1 item 22)."""
     precond = self.fdm_pressure_preconditioner(dt, time_order)
     if precond is None:
-      raise NotImplementedError(
-          'only the FDM pressure inverse of separable boxes is ported; the '
-          'FFT and dense fallbacks are ROADMAP.md, Queue 1 item 16')
+      precond = self.fft_pressure_preconditioner(dt, time_order)
+    if precond is None:
+      precond = self.dense_pressure_preconditioner(dt, time_order)
     return precond
 
   def stokes_one_step_el(self, us_el, ps_el, f_el, *, mu, dt,
@@ -668,10 +1149,10 @@ class StokesSEM:
     tensors, pressures ``(m,)*d + (n,)*d`` tensors, all on `device`.  Returns
     ``(u_el, p_el, aux)``.
     """
-    if not self._fully_periodic:
+    if not (self._structured_fast and self._fully_periodic):
       raise NotImplementedError(
           'the el-form step runs on fully periodic boxes only; walled boxes '
-          'take the nodal step, `stokes_one_step`')
+          'and unstructured meshes take the nodal step, `stokes_one_step`')
     vinfo = self.fast_ops.vinfo
     eshape = (vinfo.num_elements_per_dim,) * vinfo.ndim
     return stokes_step_el(

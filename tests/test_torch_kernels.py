@@ -1180,3 +1180,27 @@ def test_training_step_gradient_on_card_matches_cpu(device):
     out.append(g.cpu())
   err = float((out[0] - out[1]).abs().max() / out[1].abs().max())
   assert float(out[1].abs().max()) > 0 and err <= 1e-9, err
+
+
+@pytest.mark.parametrize('order,mesh,num_e', [
+    (3, dict(ns=4, nr=3, nx_down=10), 122), (5, {}, 228)])
+def test_stiffness2d_general_on_the_cylinder(device, order, mesh, num_e):
+  """Row 3 at the cylinder's ragged element counts (E = 122 at k = 4,
+  E = 228 at k = 6: not whole tiles) on the curved channel's own factor
+  fields, against its plain version and the float64 operator; then the
+  E-last cylinder path's stiffness apply launches it."""
+  from swirlfem_tpu_torch.examples import cylinder as cyl
+  sem = cyl.make_cylinder_sem(order, **mesh, device=device,
+                              unstructured_el_ops=True)
+  ops = sem.fast_ops
+  assert ops.stiffness_key[0] == 'general' and ops.vinfo is None
+  assert sem.velocity.mesh.num_elements == num_e
+  k = order + 1
+  us = tuple(kernel_checks.random_field((k, k, num_e), dtype=torch.float32,
+                                        device=device, seed=s) for s in (1, 2))
+  result = kernel_checks.check_stiffness2d_general(ops, us)
+  assert result['rel_err_f64'] <= kernel_checks.STIFFNESS_REL_TOL, result
+  before = cuda_stiffness2d.stiffness2d_general.launches
+  u = torch.randn((sem.velocity.mesh.num_nodes, 2), device=device)
+  sem._fast_stiffness(tuple(u.unbind(-1)))  # pylint: disable=protected-access
+  assert cuda_stiffness2d.stiffness2d_general.launches == before + 1

@@ -21,10 +21,13 @@ MODULES = [
     'swirlfem_tpu_torch.core.tensor',
     'swirlfem_tpu_torch.core.topology',
     'swirlfem_tpu_torch.examples.cavity',
+    'swirlfem_tpu_torch.examples.cylinder',
     'swirlfem_tpu_torch.examples.natural_convection',
+    'swirlfem_tpu_torch.examples.poisson',
     'swirlfem_tpu_torch.examples.taylor_green_3d',
     'swirlfem_tpu_torch.linalg.cg',
     'swirlfem_tpu_torch.linalg.linear_solve',
+    'swirlfem_tpu_torch.linalg.projection',
     'swirlfem_tpu_torch.models.transformer',
     'swirlfem_tpu_torch.niles.coarsen',
     'swirlfem_tpu_torch.niles.config',
@@ -36,20 +39,26 @@ MODULES = [
     'swirlfem_tpu_torch.niles.train',
     'swirlfem_tpu_torch.nse.scalar',
     'swirlfem_tpu_torch.nse.solver',
+    'swirlfem_tpu_torch.ops.assembled',
     'swirlfem_tpu_torch.ops.cuda_build',
     'swirlfem_tpu_torch.ops.cuda_exchange',
     'swirlfem_tpu_torch.ops.cuda_split',
     'swirlfem_tpu_torch.ops.cuda_stiffness',
     'swirlfem_tpu_torch.ops.cuda_stiffness2d',
     'swirlfem_tpu_torch.ops.cuda_stiffness3d',
+    'swirlfem_tpu_torch.ops.dense_schur',
+    'swirlfem_tpu_torch.ops.fdm_element',
     'swirlfem_tpu_torch.ops.fdm_pressure',
+    'swirlfem_tpu_torch.ops.fft_pressure',
     'swirlfem_tpu_torch.ops.kernel_checks',
     'swirlfem_tpu_torch.ops.sem2d',
     'swirlfem_tpu_torch.ops.sem3d',
     'swirlfem_tpu_torch.sde.nn_sde',
     'swirlfem_tpu_torch.sde.sdeint',
     'swirlfem_tpu_torch.utils.box',
+    'swirlfem_tpu_torch.utils.cylinder',
     'swirlfem_tpu_torch.utils.facets',
+    'swirlfem_tpu_torch.utils.gmsh',
 ]
 
 CHECK = """

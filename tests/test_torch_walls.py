@@ -226,5 +226,14 @@ def test_best_pressure_preconditioner_needs_a_separable_box():
   sem = StokesSEM.create(pm, {'boundary': (BCType.DIRICHLET, 0.0)}, order=3,
                          device='cpu', dtype=torch.float64)
   assert sem.fdm_viscous_preconditioner(MU, DT, 2) is None
-  with pytest.raises(NotImplementedError, match='Queue 1 item 16'):
-    sem.best_pressure_preconditioner(DT, 2)
+  # Off separable boxes the chain falls through FDM and FFT to the dense
+  # Schur inverse (enclosed flow: composed with the nullspace projection).
+  assert sem.fdm_pressure_preconditioner(DT, 2) is None
+  assert sem.fft_pressure_preconditioner(DT, 2) is None
+  precond = sem.best_pressure_preconditioner(DT, 2)
+  assert precond.near_exact and precond.has_nullspace
+  r = torch.as_tensor(np.random.default_rng(0).standard_normal(
+      sem.pressure.pspace.mesh.num_nodes))
+  r = r - r.mean()
+  assert float((sem.E(precond(r), DT, 2) - r).abs().max()) <= (
+      1e-8 * float(r.abs().max()))
