@@ -119,7 +119,7 @@ datagen cycle's frames.  Phases:
      the card (loss within 1e-5; gradient within 1e-4 in float64 and 3e-4
      in the training's float32; a missing or zero gradient fails);
  30. NiLES training at the full default configuration (the model under
-     bf16 autocast, the solver float32): 5 train steps at batch 16 on
+     bf16 autocast, the solver float32): 3 train steps at batch 16 on
      windows of those frames, each step's loss, CG telemetry, host-clock
      time and row 1 and 2 launches, one more step under `torch.profiler`
      (the device's busy share), then one eval at batch 4 with its rollout
@@ -149,10 +149,23 @@ datagen cycle's frames.  Phases:
      generic path against itself reads up to 2.0e-3);
  35. 20 steps of the small cylinder (122 elements, order 3) on the card in
      float32 against the CPU plain path in float64, on both paths
-     (velocities within 3e-4, pressures 5e-3: up to 1.2e-4 and 1.5e-3
-     over 12 runs; the JAX package's own float32 run reads 1.7e-4 and
+     (velocities within 2e-4, pressures 1e-3: every run reads up to 6.4e-5
+     and 3.1e-4; the JAX package's own float32 run reads 1.7e-4 and
      4.5e-4 there);
-     `solve_poisson` on the card against the exact solution.
+     `solve_poisson` on the card against the exact solution;
+ 36. the scatters add in a fixed order: phase 35's card steps run again
+     and give bitwise the same u and p on both paths; on the JAX package's
+     large cylinder (912 elements, order 6) the velocity scatters, the
+     E-last sum and the Schwarz apply each repeat 20 times bitwise;
+ 37. the two-level Schwarz pressure preconditioner on that cylinder
+     (22,800 pressure dofs, past the dense inverse; dt at CFL 0.65, Re
+     100, BDF2, tol 1e-5, float32): its set-up (colours, probe applies,
+     seconds, block memory), 210 steps on the E-last path (row 3 on every
+     viscous matvec, counted), on the generic path with the Fischer
+     history and without it (host clock over steps 11-200, profiler over
+     201-210; pressure CG iterations gated from the fifth step on), the
+     E-last against the generic path with the same solves, and three steps
+     from the E-last run's state with Schwarz against plain CG.
 
 Each kernel's count is set to 0 just before the path that launches it and
 read just after.  Every kernel's bound is the larger of its bytes (each
@@ -233,6 +246,12 @@ def to_device(state, device):
 # plain version of many launches would overflow the launch queue while the
 # device is held back.
 PLAIN_CALLS = 4
+# Phase 37's gates: the pressure CG iterations a step from the fifth step
+# on, the E-last against the generic path (u, p) and Schwarz against plain
+# CG after three steps (u, p), each about 3x the largest reading.
+SCHWARZ_PRESSURE_ITERATIONS = 70
+SCHWARZ_EL_GENERIC = (3e-4, 2e-2)
+SCHWARZ_VS_PLAIN = (1e-5, 2.5e-2)
 
 
 def time_kernels(timed, times, kernel_checks, device, tag) -> None:
@@ -1617,7 +1636,7 @@ def run_training_phases(torch, device, kernel_checks, frames) -> dict:
 
   # -- 30. training at the full default configuration ----------------------
   cfg.batch_size = 16
-  steps_run, eval_steps = 5, 16
+  steps_run, eval_steps = 3, 16
   torch.manual_seed(cfg.seed)
   model = train.create_model(cfg).to(device)
   state = train.create_train_state(model, cfg)
@@ -1972,24 +1991,23 @@ def run_cylinder_phases(torch, device, kernel_checks, times, launches,
                                  dtype=torch.float64,
                                  unstructured_el_ops=True)
   card = cyl.make_cylinder_sem(3, **small, device=device, dtype=dtype)
+  small_runs = {}
   for name, a, b, kw in (('generic', card, cpu, {}),
                          ('el', small_el, cpu_el,
                           dict(use_projection=False))):
     outs = []
     for s in (a, b):
-      outs.append(cyl.run_cylinder_scan(
-          s, dt=5e-4, num_steps=20, steps_per_dispatch=10, kick_steps=10,
-          tol=1e-6, **kw))
+      outs.append(small_cylinder_steps(cyl, s, **kw))
+    small_runs[name] = (a, kw, outs[0])
     du = rel_err(outs[0][0], outs[1][0])
     dp = rel_err(outs[0][1], outs[1][1])
     log(f'[35] small cylinder {name} path, 20 steps card f32 vs CPU f64: '
         f'u rel {du:.3e}, p rel {dp:.3e}')
-    # About 3x the largest readings over 12 runs a path on the card
-    # (PERF.md section 6): u 1.2e-4, p 1.5e-3 (p from 7.8e-5 up: the first
-    # pressure solves of the impulsive start sit on float32's rounding
-    # floor, and the scatters add in no fixed order).  The JAX package's
-    # own float32 run is 1.7e-4 (u) and 4.5e-4 (p) from its float64 run.
-    require(du <= 3e-4 and dp <= 5e-3, (name, du, dp))
+    # About 3x the readings (PERF.md section 6): the scatters add in a
+    # fixed order, and 12 card runs a path read one value, u 6.4e-5 and p
+    # 3.1e-4 at most.  The JAX package's own float32 run is 1.7e-4 (u) and
+    # 4.5e-4 (p) from its float64 run.
+    require(du <= 2e-4 and dp <= 1e-3, (name, du, dp))
   for p_dtype, gate in ((torch.float64, 1e-8), (torch.float32, 1e-4)):
     pm = refine_premesh(unit_cube_mesh(8, ndim=2), Nodes1D.create(
         7, NodeType.GAUSS_LOBATTO_LEGENDRE))
@@ -2004,6 +2022,211 @@ def run_cylinder_phases(torch, device, kernel_checks, times, launches,
     log(f'[35] solve_poisson on the card, 8x8 order 6, {p_dtype}: max error '
         f'against the exact sine {err:.3e} (gate {gate:g})')
     require(err <= gate, (p_dtype, err))
+  return small_runs
+
+
+def small_cylinder_steps(cyl, sem, **kw):
+  """Phase 35's run: 20 steps of the small cylinder from the impulsive
+  start."""
+  return cyl.run_cylinder_scan(sem, dt=5e-4, num_steps=20,
+                               steps_per_dispatch=10, kick_steps=10,
+                               tol=1e-6, **kw)
+
+
+def run_schwarz_phases(torch, device, kernel_checks, times, launches,
+                       small_runs, *, order: int = 6, mesh=None,
+                       num_steps: int = 200, repeats: int = 20) -> dict:
+  """Phases 36-37: the fixed-order scatters' repeatability on the card and
+  the two-level Schwarz pressure preconditioner on the JAX package's large
+  cylinder (912 elements, order 6, 22,800 pressure dofs; dt at CFL 0.65,
+  Re 100, BDF2, tol 1e-5, float32).  Returns the phase's readings;
+  `times['stiffness2d_general']` gets row 3's timings at that cylinder's
+  shape and `launches['stiffness2d_general_schwarz']` its launches on the
+  E-last path there."""
+  import numpy as np
+  from swirlfem_tpu_torch.examples import cylinder as cyl
+  from swirlfem_tpu_torch.niles.profile_datagen import StepProfiler
+  from swirlfem_tpu_torch.ops import cuda_stiffness2d
+  mesh = cyl.LARGE if mesh is None else mesh
+  dtype = torch.float32
+  general = cuda_stiffness2d.stiffness2d_general
+  out = {}
+
+  # -- 36. determinism -------------------------------------------------------
+  t0 = time.perf_counter()
+  sem = cyl.make_cylinder_sem(order, **mesh, device=device, dtype=dtype)
+  sem_el = cyl.make_cylinder_sem(order, **mesh, device=device, dtype=dtype,
+                                 unstructured_el_ops=True)
+  dt = cyl.cfl_dt(sem, 0.65)
+  build_s = time.perf_counter() - t0
+  vmesh, pmesh = sem.velocity.mesh, sem.pressure.pspace.mesh
+  log(f'[36] large cylinder: {vmesh.num_elements} elements, order {order}, '
+      f'{vmesh.num_nodes} velocity / {pmesh.num_nodes} pressure nodes, dt '
+      f'{dt:.4e} (CFL 0.65); both solvers built in {build_s:.2f} s')
+  for name, (s, kw, first) in small_runs.items():
+    again = small_cylinder_steps(cyl, s, **kw)
+    same = torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+    log(f'[36] small cylinder {name} path, 20 steps twice on the card: '
+        f'u and p bitwise equal {same} (u rel {rel_err(again[0], first[0]):.3e}'
+        f', p rel {rel_err(again[1], first[1]):.3e})')
+    require(same, f'phase 35\'s {name} steps are not repeatable')
+  vel, vel_el = sem.nodal.velocity, sem_el.nodal.velocity
+  gen = torch.Generator(device=device).manual_seed(36)
+  rand = lambda *shape: torch.randn(shape, generator=gen, device=device,
+                                    dtype=dtype)
+  num_e, nper = tuple(vel.mesh.elements.shape)
+  w1, w2 = rand(num_e, nper), rand(num_e, nper, 2)
+  w_el = rand(*tuple(sem_el.nodal.v_el_t.shape))
+  scatters = {
+      'velocity mesh scatter': lambda: vel.mesh.scatter(w1),
+      'velocity scatter (2 components)': lambda: vel.scatter(w2),
+      'E-last velocity sum': lambda: sem_el._v_el_cov(w_el),  # pylint: disable=protected-access
+  }
+  for name, fn in scatters.items():
+    first = fn()
+    same = all(torch.equal(fn(), first) for _ in range(repeats))
+    log(f'[36] {name} on the large mesh, {repeats} repeats: bitwise equal '
+        f'{same}')
+    require(same, name)
+
+  # -- 37. the Schwarz preconditioner on the large cylinder -----------------
+  # Row 3 at this cylinder's shape, (7, 7, 912) x 2 at order 6.
+  ops = sem_el.fast_ops
+  k, num_el = ops.wmass.shape[0], ops.wmass.shape[-1]
+  us = tuple(kernel_checks.random_field((k, k, num_el), dtype=dtype,
+                                        device=device, seed=s)
+             for s in (3, 4))
+  check = kernel_checks.check_stiffness2d_general(ops, us)
+  log(f'[37] stiffness2d_general on the large cylinder, k={k} E={num_el}, '
+      f'C = 2: {check}')
+  require(check['rel_err_f64'] <= kernel_checks.STIFFNESS_REL_TOL, check)
+  gs, dmat = (ops.g11, ops.g12, ops.g22), ops.mats['dmat']
+  row3_t = {
+      'ms': kernel_checks.time_ms(
+          lambda: ops.stiffness_el_multi(us), device=device),
+      'plain_ms': kernel_checks.time_ms(
+          lambda: cuda_stiffness2d.stiffness2d_general_plain(us, gs, dmat),
+          device=device, calls=PLAIN_CALLS),
+      'library_ms': kernel_checks.time_ms(
+          kernel_checks.library_general(us, gs, dmat), device=device)}
+  flops, nbytes = cuda_stiffness2d.stiffness2d_counts(
+      k - 1, num_el, len(us), affine=False, dtype_bytes=4)
+  row3_t.update(kernel_checks.bound(flops, nbytes))
+  log(f'[37] stiffness2d_general at the large cylinder\'s shape '
+      f'{tuple(us[0].shape)} x 2: {row3_t["ms"] * 1e3:.2f} us (plain '
+      f'{row3_t["plain_ms"] * 1e3:.2f}, library '
+      f'{row3_t["library_ms"] * 1e3:.2f}, bound '
+      f'{row3_t["bound_ms"] * 1e3:.3f} us, {row3_t["bound_by"]})')
+  times['stiffness2d_general'].update(
+      {f'schwarz_cylinder_{key}': val for key, val in row3_t.items()})
+  times['stiffness2d_general']['schwarz_cylinder_max_abs_err'] = (
+      check['max_abs_err'])
+
+  precond = cyl.schwarz_preconditioner(sem, dt, **mesh)
+  out.update(setup_s=precond.setup_seconds, colors=precond.colors,
+             probe_applies=precond.probe_applies, coarse=precond.coarse,
+             coarse_dofs=precond.coarse_dofs, overlap=precond.overlap,
+             block_mb=precond.block_bytes / 2 ** 20)
+  log(f'[37] Schwarz set-up {precond.setup_seconds:.2f} s (float64 probing '
+      f'on the host): {precond.colors} distance-2 colours, '
+      f'{precond.probe_applies} probe applies of E, overlap '
+      f'{precond.overlap}, coarse {precond.coarse} ({precond.coarse_dofs} '
+      f'dofs), local blocks {out["block_mb"]:.1f} MiB on the card; '
+      f'nullspace {precond.has_nullspace}')
+  require(not precond.has_nullspace and precond.coarse == 'p1dg',
+          (precond.has_nullspace, precond.coarse))
+  r = rand(pmesh.num_nodes)
+  first = precond(r)
+  same = all(torch.equal(precond(r), first) for _ in range(repeats))
+  log(f'[36] Schwarz apply (its overlap and scatter sums) on the large mesh, '
+      f'{repeats} repeats: bitwise equal {same}')
+  require(same, 'the Schwarz apply is not repeatable')
+
+  chunk, total = 10, num_steps + 10
+  runs, start_steps = {}, 4
+  for name, s, kw in (('el', sem_el, dict(use_projection=False)),
+                      ('generic', sem, {}),
+                      ('generic, no history', sem,
+                       dict(use_projection=False))):
+    marks, window, prof = {}, None, {}
+    if name != 'generic, no history':
+      window = StepProfiler(chunk, device, rows=8)
+
+    def on_chunk(done, marks=marks, window=window, prof=prof):
+      if done in (chunk, num_steps):
+        torch.cuda.synchronize(device)
+        marks[done] = time.perf_counter()
+      if window is not None and done == num_steps:
+        window.start()
+      elif window is not None and done == total:
+        prof['window'] = window.stop()
+
+    general.launches = 0
+    tele = {}
+    u, p, trace = cyl.run_cylinder_scan(
+        s, dt=dt, num_steps=total, steps_per_dispatch=chunk,
+        pressure_preconditioner=precond, telemetry=tele, on_chunk=on_chunk,
+        kick_steps=30000, **kw)
+    torch.cuda.synchronize(device)
+    row3 = general.launches
+    ms = (marks[num_steps] - marks[chunk]) / (num_steps - chunk) * 1e3
+    vi, pi = tele['viscous_iterations'], tele['pressure_iterations']
+    reading = dict(ms_per_step=ms, viscous_mean=float(np.mean(vi)),
+                   viscous_max=int(max(vi)), pressure_first=pi[:start_steps],
+                   pressure_mean=float(np.mean(pi[start_steps:])),
+                   pressure_max=int(max(pi[start_steps:])),
+                   row3_per_step=row3 / total)
+    if prof.get('window') is not None:
+      reading.update(launches_per_step=prof['window']['launches_per_step'],
+                     busy_share=prof['window']['busy_share'])
+    runs[name] = (u, p, tele)
+    out[name] = reading
+    log(f'[37] large cylinder {name}: {total} steps, {ms:.3f} ms/step (host '
+        f'clock, steps {chunk + 1}-{num_steps}), viscous CG mean '
+        f'{reading["viscous_mean"]:.2f} max {reading["viscous_max"]}, '
+        f'pressure CG first steps {pi[:start_steps]}, then mean '
+        f'{reading["pressure_mean"]:.2f} max {reading["pressure_max"]}; row '
+        f'3 {reading["row3_per_step"]:.2f} launches a step; probe '
+        f'{trace[-1]:+.5f}')
+    if 'launches_per_step' in reading:
+      log(f'[37] large cylinder {name}: '
+          f'{reading["launches_per_step"]:.1f} launches a step, device busy '
+          f'{100 * reading["busy_share"]:.1f} % (steps {num_steps + 1}-'
+          f'{total}, profiled)')
+    require(all_finite((u, p)), name)
+    # About 3x the largest reading from the fifth step on.
+    require(reading['pressure_max'] <= SCHWARZ_PRESSURE_ITERATIONS,
+            (name, pi[:start_steps + 3], reading['pressure_max']))
+    if name == 'el':
+      launches['stiffness2d_general_schwarz'] = row3
+      require(row3 >= sum(vi) + 2 * total, 'a viscous matvec ran without '
+              'row 3')
+  du = rel_err(runs['el'][0], runs['generic, no history'][0])
+  dp = rel_err(runs['el'][1], runs['generic, no history'][1])
+  out.update(el_vs_generic_u=du, el_vs_generic_p=dp)
+  log(f'[37] E-last vs generic path, the same solves (no history), both with '
+      f'Schwarz: u rel {du:.3e}, p rel {dp:.3e}')
+  require(du <= SCHWARZ_EL_GENERIC[0] and dp <= SCHWARZ_EL_GENERIC[1],
+          (du, dp))
+
+  # Three steps from the E-last run's state, with Schwarz and with plain
+  # (projection-free) CG.
+  hist = runs['el'][2]['history']
+  with_schwarz = cyl.continue_cylinder(sem_el, hist, 3, dt=dt,
+                                       pressure_preconditioner=precond)
+  plain = cyl.continue_cylinder(sem_el, hist, 3, dt=dt, maxiter=5000)
+  du = rel_err(with_schwarz[0], plain[0])
+  dp = rel_err(with_schwarz[1], plain[1])
+  out.update(plain_iterations=plain[2], schwarz_iterations=with_schwarz[2],
+             schwarz_vs_plain_u=du, schwarz_vs_plain_p=dp)
+  log(f'[37] 3 steps from the E-last state: pressure CG with Schwarz '
+      f'{with_schwarz[2]}, plain CG {plain[2]}; Schwarz vs plain u rel '
+      f'{du:.3e}, p rel {dp:.3e}')
+  require(max(plain[2]) < 5000, ('plain CG hit its cap', plain[2]))
+  require(du <= SCHWARZ_VS_PLAIN[0] and dp <= SCHWARZ_VS_PLAIN[1], (du, dp))
+  require(5 * sum(with_schwarz[2]) <= sum(plain[2]),
+          (with_schwarz[2], plain[2]))
+  return out
 
 
 def run_knob_phase(torch, device, dtype) -> None:
@@ -2252,7 +2475,10 @@ def main() -> int:
   run_knob_phase(torch, device, dtype)
   training = run_training_phases(torch, device, kernel_checks, frames)
   run_tiny_train_phase(torch, device)
-  run_cylinder_phases(torch, device, kernel_checks, times, launches)
+  small_runs = run_cylinder_phases(torch, device, kernel_checks, times,
+                                   launches)
+  schwarz = run_schwarz_phases(torch, device, kernel_checks, times, launches,
+                               small_runs)
 
   kernels = [
       {'name': 'exchange2d', 'route': 'cuda',
@@ -2273,6 +2499,8 @@ def main() -> int:
        'replaces': 'swirlfem_tpu/ops/pallas_stiffness.py:165',
        'launches': launches['stiffness2d_general'],
        'cylinder_launches': launches['stiffness2d_general_cylinder'],
+       'schwarz_cylinder_launches': launches['stiffness2d_general_schwarz'],
+       'schwarz_cylinder_launches_per_step': schwarz['el']['row3_per_step'],
        **times['stiffness2d_general']},
       {'name': 'stiffness2d_affine', 'route': 'cuda',
        'source': 'swirlfem_tpu_torch/csrc/stiffness2d_affine.cu',

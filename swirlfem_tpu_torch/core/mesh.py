@@ -40,9 +40,10 @@ class Mesh:
     exchange_gather_indices: positions of shared nodes (see
       `topology.exchange`), or None.
     exchange_unique_indices: gathered position -> shared-dof slot, or None.
-    exchange_num_unique: number of shared-dof slots (kept on the host, so
-      that an exchange on a CUDA device reads nothing back).
     structured: `StructuredInfo` of a structured box, or None.
+    scatter_table: `topology.ScatterTable` of `elements` (unstructured
+      meshes; None on structured boxes, which scatter by reshapes).
+    exchange_table: `topology.ScatterTable` of the shared-dof sums, or None.
   """
 
   node_coords: torch.Tensor
@@ -54,8 +55,9 @@ class Mesh:
       default_factory=dict)
   exchange_gather_indices: torch.Tensor | None = None
   exchange_unique_indices: torch.Tensor | None = None
-  exchange_num_unique: int = 0
   structured: object | None = None
+  scatter_table: topology.ScatterTable | None = None
+  exchange_table: topology.ScatterTable | None = None
 
   @classmethod
   def create(cls, node_coords, elements, node_indices=None, gridpoints_1d=None,
@@ -80,6 +82,9 @@ class Mesh:
       return (None if a is None else
               torch.as_tensor(np.asarray(a), dtype=torch.int64, device=device))
 
+    num_unique = (0 if exchange_unique_indices is None
+                  or np.size(exchange_unique_indices) == 0
+                  else int(np.max(exchange_unique_indices)) + 1)
     return cls(
         node_coords=node_coords,
         elements=index(elements),
@@ -90,11 +95,13 @@ class Mesh:
                         for k, v in (physical_masks or {}).items()},
         exchange_gather_indices=index(exchange_gather_indices),
         exchange_unique_indices=index(exchange_unique_indices),
-        exchange_num_unique=(
-            0 if exchange_unique_indices is None
-            or np.size(exchange_unique_indices) == 0
-            else int(np.max(exchange_unique_indices)) + 1),
-        structured=structured)
+        structured=structured,
+        scatter_table=(None if structured is not None else
+                       topology.ScatterTable.build(
+                           np.asarray(elements), num_nodes, device=device)),
+        exchange_table=(None if not num_unique else topology.exchange_table(
+            exchange_gather_indices, exchange_unique_indices, num_unique,
+            device=device)))
 
   def to(self, device, dtype: torch.dtype) -> 'Mesh':
     """Copy on `device`: coordinates in `dtype`, index tables as int64."""
@@ -104,7 +111,9 @@ class Mesh:
         elements=move(self.elements), node_indices=move(self.node_indices),
         physical_masks={k: move(v) for k, v in self.physical_masks.items()},
         exchange_gather_indices=move(self.exchange_gather_indices),
-        exchange_unique_indices=move(self.exchange_unique_indices))
+        exchange_unique_indices=move(self.exchange_unique_indices),
+        scatter_table=move(self.scatter_table),
+        exchange_table=move(self.exchange_table))
 
   @property
   def ndim(self) -> int:
@@ -137,7 +146,7 @@ class Mesh:
     if self.structured is not None:
       from swirlfem_tpu_torch.core import structured as _structured
       return _structured.structured_scatter(u_local, self.structured)
-    return topology.scatter(u_local, self.elements, num_nodes=self.num_nodes)
+    return topology.scatter(u_local, self.elements, self.scatter_table)
 
   def element_coords(self) -> torch.Tensor:
     """Node coordinates arranged per element: ``(E, nodes_per_element, d)``."""
@@ -147,5 +156,4 @@ class Mesh:
   def exchange(self, u: torch.Tensor) -> torch.Tensor:
     """Applies Q Q^T: sums all copies of each shared degree of freedom."""
     return topology.exchange(u, self.exchange_gather_indices,
-                             self.exchange_unique_indices,
-                             self.exchange_num_unique)
+                             self.exchange_unique_indices, self.exchange_table)

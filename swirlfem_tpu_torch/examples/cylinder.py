@@ -8,12 +8,21 @@ programmatic O-grid mesh (utils.cylinder), the blended circle snap, the
 Dirichlet lift, the do-nothing outflow, the generic operators with the
 assembled divergence (or, with ``unstructured_el_ops=True``, the E-last
 element operators and their general stiffness kernel), the dense Schur
-pressure inverse and the Fischer solve history.
+pressure inverse or, past its range, the two-level Schwarz preconditioner
+(`schwarz_preconditioner`), and the Fischer solve history.
 
 Usage (the card unless ``--device cpu``)::
 
   python -m swirlfem_tpu_torch.examples.cylinder --num-steps 40000 \
       --max-seconds 1080 --out cylinder.json
+
+The JAX package's large mesh (``experiments/large_cylinder_campaign.py``:
+912 elements, order 6, 22,800 pressure dofs, dt at CFL 0.65, the two-level
+Schwarz preconditioner)::
+
+  python -m swirlfem_tpu_torch.examples.cylinder --order 6 --ns 12 --nr 8 \
+      --nx-up 2 --nx-down 28 --ny-low 2 --ny-high 2 --cfl 0.65 \
+      --pressure-precond schwarz --kick-steps 30000 --out large.json
 """
 
 from __future__ import annotations
@@ -40,24 +49,50 @@ HEIGHT = 0.41
 MEAN_VELOCITY = 1.0  # Re = U * D / nu = 100 at nu = 1e-3
 
 
+# 'outflow' unmasked: natural (do-nothing) outflow.
+BOUNDARY_CONDITIONS = {
+    'cylinder': (BCType.DIRICHLET, 0.0),
+    'walls': (BCType.DIRICHLET, 0.0),
+    'inflow': (BCType.DIRICHLET, 0.0),
+}
+# The JAX package's large mesh (``experiments/large_cylinder_campaign.py``):
+# 912 elements; at order 6, 22,800 pressure dofs, past the dense inverse.
+LARGE = dict(ns=12, nr=8, nx_up=2, nx_down=28, ny_low=2, ny_high=2)
+
+
 def make_cylinder_sem(order: int = 5, ns: int = 6, nr: int = 4,
-                      nx_down: int = 14, *, device='cuda',
+                      nx_down: int = 14, *, nx_up: int = 1, ny_low: int = 1,
+                      ny_high: int = 1, device='cuda',
                       dtype: torch.dtype = torch.float32,
                       **create_kwargs) -> StokesSEM:
   """The Schaefer-Turek channel at `order` on `device` (the card by
   default); `create_kwargs` go to `StokesSEM.create` (for one,
   ``unstructured_el_ops=True``)."""
-  premesh = cylinder_channel_premesh(ns=ns, nr=nr, nx_down=nx_down)
-  bcs = {
-      'cylinder': (BCType.DIRICHLET, 0.0),
-      'walls': (BCType.DIRICHLET, 0.0),
-      'inflow': (BCType.DIRICHLET, 0.0),
-      # 'outflow' unmasked: natural (do-nothing) outflow.
-  }
+  premesh = cylinder_channel_premesh(ns=ns, nr=nr, nx_up=nx_up,
+                                     nx_down=nx_down, ny_low=ny_low,
+                                     ny_high=ny_high)
   snap = make_cylinder_snap(premesh, radius=RADIUS, center=CENTER)
-  return StokesSEM.create(premesh, boundary_conditions=bcs, order=order,
-                          coord_transform=snap, device=device, dtype=dtype,
-                          **create_kwargs)
+  return StokesSEM.create(premesh, boundary_conditions=BOUNDARY_CONDITIONS,
+                          order=order, coord_transform=snap, device=device,
+                          dtype=dtype, **create_kwargs)
+
+
+def schwarz_preconditioner(sem: StokesSEM, dt: float, time_order: int = 2,
+                           **mesh):
+  """The two-level Schwarz pressure preconditioner of the channel `sem` was
+  made on (`mesh`: the `cylinder_channel_premesh` arguments it was made
+  with), with its defaults: overlap 1, the p1dg coarse space up to 16,000
+  coarse dofs."""
+  return sem.schwarz_pressure_preconditioner(
+      cylinder_channel_premesh(**mesh), BOUNDARY_CONDITIONS, dt, time_order)
+
+
+def cfl_dt(sem: StokesSEM, cfl: float = 0.65) -> float:
+  """The step at convective CFL `cfl` on the mesh's spacing, ``cfl dx_min /
+  2.2`` (2.2: the peak inflow with a margin), as the JAX package's large
+  cylinder campaign sets it (0.65)."""
+  from swirlfem_tpu_torch.niles.datagen import min_node_spacing
+  return float(cfl * min_node_spacing(sem.velocity.mesh) / 2.2)
 
 
 def inflow_boundary_field(sem: StokesSEM,
@@ -187,7 +222,8 @@ def run_cylinder_scan(sem: StokesSEM, reynolds: float = 100.0,
   in which that much wall time has passed (the trace is then shorter).
   `telemetry`, a dict, receives the per-step CG iterations
   (``viscous_iterations``, ``pressure_iterations``), the stepping's wall
-  seconds and the steps run.  `on_chunk`, where given, is called after each
+  seconds, the steps run and the final ``history`` ``(us, ps, cus)``
+  (`continue_cylinder` steps on from it).  `on_chunk`, where given, is called after each
   chunk (its log and checkpoint) with the number of steps done since step
   0: a hook for timing or profiling a window of the live loop.
   The CFL is asserted (`check_cfl`).
@@ -306,12 +342,41 @@ def run_cylinder_scan(sem: StokesSEM, reynolds: float = 100.0,
       break
   if telemetry is not None:
     telemetry.update(viscous_iterations=v_iters, pressure_iterations=p_iters,
-                     seconds=time.perf_counter() - t0, steps=done)
+                     seconds=time.perf_counter() - t0, steps=done,
+                     history=carry[:3])
   us, ps = carry[0], carry[1]
   out = (us[-1] + u_boundary, ps[-1], np.concatenate(trace))
   if compute_forces:
     out = out + (np.concatenate(forces),)
   return out
+
+
+def continue_cylinder(sem: StokesSEM, history, num_steps: int, *,
+                      reynolds: float = 100.0, dt: float, time_order: int = 2,
+                      tol: float = 1e-5, alpha: float = 0.05,
+                      maxiter: int | None = None,
+                      pressure_preconditioner=None):
+  """`num_steps` more steps (no kick, no solve history) from the history
+  ``(us, ps, cus)`` a `run_cylinder_scan` run left in its telemetry.
+  Returns ``(u, p, pressure CG iterations a step)``."""
+  us, ps, cus = history
+  u_boundary = inflow_boundary_field(sem)
+  ext = [float(c) for c in extk_coeffs(k=time_order - 1)]
+  mu = MEAN_VELOCITY * 2 * RADIUS / reynolds
+  vel = sem.nodal.velocity
+  p_iters = []
+  for _ in range(num_steps):
+    cu = sum(ext[-j] * cus[-j] for j in range(1, len(ext) + 1))
+    u, p, aux = sem.stokes_one_step(
+        list(us), list(ps), -vel.interior_mask * cu, mu=mu, dt=dt,
+        time_order=time_order, alpha=alpha, u_boundary=u_boundary, tol=tol,
+        atol=tol * 1e-2, maxiter=maxiter,
+        pressure_preconditioner=pressure_preconditioner,
+        project_out_nullspace=False)
+    p_iters.append(aux['dp_info']['num_iterations'])
+    us, ps = us[1:] + (u - u_boundary,), ps[1:] + (p,)
+    cus = cus[1:] + (vel.scatter(vel.C_local(vel.gather(u))),)
+  return u, p, p_iters
 
 
 def reaction_force(sem: StokesSEM, us, p, f=0.0, *, mu: float, dt: float,
@@ -366,8 +431,18 @@ def main(argv=None) -> dict:
   parser.add_argument('--ns', type=int, default=6)
   parser.add_argument('--nr', type=int, default=4)
   parser.add_argument('--nx-down', type=int, default=14)
+  parser.add_argument('--nx-up', type=int, default=1)
+  parser.add_argument('--ny-low', type=int, default=1)
+  parser.add_argument('--ny-high', type=int, default=1)
   parser.add_argument('--reynolds', type=float, default=100.0)
   parser.add_argument('--dt', type=float, default=2.5e-4)
+  parser.add_argument('--cfl', type=float, default=None,
+                      help='set dt from this convective CFL (cfl_dt; the '
+                      'large campaign: 0.65) instead of --dt')
+  parser.add_argument('--pressure-precond', default='dense',
+                      choices=('dense', 'schwarz'),
+                      help='the dense Schur inverse (up to 20,000 pressure '
+                      'dofs) or the two-level Schwarz preconditioner')
   parser.add_argument('--num-steps', type=int, default=40000)
   parser.add_argument('--steps-per-dispatch', type=int, default=200,
                       help='steps a chunk (host log, trace copy)')
@@ -392,18 +467,35 @@ def main(argv=None) -> dict:
         check=True).stdout.strip().splitlines()[0]
     print(f'card: {card}', flush=True)
   t0 = time.perf_counter()
-  sem = make_cylinder_sem(args.order, args.ns, args.nr, args.nx_down,
-                          device=device, dtype=getattr(torch, args.dtype),
+  mesh = dict(ns=args.ns, nr=args.nr, nx_down=args.nx_down, nx_up=args.nx_up,
+              ny_low=args.ny_low, ny_high=args.ny_high)
+  sem = make_cylinder_sem(args.order, **mesh, device=device,
+                          dtype=getattr(torch, args.dtype),
                           unstructured_el_ops=args.el_ops)
-  precond = sem.dense_pressure_preconditioner(args.dt, 2)
+  dt = args.dt if args.cfl is None else cfl_dt(sem, args.cfl)
+  if args.pressure_precond == 'schwarz':
+    precond = schwarz_preconditioner(sem, dt, **mesh)
+    pre = {'schwarz_setup_s': precond.setup_seconds,
+           'schwarz_coarse': precond.coarse,
+           'schwarz_coarse_dofs': precond.coarse_dofs,
+           'schwarz_overlap': precond.overlap,
+           'schwarz_colors': precond.colors,
+           'schwarz_probe_applies': precond.probe_applies,
+           'schwarz_block_mb': precond.block_bytes / 2 ** 20}
+  else:
+    precond = sem.dense_pressure_preconditioner(dt, 2)
+    if precond is None:
+      parser.error(f'{sem.pressure.pspace.mesh.num_nodes} pressure dofs: '
+                   'past the dense inverse, pass --pressure-precond schwarz')
+    pre = {'dense_schur_s': precond.assembly_seconds}
   setup = time.perf_counter() - t0
-  print(f'setup {setup:.2f} s (dense Schur {precond.assembly_seconds:.2f} s);'
-        f' {sem.velocity.mesh.num_elements} elements, '
+  print(f'setup {setup:.2f} s ({pre}); dt {dt:.4e}; '
+        f'{sem.velocity.mesh.num_elements} elements, '
         f'{sem.velocity.mesh.num_nodes} velocity and '
         f'{sem.pressure.pspace.mesh.num_nodes} pressure nodes', flush=True)
   tele = {}
   _, _, trace, forces = run_cylinder_scan(
-      sem, reynolds=args.reynolds, dt=args.dt, num_steps=args.num_steps,
+      sem, reynolds=args.reynolds, dt=dt, num_steps=args.num_steps,
       steps_per_dispatch=args.steps_per_dispatch, kick_steps=args.kick_steps,
       compute_forces=True, pressure_preconditioner=precond,
       use_projection=not args.el_ops, checkpoint_path=args.checkpoint,
@@ -412,15 +504,18 @@ def main(argv=None) -> dict:
   coef = 2.0 * forces / (MEAN_VELOCITY ** 2 * 2 * RADIUS)
   tail = slice(len(trace) // 2, None)
   summary = {
-      'card': card, 'order': args.order, 'dt': args.dt,
+      'card': card, 'order': args.order, 'dt': dt, 'mesh': mesh,
       'dtype': args.dtype, 'el_ops': args.el_ops,
       'elements': sem.velocity.mesh.num_elements,
-      'setup_s': setup, 'dense_schur_s': precond.assembly_seconds,
-      'steps': len(trace), 't_end': len(trace) * args.dt,
+      'pressure_dofs': sem.pressure.pspace.mesh.num_nodes,
+      'pressure_precond': args.pressure_precond, 'setup_s': setup, **pre,
+      'steps': len(trace), 't_end': len(trace) * dt,
       'ms_per_step': 1e3 * tele['seconds'] / max(tele['steps'], 1),
       'viscous_iterations_mean': float(np.mean(tele['viscous_iterations'])),
+      'pressure_iterations_mean': float(np.mean(
+          tele['pressure_iterations'])),
       'pressure_iterations_max': int(np.max(tele['pressure_iterations'])),
-      'strouhal': strouhal_number(trace, args.dt),
+      'strouhal': strouhal_number(trace, dt),
       'probe_amplitude_tail': float(np.ptp(trace[tail])),
       'cd_max': float(coef[tail, 0].max()), 'cd_mean': float(
           coef[tail, 0].mean()),

@@ -31,6 +31,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from swirlfem_tpu_torch.core import topology
 from swirlfem_tpu_torch.core.bc import dirichlet_interior_mask
 from swirlfem_tpu_torch.core.fespace import FiniteElementSpace
 from swirlfem_tpu_torch.core.mesh import Mesh
@@ -200,11 +201,9 @@ class StokesVelocity:
 
   def scatter(self, u_local: torch.Tensor) -> torch.Tensor:
     """Element-local ``(E, n^d, d)`` -> nodal, summing shared nodes."""
-    if self.mesh.structured is None:  # one index_add of all components
-      d = u_local.shape[-1]
-      out = u_local.new_zeros((self.mesh.num_nodes, d))
-      return out.index_add_(0, self.mesh.elements.reshape(-1),
-                            u_local.reshape(-1, d))
+    if self.mesh.structured is None:  # all components, in a fixed order
+      return self.mesh.scatter_table.sum(
+          u_local.reshape(-1, u_local.shape[-1]))
     return torch.stack([self.mesh.scatter(u_local[..., i])
                         for i in range(u_local.shape[-1])], dim=-1)
 
@@ -257,7 +256,9 @@ class NodalTables:
   included); `assembled` the device copy of the assembled divergence
   blocks, or None; `v_el_t` / `p_el_t` the transposed element tables
   ``(n^d, E)`` of an unstructured mesh, whose index gives the E-last layout
-  directly (None on structured boxes).
+  directly, and `v_el_t_sum` the `topology.ScatterTable` of `v_el_t`, which
+  sums the velocity's E-last copies in a fixed order (None on structured
+  boxes; the pressure's copies never collide).
   """
 
   velocity: StokesVelocity
@@ -267,6 +268,7 @@ class NodalTables:
   assembled: Any = None
   v_el_t: torch.Tensor | None = None
   p_el_t: torch.Tensor | None = None
+  v_el_t_sum: topology.ScatterTable | None = None
 
   @property
   def mask(self) -> torch.Tensor:
@@ -460,13 +462,17 @@ class StokesSEM:
       mult = self.velocity.mesh.exchange(self.velocity.mesh.scatter(ones))
       el_t = lambda mesh: (None if mesh.structured is not None else
                            mesh.elements.T.contiguous())
+      v_el_t = el_t(vel.mesh)
       self.cache['nodal'] = NodalTables(
           velocity=vel, pressure=pres,
           mass_diag=self.velocity_mass_diag.to(self.device, self.dtype),
           mult=mult.to(self.device, self.dtype),
           assembled=(None if self.assembled_ops is None
                      else self.assembled_ops.to(self.device, self.dtype)),
-          v_el_t=el_t(vel.mesh), p_el_t=el_t(pres.pspace.mesh))
+          v_el_t=v_el_t, p_el_t=el_t(pres.pspace.mesh),
+          v_el_t_sum=(None if v_el_t is None else topology.ScatterTable.build(
+              v_el_t.cpu().numpy(), vel.mesh.num_nodes,
+              device=self.device)))
     return self.cache['nodal']
 
   def B(self, u):
@@ -600,9 +606,7 @@ class StokesSEM:
   def _v_el_cov(self, w):
     if self._structured_fast:
       return self._elops.el_to_nodal(w, self.fast_ops.vinfo)
-    idx = self.nodal.v_el_t
-    return w.new_zeros(self.velocity.mesh.num_nodes).index_add_(
-        0, idx.reshape(-1), w.reshape(-1))
+    return self.nodal.v_el_t_sum.sum(w.reshape(-1))
 
   def _p_el(self, p):
     if self._structured_fast:
@@ -1113,6 +1117,45 @@ class StokesSEM:
     precondition.assembly_seconds = solve.assembly_seconds
     return precondition
 
+  def schwarz_pressure_preconditioner(self, premesh, boundary_conditions,
+                                      dt, time_order: int,
+                                      coarse: str = 'auto',
+                                      max_coarse_dofs: int = 16000,
+                                      overlap='auto'):
+    """Two-level additive Schwarz pressure preconditioner (unstructured
+    meshes beyond the dense inverse's range): exact probed element blocks,
+    applied as one batched product, plus a Galerkin coarse solve; see
+    ops.schwarz.  SPD, so it plugs into plain PCG (no `near_exact`).
+
+    Args:
+      premesh: the ORDER-1 premesh this solver was created from.
+      boundary_conditions: the mapping given to ``create`` (a do-nothing
+        outflow makes E nonsingular).
+      coarse: 'p1dg' | 'vertex' | 'vertex-cheb' | 'auto' (see ops.schwarz).
+
+    The result carries ``has_nullspace`` (then composed with the
+    projection of the constant pressure) and ``fast_matvec``, the assembled
+    block-sparse E of the same probing pass.
+    """
+    from swirlfem_tpu_torch.ops.schwarz import build_schwarz_pressure_solver
+    solve = build_schwarz_pressure_solver(
+        self, premesh, boundary_conditions, dt, time_order,
+        coarse=coarse, max_coarse_dofs=max_coarse_dofs, overlap=overlap)
+    if not solve.has_nullspace:
+      return solve
+
+    def precondition(p):
+      w = solve(p)
+      ones = torch.ones_like(w)
+      return w - (self.dot(ones, w) / self.dot(ones, ones)) * ones
+
+    for name in ('coarse', 'overlap', 'colors', 'coarse_dofs',
+                 'probe_applies', 'block_bytes', 'setup_seconds'):
+      setattr(precondition, name, getattr(solve, name))
+    precondition.has_nullspace = True
+    precondition.fast_matvec = solve.fast_matvec
+    return precondition
+
   def assembled_viscous_matvec(self, mu, dt, time_order: int):
     """Assembled element-block H apply for the viscous CG (generic path):
     one ``(E, n^d, n^d)`` batched product between a gather and a scatter,
@@ -1126,8 +1169,9 @@ class StokesSEM:
     as the JAX package chooses it: the exact FDM inverse on separable
     boxes, else the block-FFT one on uniform periodic 2D boxes, else the
     dense Schur inverse up to its size limit, else None (projected CG).
-    Unstructured meshes beyond the dense range need the two-level Schwarz
-    preconditioner, not ported yet (ROADMAP.md, Queue 1 item 22)."""
+    The chain cannot choose `schwarz_pressure_preconditioner`, which needs
+    the order-1 premesh and the boundary conditions: unstructured meshes
+    beyond the dense range ask for it by name."""
     precond = self.fdm_pressure_preconditioner(dt, time_order)
     if precond is None:
       precond = self.fft_pressure_preconditioner(dt, time_order)

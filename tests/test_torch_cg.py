@@ -7,6 +7,7 @@ import torch
 
 from swirlfem_tpu.linalg import cg as jcg
 from swirlfem_tpu_torch.linalg import cg as tcg
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 
 def _spd(n, cond, seed, clusters=None):

@@ -35,6 +35,7 @@ from swirlfem_tpu_torch.ops import fdm_pressure
 from swirlfem_tpu_torch.ops import sem3d
 from swirlfem_tpu_torch.utils.box import unit_cube_mesh
 from torch_port_boxes import affine_box
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 N_EL, ORDER, STEPS = 2, 3, 3
 MU, DT, TIME_ORDER, ALPHA = 1.0 / 100.0, 2e-3, 2, 0.05

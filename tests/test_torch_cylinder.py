@@ -24,6 +24,7 @@ from swirlfem_tpu.examples import cylinder as jcyl
 from swirlfem_tpu.utils import cylinder as jmesh
 from swirlfem_tpu_torch.examples import cylinder as tcyl
 from swirlfem_tpu_torch.utils import cylinder as tmesh
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 SMALL = dict(ns=4, nr=3, nx_down=10)
 ORDER = 3

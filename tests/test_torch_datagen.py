@@ -25,6 +25,7 @@ from swirlfem_tpu_torch.niles import datagen
 from swirlfem_tpu_torch.niles import datagen_config
 from swirlfem_tpu_torch.nse.solver import StokesSEM
 from swirlfem_tpu_torch.utils.box import unit_cube_mesh
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 CFG = datagen.DatagenConfig(resolution=4, order=4, reynolds_number=1000.0,
                             dt=2e-3, num_cycles=1, num_steps_per_cycle=5,

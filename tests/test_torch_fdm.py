@@ -11,6 +11,7 @@ from swirlfem_tpu.utils.box import unit_cube_mesh as junit_cube_mesh
 from swirlfem_tpu_torch.nse.solver import StokesSEM
 from swirlfem_tpu_torch.ops import fdm_pressure as fdm
 from swirlfem_tpu_torch.utils.box import unit_cube_mesh
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 MU, DT, TIME_ORDER = 1e-3, 2e-3, 3
 

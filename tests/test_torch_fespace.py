@@ -27,6 +27,7 @@ from swirlfem_tpu_torch.core.quadrature import NodeType
 from swirlfem_tpu_torch.core.quadrature import Quadrature1D
 from swirlfem_tpu_torch.core.refine import refine_premesh
 from swirlfem_tpu_torch.utils.box import unit_cube_mesh
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 TOL = 1e-12
 

@@ -15,6 +15,7 @@ import torch
 
 from swirlfem_tpu.utils import gmsh as jgmsh
 from swirlfem_tpu_torch.utils import gmsh as tgmsh
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 NX, NY = 4, 3
 NAMES = {(1, 1): 'bottom', (1, 2): 'Deckel ü', (2, 3): 'fluid'}

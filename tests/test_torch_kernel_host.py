@@ -36,6 +36,7 @@ from swirlfem_tpu_torch.ops import cuda_stiffness2d
 from swirlfem_tpu_torch.ops import cuda_stiffness3d
 from swirlfem_tpu_torch.utils.box import unit_cube_mesh
 from swirlfem_tpu_torch.nse.solver import StokesSEM
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 
 def _amat3d(order, c=(1.3, 0.8, 0.5)):

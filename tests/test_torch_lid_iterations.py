@@ -23,6 +23,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import torch_port_lid_iterations as lid  # noqa: E402
 from swirlfem_tpu_torch.examples import cavity  # noqa: E402
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 N_EL, ORDER, STEPS = 6, 5, 3
 

@@ -35,6 +35,7 @@ from swirlfem_tpu_torch.linalg.linear_solve import linear_solve
 from swirlfem_tpu_torch.nse.scalar import ScalarTransport
 from swirlfem_tpu_torch.nse.solver import StokesSEM
 from swirlfem_tpu_torch.utils.box import unit_cube_mesh
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 RE, DT, TIME_ORDER = 20000.0, 1e-3, 3
 TOL = 1e-9

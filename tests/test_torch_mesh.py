@@ -20,6 +20,7 @@ from swirlfem_tpu_torch.core import quadrature as quad
 from swirlfem_tpu_torch.core.refine import refine_premesh
 from swirlfem_tpu_torch.nse.solver import StokesSEM
 from swirlfem_tpu_torch.utils.box import unit_cube_mesh
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 NODE_TYPES = ('GAUSS_LOBATTO_LEGENDRE', 'GAUSS_LEGENDRE', 'NEWTON_COTES')
 

@@ -22,6 +22,7 @@ from swirlfem_tpu.nse.solver import StokesSEM as JStokesSEM
 from swirlfem_tpu.utils.box import unit_cube_mesh as junit_cube_mesh
 from swirlfem_tpu_torch.examples import cavity as cav
 from swirlfem_tpu_torch.examples import natural_convection as nc
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 CPU = dict(device='cpu')
 

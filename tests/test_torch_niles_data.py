@@ -25,6 +25,7 @@ from swirlfem_tpu_torch.niles import input_pipeline
 from swirlfem_tpu_torch.utils.box import unit_cube_mesh
 
 from torch_niles_configs import jax_tiny_config, torch_tiny_config
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 
 @dataclasses.dataclass

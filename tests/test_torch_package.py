@@ -40,6 +40,7 @@ MODULES = [
     'swirlfem_tpu_torch.nse.scalar',
     'swirlfem_tpu_torch.nse.solver',
     'swirlfem_tpu_torch.ops.assembled',
+    'swirlfem_tpu_torch.ops.coarse_cheb',
     'swirlfem_tpu_torch.ops.cuda_build',
     'swirlfem_tpu_torch.ops.cuda_exchange',
     'swirlfem_tpu_torch.ops.cuda_split',
@@ -51,6 +52,7 @@ MODULES = [
     'swirlfem_tpu_torch.ops.fdm_pressure',
     'swirlfem_tpu_torch.ops.fft_pressure',
     'swirlfem_tpu_torch.ops.kernel_checks',
+    'swirlfem_tpu_torch.ops.schwarz',
     'swirlfem_tpu_torch.ops.sem2d',
     'swirlfem_tpu_torch.ops.sem3d',
     'swirlfem_tpu_torch.sde.nn_sde',

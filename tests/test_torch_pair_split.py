@@ -44,6 +44,7 @@ from test_torch_cg_step3d import _state
 from test_torch_cg_step3d import _unwarped_coords
 from test_torch_cg_step3d import pallas_interpret
 from torch_port_boxes import affine_box
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 # Plain version vs the interpret-mode kernel, relative to the largest
 # output.  Float64: both sum the same exact bf16 products, in another order.

@@ -8,6 +8,7 @@ import torch
 
 from swirlfem_tpu.linalg import projection as jproj
 from swirlfem_tpu_torch.linalg import projection as tproj
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 N, K = 30, 4
 

@@ -21,6 +21,7 @@ from swirlfem_tpu.sde import sdeint as jsde
 from swirlfem_tpu_torch.sde.nn_sde import NNSDE
 from swirlfem_tpu_torch.sde.sdeint import brownian_path
 from swirlfem_tpu_torch.sde.sdeint import sdeint
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 
 def _t(x):

@@ -9,6 +9,7 @@ import dataclasses
 import functools
 import itertools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +31,13 @@ from swirlfem_tpu_torch.ops import cuda_stiffness
 from swirlfem_tpu_torch.ops import cuda_stiffness2d
 from swirlfem_tpu_torch.ops import sem2d
 from swirlfem_tpu_torch.utils.box import unit_cube_mesh
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
+
+# The interpret-mode Pallas exchange as the oracle, under one jit: compiled
+# once per shape and dtype (an eager call re-runs its interpretation, ~3.5 s
+# a call here); its sums are the same.
+_PALLAS_EXCHANGE = jax.jit(functools.partial(exchange2d_pallas,
+                                             interpret=True))
 
 
 def _graded(pm):
@@ -158,7 +166,7 @@ def test_exchange_plain_exactly_equals_pallas(shape, dtype):
   w = rng.standard_normal(shape).astype(dtype)
   got = cuda_exchange.exchange2d_plain(torch.as_tensor(w)).numpy()
   np.testing.assert_array_equal(
-      got, np.asarray(exchange2d_pallas(jnp.asarray(w), interpret=True)))
+      got, np.asarray(_PALLAS_EXCHANGE(jnp.asarray(w))))
   if n0 == n1:
     jinfo = jsem2d.StructuredInfo(num_elements_per_dim=n0, order=k - 1,
                                   ndim=2, continuous=True)
@@ -192,7 +200,7 @@ def test_exchange_tuple_equals_per_field_and_pallas(shape, dtype, num_fields):
     np.testing.assert_array_equal(
         g, cuda_exchange.exchange2d_plain(torch.as_tensor(w)).numpy())
     np.testing.assert_array_equal(
-        g, np.asarray(exchange2d_pallas(jnp.asarray(w), interpret=True)))
+        g, np.asarray(_PALLAS_EXCHANGE(jnp.asarray(w))))
     if n0 == n1:
       jinfo = jsem2d.StructuredInfo(num_elements_per_dim=n0, order=k - 1,
                                     ndim=2, continuous=True)

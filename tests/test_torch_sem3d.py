@@ -28,6 +28,7 @@ from swirlfem_tpu_torch.nse.solver import StokesSEM
 from swirlfem_tpu_torch.ops import cuda_stiffness3d
 from swirlfem_tpu_torch.ops import sem3d
 from swirlfem_tpu_torch.utils.box import unit_cube_mesh
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 TOL = 1e-12
 

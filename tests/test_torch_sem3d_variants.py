@@ -31,6 +31,7 @@ from swirlfem_tpu_torch.ops import cuda_stiffness3d
 from swirlfem_tpu_torch.ops import sem3d
 from swirlfem_tpu_torch.utils.box import unit_cube_mesh
 from torch_port_boxes import affine_box
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 ORDER, N_EL = 3, 2
 K = ORDER + 1

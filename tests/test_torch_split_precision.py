@@ -45,6 +45,7 @@ from test_torch_datagen import _jcfg
 from test_torch_datagen import CFG
 from test_torch_datagen import sems  # pylint: disable=unused-import
 from test_torch_datagen import state  # pylint: disable=unused-import
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 # Split plain version vs the interpret-mode JAX kernel: both sum exact bf16
 # products, in another order (relative to the output's largest entry).

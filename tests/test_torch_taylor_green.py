@@ -22,6 +22,7 @@ from swirlfem_tpu_torch.core.structured import StructuredInfo
 from swirlfem_tpu_torch.examples import taylor_green_3d as tg
 from swirlfem_tpu_torch.linalg.cg import tree_map
 from swirlfem_tpu_torch.nse import solver
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 RE, N_EL, ORDER = 400.0, 4, 4
 MU, DT, TIME_ORDER, ALPHA = 1.0 / RE, 2e-3, 2, 0.05

@@ -39,6 +39,7 @@ from torch_niles_configs import jax_draws
 from torch_niles_configs import jax_tiny_config
 from torch_niles_configs import perturbed
 from torch_niles_configs import torch_tiny_config
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 F32 = {'model.dtype': 'float32'}
 LR = 1e-2

@@ -29,6 +29,7 @@ from swirlfem_tpu_torch.niles import train
 
 from test_niles import tiny_config as jax_tests_tiny_config
 from torch_niles_configs import jax_tiny_config, torch_tiny_config
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 F32 = {'model.dtype': 'float32'}
 

@@ -36,6 +36,7 @@ from torch_niles_configs import jax_draws
 from torch_niles_configs import jax_tiny_config
 from torch_niles_configs import perturbed
 from torch_niles_configs import torch_tiny_config
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 TOL = 2e-5
 BF16_TOL = 5e-2  # two bfloat16 models whose rounding points differ

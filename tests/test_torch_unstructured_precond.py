@@ -20,6 +20,7 @@ from swirlfem_tpu_torch.ops import assembled
 from swirlfem_tpu_torch.ops import dense_schur
 from swirlfem_tpu_torch.ops import fdm_element
 from swirlfem_tpu_torch.utils.box import unit_cube_mesh
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 MU, DT = 2e-2, 1e-3
 WALLS = {'boundary': (BCType.DIRICHLET, 0.0)}

@@ -25,6 +25,7 @@ from swirlfem_tpu_torch.examples.natural_convection import sine_grading
 from swirlfem_tpu_torch.nse.solver import StokesSEM
 from swirlfem_tpu_torch.ops import fdm_pressure as fdm
 from swirlfem_tpu_torch.utils.box import unit_cube_mesh
+import torch_port_threads  # noqa: F401  pylint: disable=unused-import
 
 N_EL, ORDER = 3, 4
 MU, DT = 0.05, 5e-3

@@ -1,9 +1,11 @@
 """Run-to-run spread of the cylinder comparisons of `chip_smoke.py` phases
 34 and 35 on a CUDA card.
 
-The scatters' atomic adds run in no fixed order on the card, and the
-pressure carries float32 rounding through the Schur operator's
-conditioning, so repeated runs of the same code read different errors.
+The pressure carries float32 rounding through the Schur operator's
+conditioning, so a difference in the order of any sum shows in it.  With
+scatters that add in no fixed order (``index_add_`` on CUDA), repeated runs
+of the same code read different errors; the scatters now add in a fixed
+order (`topology.ScatterTable`), and repeated runs should read one value.
 This script repeats each comparison to measure that spread (the gates of
 the two phases sit about 3x above the largest readings):
 
