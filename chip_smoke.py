@@ -165,7 +165,32 @@ datagen cycle's frames.  Phases:
      history and without it (host clock over steps 11-200, profiler over
      201-210; pressure CG iterations gated from the fifth step on), the
      E-last against the generic path with the same solves, and three steps
-     from the E-last run's state with Schwarz against plain CG.
+     from the E-last run's state with Schwarz against plain CG;
+ 38. the distributed layer on 4 ranks that share the card
+     (`parallel.spmd.launch`: spawned processes, payloads through host
+     memory: shared slots for small payloads, gloo for large ones; every
+     phase below runs on these ranks): the datagen box and the TGV
+     box cut into 4 slabs on the host (`nse.distributed.split_box`); on
+     every rank the congruent 2D and 3D stiffness kernels (rows 2 and 6) at
+     the slab shapes, (2, 9, 9, 1024) and (3, 8, 8, 8, 1024), against their
+     plain versions and the float64 operator (1e-5), timed on rank 0
+     against their plain versions, one library GEMM and their bound
+     ("sharded_*" in the kernels line);
+ 39. `run_simulation_distributed` at the reference configuration, 200
+     steps, against the single-device `make_step_fn` from the same start
+     (1e-4 relative); ms/step, collectives and host-staged bytes a step;
+ 40. 20 certified sharded datagen steps from phase 4's state against
+     phase 5's, and 10 CG-solved sharded TGV-box steps from phase 19's
+     start against its fused-key steps (u within 1e-4 relative; p within
+     1e-2 and 3e-4: the pressure solves stop at their tolerances), rows 2
+     and 6 launched on every rank in every step (counted per rank);
+ 41. the lid-driven cavity (16^2, order 7, Re 100, dt 1e-3) partitioned 4
+     ways by `utils.partition.partition`, each mode's tables built once on
+     the host and each rank shipped its row: 20 steps from rest in the
+     psum mode, 3 in the neighbor and owner modes (`CAVITY_STEPS`), against
+     the same steps unpartitioned on the card (`CAVITY_GATES`, relative)
+     and bitwise against the psum mode's state after as many steps, every
+     shared velocity dof's copies bitwise equal across the ranks.
 
 Each kernel's count is set to 0 just before the path that launches it and
 read just after.  Every kernel's bound is the larger of its bytes (each
@@ -703,6 +728,7 @@ def run_variant_phases(torch, device, dtype, tgv, cuda_stiffness3d,
     if name:
       require(n_launch >= count, f'{name} launched {n_launch} times in '
               f'{count} steps')
+  certified['fused_state'] = runs['fused']['state']
 
   # -- 20. the affine box: CG-solved steps ----------------------------------
   # The Taylor-Green field at the UNWARPED coordinates is single-valued
@@ -2269,6 +2295,483 @@ def run_knob_phase(torch, device, dtype) -> None:
   require(refusal is not None and 'use_kernels=False' in refusal, refusal)
 
 
+# -- Phases 38-41: ranks that share the card ----------------------------------
+
+NUM_RANKS = 4
+
+
+def box_rank(ax, shard, *, cfg, tgv_solve, steps2d, steps3d, device):
+  """Phases 38 and 40 on one rank (a `spmd.launch` function): the slab
+  kernels against their plain versions and the float64 operator (rank 0
+  times them while the others wait), then the certified sharded 2D
+  datagen steps and the CG-solved sharded TGV-box steps, each kernel's
+  launches counted on this rank."""
+  import numpy as np
+  import torch
+  from swirlfem_tpu_torch.niles.datagen_distributed import (
+      make_distributed_step_fn)
+  from swirlfem_tpu_torch.nse.distributed import DistributedStokesBox
+  from swirlfem_tpu_torch.nse.solver import extk_coeffs
+  from swirlfem_tpu_torch.ops import cuda_stiffness
+  from swirlfem_tpu_torch.ops import cuda_stiffness3d
+  from swirlfem_tpu_torch.ops import kernel_checks
+  dtype = torch.float32
+  on_card = torch.device(device).type == 'cuda'
+  sync = (lambda: torch.cuda.synchronize(device)) if on_card else (
+      lambda: None)
+  out = {}
+  box2 = DistributedStokesBox(shard['slab2'], ax, device=device, dtype=dtype)
+  box3 = DistributedStokesBox(shard['slab3'], ax, device=device, dtype=dtype)
+  # -- 38. the kernels at the slab shapes ----------------------------------
+  field = lambda shape, seed: kernel_checks.random_field(
+      shape, dtype=dtype, device=device, seed=100 * ax.index + seed)
+  k2, k3 = box2.ops.vinfo.order + 1, box3.ops.vinfo.order + 1
+  e2 = box2.ops.wmass.shape[-1]
+  e3 = box3.ops.wmass.shape[-1]
+  us2 = tuple(field((k2, k2, e2), s) for s in (1, 2))
+  us3 = tuple(field((k3, k3, k3, e3), s) for s in (3, 4, 5))
+  out['shape2'] = (len(us2),) + tuple(us2[0].shape)
+  out['shape3'] = (len(us3),) + tuple(us3[0].shape)
+  if on_card:  # (a CPU rehearsal runs phase 40 alone)
+    out['check2'] = kernel_checks.check_stiffness_uniform(box2.ops, us2)
+    out['check3'] = kernel_checks.check_stiffness3d_uniform(box3.ops, us3)
+  if on_card and ax.index == 0:
+    amat = box2.ops.mats['amat']
+    stack2 = torch.cat([u.reshape(k2 * k2, -1) for u in us2], dim=1)
+    timed = {'times2': (lambda: box2.ops.stiffness_el_multi(us2),
+                        lambda: cuda_stiffness.stiffness_uniform_plain(us2,
+                                                                       amat),
+                        lambda: torch.matmul(amat, stack2))}
+    table = box3.ops.mats['table']
+    a_dense = torch.as_tensor(cuda_stiffness3d.uniform_amat3d_np(
+        box3.ops.c_uniform, box3.ops.w1, box3.ops.dmat), dtype=dtype,
+                              device=device)
+    stack3 = torch.cat([u.reshape(k3 ** 3, -1) for u in us3], dim=1)
+    timed['times3'] = (
+        lambda: cuda_stiffness3d.stiffness3d_uniform(us3, table),
+        lambda: cuda_stiffness3d.stiffness3d_uniform_plain(us3, table),
+        lambda: torch.matmul(a_dense, stack3))
+    time_kernels(timed, out, kernel_checks, device, '[38] rank 0:')
+  ax.psum(torch.zeros(1))  # the others wait for rank 0's timings
+  # One collective's latency: a psum of one float on the card (through the
+  # host) and on the host, 50 in a row on every rank; through the shared
+  # slots, then with them off (every rank at once), through gloo.
+  slots = ax.slots
+  for where in ('card', 'host', 'card_gloo', 'host_gloo'):
+    ax.slots = None if where.endswith('gloo') else slots
+    x = torch.ones(1, device=device if where.startswith('card') else 'cpu')
+    ax.psum(x)
+    t0 = time.perf_counter()
+    for _ in range(50):
+      x = ax.psum(x) / ax.size
+    float(x.sum())
+    out[f'psum_ms_{where}'] = (time.perf_counter() - t0) / 50 * 1e3
+  ax.slots = slots
+  out['shared'] = slots is not None
+
+  # -- 40. certified sharded 2D datagen steps -------------------------------
+  advance = make_distributed_step_fn(box2, cfg, box2.to_device(shard['fbody']),
+                                     exact_solves=False)
+  us, ps, cus = box2.to_device(shard['state2'])
+  sync()
+  ax.reset_stats()
+  cuda_stiffness.stiffness_uniform.launches = 0
+  t0 = time.perf_counter()
+  iters = []
+  for _ in range(steps2d):
+    u, p, cu, aux = advance.one_step(us, ps, cus)
+    us, ps, cus = us[1:] + (u,), ps[1:] + (p,), cus[1:] + (cu,)
+    iters.append(aux['u_star_info']['num_iterations'])
+  sync()
+  out['ms2'] = (time.perf_counter() - t0) / steps2d * 1e3
+  out['launches2'] = cuda_stiffness.stiffness_uniform.launches
+  out['iters2'] = iters
+  out['stats2'] = dict(ax.stats)
+  out['state2'] = (us[-1], ps[-1])
+
+  # -- 40. CG-solved sharded TGV-box steps ----------------------------------
+  solve = dict(tgv_solve)
+  step = box3.make_step(time_order=2, alpha=0.05, preconditioner='fdm',
+                        exact_solves=False, **solve)
+  conv = box3.make_advection()
+  ext = [float(c) for c in extk_coeffs(k=1)]
+  us, ps, cus = box3.to_device(shard['state3'])
+  sync()
+  ax.reset_stats()
+  cuda_stiffness3d.stiffness3d_uniform.launches = 0
+  t0 = time.perf_counter()
+  iters = []
+  for _ in range(steps3d):
+    f_el = tuple(-(ext[0] * a + ext[1] * b) for a, b in zip(*cus))
+    u, p, aux = step(list(us), list(ps), f_el)
+    us, ps, cus = us[1:] + (u,), ps[1:] + (p,), cus[1:] + (conv(u),)
+    iters.append((aux['u_star_info']['num_iterations'],
+                  aux['dp_info']['num_iterations']))
+  sync()
+  out['ms3'] = (time.perf_counter() - t0) / steps3d * 1e3
+  out['launches3'] = cuda_stiffness3d.stiffness3d_uniform.launches
+  out['iters3'] = [(int(v), int(q)) for v, q in iters]
+  out['stats3'] = dict(ax.stats)
+  out['state3'] = (us[-1], ps[-1])
+  out['finite'] = bool(all(torch.isfinite(t).all() for t in
+                           (*out['state2'][0], out['state2'][1],
+                            *out['state3'][0], out['state3'][1])))
+  return out
+
+
+def cavity_rank(ax, shard, *, steps, order, reynolds, dt, tol, atol, device):
+  """Phase 41 on one rank: this rank's partition of the lid-driven cavity
+  under each exchange mode (`steps` maps a mode to its step count), from
+  rest (the lid lifted, the generic operators, Jacobi viscous CG and
+  projected pressure CG), each mode from the rank's row of the host's
+  tables.  The state is kept after every mode's step count."""
+  import torch
+  from swirlfem_tpu_torch.core.bc import BCType
+  from swirlfem_tpu_torch.examples.cavity import lid_boundary_field
+  from swirlfem_tpu_torch.nse.solver import extk_coeffs
+  from swirlfem_tpu_torch.nse.solver import StokesSEM
+  dtype = torch.float32
+  sync = ((lambda: torch.cuda.synchronize(device))
+          if torch.device(device).type == 'cuda' else (lambda: None))
+  bcs = {'boundary': (BCType.DIRICHLET, 0.0)}
+  ext = [float(c) for c in extk_coeffs(k=1)]
+  counts = sorted(set(steps.values()))
+  out = {}
+  for mode, count in steps.items():
+    t0 = time.perf_counter()
+    sem = StokesSEM.create(shard['premesh'], bcs, order=order, device=device,
+                           dtype=dtype, axis=ax, tables=shard['tables'][mode])
+    setup = time.perf_counter() - t0
+    ub = lid_boundary_field(sem)
+    zeros_u = torch.zeros((sem.velocity.mesh.num_nodes, 2), dtype=dtype,
+                          device=device)
+    zeros_p = torch.zeros(sem.pressure.pspace.mesh.num_nodes, dtype=dtype,
+                          device=device)
+    c0 = sem.C(zeros_u + ub)
+    us, ps, cus = (zeros_u,) * 2, (zeros_p,) * 2, (c0,) * 2
+    sync()
+    ax.reset_stats()
+    t0 = time.perf_counter()
+    iters, states = [], {}
+    for k in range(1, count + 1):
+      cu = ext[0] * cus[0] + ext[1] * cus[1]
+      u, p, aux = sem.stokes_one_step(
+          list(us), list(ps), -cu, mu=1.0 / reynolds, dt=dt, time_order=2,
+          u_boundary=ub, tol=tol, atol=atol, maxiter=2000)
+      us, ps, cus = us[1:] + (u - ub,), ps[1:] + (p,), cus[1:] + (sem.C(u),)
+      iters.append((aux['u_star_info']['num_iterations'],
+                    aux['dp_info']['num_iterations']))
+      if k in counts:
+        states[k] = (us[-1] + ub, ps[-1])
+    sync()
+    wall = time.perf_counter() - t0
+    plan = sem.velocity.mesh.exchange_neighbors
+    out[mode] = {
+        'states': states, 'setup_s': setup,
+        'ms_per_step': wall / count * 1e3, 'iters': iters,
+        'stats': {k: v / count for k, v in ax.stats.items()},
+        'plan': type(plan).__name__ if plan is not None else 'psum',
+        'v_idx': sem.velocity.mesh.node_indices,
+        'p_idx': sem.pressure.pspace.mesh.node_indices,
+        'v_xy': sem.velocity.mesh.node_coords,
+        'p_xy': sem.pressure.pspace.mesh.node_coords}
+  return out
+
+
+def coordinate_rows(ref_xy, xy):
+  """The row of `ref_xy` at each point of `xy` (the same node of two
+  numberings of one mesh), or -1."""
+  import numpy as np
+  key = lambda a: [tuple(r) for r in np.round(np.asarray(a, np.float64)
+                                               * 2.0 ** 24).astype(np.int64)]
+  rows = {k: i for i, k in enumerate(key(ref_xy))}
+  return np.asarray([rows.get(k, -1) for k in key(xy)])
+
+
+def run_distributed_phases(torch, device, kernel_checks, times, launches, dg,
+                           tgv_box) -> None:
+  """Phases 38-41: the distributed layer on NUM_RANKS ranks that share the
+  card (`parallel.spmd.launch`, gloo through host memory).
+
+  `dg` holds the datagen solver, config, phase 4's end state and phase 5's
+  certified state; `tgv_box` the Taylor-Green solver, phase 19's start
+  state, solve settings and fused-key result.  Adds the slab shapes' times
+  and per-rank launches to `times` and `launches`.
+  """
+  import dataclasses
+  import numpy as np
+  from swirlfem_tpu_torch.niles import datagen
+  from swirlfem_tpu_torch.niles import datagen_distributed
+  from swirlfem_tpu_torch.nse import distributed
+  from swirlfem_tpu_torch.ops import cuda_build
+  from swirlfem_tpu_torch.parallel import spmd
+  cuda_build.library()  # built already; the ranks load it
+  nr = NUM_RANKS
+  sem, cfg = dg['sem'], dg['cfg']
+  full3, tgv = tgv_box['full'], tgv_box['solve']
+
+  # -- 38 and 40 in one launch -------------------------------------------
+  t0 = time.perf_counter()
+  slabs2 = distributed.split_box(sem, nr, dt=cfg.dt, time_order=cfg.time_order)
+  slabs3 = distributed.split_box(full3, nr, dt=tgv['dt'], time_order=2)
+  coords = sem.velocity.mesh.node_coords
+  fbody = sem.velocity_to_el(
+      (torch.sin(2 * np.pi * cfg.forcing_wavenumber * coords[..., 1]),))[0]
+  shards = [{'slab2': slabs2[r], 'slab3': slabs3[r],
+             'fbody': distributed.shard_el(fbody, r, nr, 2),
+             'state2': distributed.shard_el(dg['state'], r, nr, 2),
+             'state3': distributed.shard_el(tgv_box['state'], r, nr, 3)}
+            for r in range(nr)]
+  log(f'[38] host split of both boxes into {nr} slabs: '
+      f'{time.perf_counter() - t0:.2f} s')
+  steps2d, steps3d = 20, tgv_box['count']
+  t0 = time.perf_counter()
+  outs = spmd.launch(box_rank, shards, cfg=cfg, steps2d=steps2d,
+                     steps3d=steps3d, device=str(device), timeout=900,
+                     threads=None,
+                     tgv_solve={k: tgv[k] for k in ('mu', 'dt', 'tol', 'atol',
+                                                    'maxiter')})
+  log(f'[38] {nr} ranks on {device}: launch to results '
+      f'{time.perf_counter() - t0:.2f} s; one psum of a float: '
+      f'{outs[0]["psum_ms_card"]:.3f} ms from the card (through the host), '
+      f'{outs[0]["psum_ms_host"]:.3f} ms on the host through the shared '
+      f'slots (shared: {outs[0]["shared"]}); through gloo '
+      f'{outs[0]["psum_ms_card_gloo"]:.3f} and '
+      f'{outs[0]["psum_ms_host_gloo"]:.3f} ms (rank 0, 50 in a row)')
+  for r, o in enumerate(outs):
+    log(f'[38] rank {r}: stiffness_uniform {o["shape2"]}: {o["check2"]}; '
+        f'stiffness3d_uniform {o["shape3"]}: {o["check3"]}')
+    require(o['check2']['rel_err_f64'] <= kernel_checks.STIFFNESS_REL_TOL,
+            (r, o['check2']))
+    require(o['check3']['rel_err_f64'] <= kernel_checks.STIFFNESS_REL_TOL,
+            (r, o['check3']))
+  for name, key, shape_key, check_key, flops_bytes in (
+      ('stiffness_uniform', 'times2', 'shape2', 'check2', None),
+      ('stiffness3d_uniform', 'times3', 'shape3', 'check3', None)):
+    t = outs[0][key]
+    shape = outs[0][shape_key]
+    num_c, num_e = shape[0], shape[-1]
+    if name == 'stiffness_uniform':
+      k2 = shape[1] * shape[2]
+      b = kernel_checks.bound(2 * k2 * k2 * num_e * num_c,
+                              (k2 * k2 + 2 * num_c * k2 * num_e) * 4)
+    else:
+      from swirlfem_tpu_torch.ops import cuda_stiffness3d
+      order = shape[1] - 1
+      flops, nbytes = cuda_stiffness3d.stiffness3d_counts(
+          order, num_e, num_c, variant='uniform', dtype_bytes=4)
+      b = kernel_checks.bound(flops, nbytes + (order + 1) ** 2 * 4 * 4)
+    entry = {'sharded_shape': list(shape), **{f'sharded_{k}': v
+                                              for k, v in t.items()},
+             'sharded_bound_ms': b['bound_ms'],
+             'sharded_bound_by': b['bound_by'],
+             'sharded_max_abs_err': max(o[check_key]['max_abs_err']
+                                        for o in outs)}
+    times[name].update(entry)
+    log(f'[38] {name} at {shape} (rank 0, the others waiting): device '
+        f'{t["ms"] * 1e3:.2f} us (plain {t["plain_ms"] * 1e3:.2f} us; '
+        f'library {t["library_ms"] * 1e3:.2f} us); per eager call '
+        f'{t["call_ms"] * 1e3:.2f} us; bound {b["bound_ms"] * 1e3:.2f} us '
+        f'({b["bound_by"]})')
+
+  # -- 40. the sharded steps against the single-device ones ----------------
+  require(all(o['finite'] for o in outs), 'non-finite sharded state')
+  u2 = distributed.unshard_el([o['state2'][0] for o in outs], 2)
+  p2 = distributed.unshard_el([o['state2'][1] for o in outs], 2)
+  u3 = distributed.unshard_el([o['state3'][0] for o in outs], 3)
+  p3 = distributed.unshard_el([o['state3'][1] for o in outs], 3)
+  cert_u, cert_p = dg['cert_state'][0][-1], dg['cert_state'][1][-1]
+  fused_u, fused_p = tgv_box['fused_state'][0][-1], tgv_box['fused_state'][1][-1]
+  host = lambda x: tuple(torch.as_tensor(c) for c in x)
+  du2 = rel_err(host(u2), tuple(c.cpu() for c in cert_u))
+  dp2 = rel_err(torch.as_tensor(p2), cert_p.cpu())
+  du3 = rel_err(host(u3), tuple(c.cpu() for c in fused_u))
+  dp3 = rel_err(torch.as_tensor(p3), fused_p.cpu())
+  l2 = [o['launches2'] for o in outs]
+  l3 = [o['launches3'] for o in outs]
+  o0 = outs[0]
+  log(f'[40] {steps2d} certified sharded 2D steps: {o0["ms2"]:.3f} ms/step '
+      f'(rank 0), viscous CG {o0["iters2"]}, stiffness_uniform launches per '
+      f'rank {l2}, collectives/step {o0["stats2"]["collectives"] / steps2d:.1f},'
+      f' host-staged bytes/step {o0["stats2"]["host_bytes"] / steps2d:.0f}; '
+      f'vs phase 5: u rel {du2:.3e}, p rel {dp2:.3e}')
+  log(f'[40] {steps3d} CG-solved sharded TGV-box steps: {o0["ms3"]:.3f} '
+      f'ms/step, CG (viscous, pressure) {o0["iters3"]}, stiffness3d_uniform '
+      f'launches per rank {l3}, collectives/step '
+      f'{o0["stats3"]["collectives"] / steps3d:.1f}, host-staged bytes/step '
+      f'{o0["stats3"]["host_bytes"] / steps3d:.0f}; vs phase 19 (fused): u '
+      f'rel {du3:.3e}, p rel {dp3:.3e}')
+  require(all(n >= steps2d for n in l2), ('row 2 per rank', l2))
+  require(all(n >= steps3d for n in l3), ('row 6 per rank', l3))
+  require(du2 <= 1e-4 and du3 <= 1e-4, (du2, du3))
+  # The pressure solves stop at their tolerances (the certified datagen
+  # solve at atol 1e-4, whose second defect sweep may fire on one side
+  # only: phase 6's 1e-2; the TGV box's at tol 1e-5), and the sharded FDM
+  # transforms round otherwise: p read 2.6e-3 and 8.2e-5 (H100).
+  require(dp2 <= 1e-2 and dp3 <= 3e-4, (dp2, dp3))
+  times['stiffness_uniform']['sharded_launches_per_rank'] = l2
+  times['stiffness3d_uniform']['sharded_launches_per_rank'] = l3
+  times['stiffness_uniform']['sharded_launches_per_rank_step'] = (
+      min(l2) / steps2d)
+  times['stiffness3d_uniform']['sharded_launches_per_rank_step'] = (
+      min(l3) / steps3d)
+
+  # -- 39. distributed datagen at the reference configuration --------------
+  cfg200 = dataclasses.replace(cfg, num_cycles=1, num_steps_per_cycle=200,
+                               snapshot_every=10)
+  t0 = time.perf_counter()
+  walls, _, dstate, stats = datagen_distributed.run_simulation_distributed(
+      None, cfg200, num_ranks=nr, device=device, dtype=torch.float32,
+      sem=sem)
+  launch_s = time.perf_counter() - t0
+  state0 = datagen.initial_state(sem, cfg200)
+  advance = datagen.make_step_fn(sem, cfg200)
+  torch.cuda.synchronize(device)
+  t0 = time.perf_counter()
+  (us, ps, _), _ = advance(*state0)
+  torch.cuda.synchronize(device)
+  single_ms = (time.perf_counter() - t0) / 200 * 1e3
+  du = rel_err(host(dstate[0][-1]), tuple(c.cpu() for c in us[-1]))
+  dp = rel_err(torch.as_tensor(dstate[1][-1]), ps[-1].cpu())
+  ms = walls[0] / 200 * 1e3
+  log(f'[39] run_simulation_distributed, {cfg.resolution}^2 order '
+      f'{cfg.order}, {nr} ranks on one card, 200 steps: {ms:.3f} ms/step '
+      f'(rank 0, host clock; the single-device loop {single_ms:.3f}), '
+      f'{stats["collectives_per_step"]:.1f} collectives/step, '
+      f'{stats["host_bytes_per_step"]:.0f} host-staged bytes/step; launch to '
+      f'results {launch_s:.1f} s; vs single-device: u rel {du:.3e}, p rel '
+      f'{dp:.3e}')
+  require(all_finite(tuple(torch.as_tensor(c) for c in dstate[0][-1])),
+          'non-finite distributed datagen state')
+  # Phase 6's gates (u 1e-4; p 1e-2, the exact solve's second sweep may
+  # fire on one side only), p tightened to 3x its reading (7.8e-4, H100).
+  require(du <= 1e-4 and dp <= 2.5e-3, (du, dp))
+
+  run_cavity_phase(torch, device)
+
+
+# Phase 41's steps a mode.  A partitioned cavity step takes 400-650
+# pressure CG iterations (no preconditioner off the structured box) and
+# 2,000-3,000 collectives of ~2 ms each from the card: ~5-6 s a step on an
+# H100 in every mode.  The psum mode runs the 20 steps of the walled
+# phases; the neighbor and owner modes, whose arithmetic is the psum
+# mode's (every sum in ascending rank order), run 3 and are held bitwise
+# to the psum mode's state there.  All three at 20 took 369 s of the
+# script's 889 s.
+CAVITY_STEPS = {'psum': 20, 'neighbors': 3, 'owner': 3}
+# (u, p) gates relative to the unpartitioned run's largest entry, by step
+# count: about 3x the readings on an H100 (20 steps: 2.38e-7, 1.22e-5; 3
+# steps: 1.61e-6, 1.14e-5; the same in every mode).
+CAVITY_GATES = {20: (7.5e-7, 4e-5), 3: (5e-6, 3.5e-5)}
+
+
+def run_cavity_phase(torch, device, steps=None) -> None:
+  """Phase 41: the lid-driven cavity partitioned NUM_RANKS ways, each
+  exchange mode its `steps[mode]` steps (`CAVITY_STEPS`) against the
+  unpartitioned run on the card, and against the psum mode's state after
+  as many steps, bitwise.  The host builds each mode's tables once and
+  ships every rank its row; a rank does its host work on one thread (the
+  rest is on the card, and 4 ranks of 8 threads swamp a CPU rehearsal)."""
+  import numpy as np
+  from swirlfem_tpu_torch.core.bc import BCType
+  from swirlfem_tpu_torch.examples.cavity import lid_boundary_field
+  from swirlfem_tpu_torch.nse.solver import extk_coeffs
+  from swirlfem_tpu_torch.nse.solver import StokesSEM
+  from swirlfem_tpu_torch.parallel import spmd
+  from swirlfem_tpu_torch.utils import partition
+  from swirlfem_tpu_torch.utils.box import unit_cube_mesh
+  steps = dict(steps or CAVITY_STEPS)
+  nr = NUM_RANKS
+  # -- 41. the lid-driven cavity partitioned 4 ways -------------------------
+  n_el, order, re_, dt_ = 16, 7, 100.0, 1e-3
+  tol, atol = 1e-6, 1e-9
+  pm = unit_cube_mesh(n_el, ndim=2)
+  parts = partition.partition(pm, nr)
+  counts = np.bincount(parts, minlength=nr)
+  bcs = {'boundary': (BCType.DIRICHLET, 0.0)}
+  ref = StokesSEM.create(pm, bcs, order=order, device=device,
+                         dtype=torch.float32)
+  ub = lid_boundary_field(ref)
+  zu = torch.zeros((ref.velocity.mesh.num_nodes, 2), device=device)
+  zp = torch.zeros(ref.pressure.pspace.mesh.num_nodes, device=device)
+  us, ps, cus = (zu,) * 2, (zp,) * 2, (ref.C(zu + ub),) * 2
+  ext = [float(c) for c in extk_coeffs(k=1)]
+  refs = {}
+  for k in range(1, max(steps.values()) + 1):
+    u, p, _ = ref.stokes_one_step(
+        list(us), list(ps), -(ext[0] * cus[0] + ext[1] * cus[1]),
+        mu=1.0 / re_, dt=dt_, time_order=2, u_boundary=ub, tol=tol,
+        atol=atol, maxiter=2000)
+    us, ps, cus = us[1:] + (u - ub,), ps[1:] + (p,), cus[1:] + (ref.C(u),)
+    if k in steps.values():
+      refs[k] = ((us[-1] + ub).cpu().numpy(), ps[-1].cpu().numpy())
+  t0 = time.perf_counter()
+  parted = pm.replace(partitions=parts)
+  tables = {mode: StokesSEM.partition_tables(parted, order,
+                                             exchange_mode=mode)
+            for mode in steps}
+  shards = [{'premesh': parted,
+             'tables': {mode: rows[r] for mode, rows in tables.items()}}
+            for r in range(nr)]
+  log(f'[41] host tables of {len(steps)} modes, built once: '
+      f'{time.perf_counter() - t0:.2f} s')
+  t0 = time.perf_counter()
+  outs = spmd.launch(cavity_rank, shards, steps=steps, order=order,
+                     reynolds=re_, dt=dt_, tol=tol, atol=atol,
+                     device=str(device), timeout=900, threads=1)
+  log(f'[41] cavity {n_el}^2 order {order} in {nr} parts '
+      f'(utils.partition: {counts.tolist()} elements): launch to results '
+      f'{time.perf_counter() - t0:.1f} s')
+  ref_v = ref.velocity.mesh.node_coords.numpy()
+  ref_p = ref.pressure.pspace.mesh.node_coords.numpy()
+  for mode, count in steps.items():
+    u_ref, p_ref = refs[count]
+    res = [o[mode] for o in outs]
+    # The psum mode's arithmetic: its state after as many steps, bitwise.
+    as_psum = all(
+        np.array_equal(a, b) for o in outs
+        for a, b in zip(o[mode]['states'][count], o['psum']['states'][count]))
+    # Every copy of a shared velocity dof, on every rank, bitwise equal;
+    # then each node against the unpartitioned run's node at its place
+    # (the structured box numbers its nodes otherwise).
+    num_v = int(max(r['v_idx'].max() for r in res)) + 1
+    first = np.full((num_v, 2), np.nan, dtype=np.float32)
+    same = True
+    u_glob = np.full_like(u_ref, np.nan)
+    p_glob = np.full_like(p_ref, np.nan)
+    for r in res:
+      u_r, p_r = r['states'][count]
+      valid = r['v_idx'] >= 0
+      ids, vals = r['v_idx'][valid], u_r[valid]
+      seen = ~np.isnan(first[ids, 0])
+      same &= bool(np.array_equal(first[ids[seen]], vals[seen]))
+      first[ids[~seen]] = vals[~seen]
+      at = coordinate_rows(ref_v, r['v_xy'][valid])
+      require((at >= 0).all(), f'{mode}: a velocity node off the mesh')
+      u_glob[at] = vals
+      valid = r['p_idx'] >= 0
+      at = coordinate_rows(ref_p, r['p_xy'][valid])
+      require((at >= 0).all(), f'{mode}: a pressure node off the mesh')
+      p_glob[at] = p_r[valid]
+    require(not np.isnan(u_glob).any() and not np.isnan(p_glob).any(),
+            f'{mode}: a dof is missing')
+    du = float(np.abs(u_glob - u_ref).max() / np.abs(u_ref).max())
+    dp = float(np.abs(p_glob - p_ref).max() / np.abs(p_ref).max())
+    r0 = res[0]
+    log(f'[41] {mode} ({r0["plan"]}), {count} steps: '
+        f'{r0["ms_per_step"]:.2f} ms/step (rank 0), set-up '
+        f'{r0["setup_s"]:.2f} s, CG (viscous, pressure) first/last '
+        f'{r0["iters"][0]}/{r0["iters"][-1]}, collectives/step '
+        f'{r0["stats"]["collectives"]:.0f}, host-staged bytes/step '
+        f'{r0["stats"]["host_bytes"]:.0f}; copies bitwise equal {same}; '
+        f'bitwise the psum mode\'s state {as_psum}; vs unpartitioned: u rel '
+        f'{du:.3e}, p rel {dp:.3e}')
+    require(same, f'{mode}: the copies of a shared dof differ')
+    require(as_psum, f'{mode}: the state differs from the psum mode\'s')
+    gate_u, gate_p = CAVITY_GATES[count]
+    require(du <= gate_u and dp <= gate_p, (mode, count, du, dp))
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -2469,7 +2972,8 @@ def main() -> int:
                                kernel_checks, times, launches, sem3, us3,
                                tgv_run)
   tgv_box.update(full=tgv_run['sem'], us3=us3)
-  dg = {'sem': sem, 'cfg': cfg, 'state': state, 'us': us}
+  dg = {'sem': sem, 'cfg': cfg, 'state': state, 'us': us,
+        'cert_state': cert_state}
   run_split_phases(torch, device, dtype, tgv, kernel_checks, times,
                    launches, dg, walled, tgv_box)
   run_knob_phase(torch, device, dtype)
@@ -2479,6 +2983,8 @@ def main() -> int:
                                    launches)
   schwarz = run_schwarz_phases(torch, device, kernel_checks, times, launches,
                                small_runs)
+  run_distributed_phases(torch, device, kernel_checks, times, launches, dg,
+                         tgv_box)
 
   kernels = [
       {'name': 'exchange2d', 'route': 'cuda',

@@ -12,6 +12,7 @@ another implementation built.
 from __future__ import annotations
 
 from collections.abc import Mapping
+import dataclasses
 
 import numpy as np
 import torch
@@ -87,6 +88,57 @@ def sem3d_ops_from_arrays(arrays: Mapping[str, np.ndarray], *,
       g_affine=None if g_affine is None else dev(g_affine),
       c_uniform=None if c_uniform is None else tuple(map(float, c_uniform)),
       **knobs)
+
+
+def ops_arrays(ops) -> tuple[dict, dict]:
+  """A `Sem2DOps` / `Sem3DOps` as ``(arrays, kwargs)``: numpy arrays of its
+  fields (and ``'g_affine'`` where set) and what else
+  `sem_ops_from_arrays` needs to rebuild it (dimension, structured infos,
+  congruent scalars, kernel knobs)."""
+  three = isinstance(ops, Sem3DOps)
+  names = ((FIELD_NAMES_3D + STATIC_NAMES_3D) if three
+           else (FIELD_NAMES + STATIC_NAMES))
+  host = lambda a: (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+                    else np.asarray(a))
+  arrays = {name: host(getattr(ops, name)) for name in names
+            if getattr(ops, name) is not None}
+  if ops.g_affine is not None:
+    arrays['g_affine'] = host(ops.g_affine)
+  knobs = (KERNEL_KNOBS_3D if three else ('kernel_precision',)) + (
+      'use_kernels',)
+  kwargs = dict(ndim=3 if three else 2, vinfo=ops.vinfo, pinfo=ops.pinfo,
+                c_uniform=ops.c_uniform,
+                **{k: getattr(ops, k) for k in knobs})
+  return arrays, kwargs
+
+
+def slab_arrays(arrays: Mapping[str, np.ndarray], rank: int,
+                num_shards: int) -> dict:
+  """`rank`'s slab of `ops_arrays`: each E-last field cut to its contiguous
+  chunk of the row-major element grid (the slabs of element axis 0); the
+  1D matrices and any field with a broadcast E axis as they are."""
+  num_e = arrays['wmass'].shape[-1]
+  if num_e % num_shards:
+    raise ValueError(f'{num_e} elements do not split over {num_shards}')
+  size = num_e // num_shards
+  out = {}
+  for name, a in arrays.items():
+    static = name in STATIC_NAMES or name in STATIC_NAMES_3D
+    if static or a.shape[-1] != num_e:
+      out[name] = a
+    else:
+      out[name] = np.ascontiguousarray(a[..., rank * size:(rank + 1) * size])
+  return out
+
+
+def sem_ops_from_arrays(arrays: Mapping[str, np.ndarray], *, ndim: int,
+                        device, dtype, use_kernels: bool = True,
+                        **kwargs):
+  """`sem2d_ops_from_arrays` or `sem3d_ops_from_arrays` by `ndim`, with
+  `use_kernels` set (e.g. on the `slab_arrays` of `ops_arrays`)."""
+  build = sem3d_ops_from_arrays if ndim == 3 else sem2d_ops_from_arrays
+  ops = build(arrays, device=device, dtype=dtype, **kwargs)
+  return ops if use_kernels else dataclasses.replace(ops, use_kernels=False)
 
 
 def el_state_from_arrays(us, ps, cus, *, device, dtype):

@@ -110,7 +110,7 @@ class Config(_Get):
   checkpoint_epochs: float = 1
   eval_every_epochs: float = 0.1
   cache: bool = True
-  profile_dir: str = ''
+  profile_dir: str = ''  # set to capture profiler trace windows
   num_train_steps: int = -1
   steps_per_eval: int = 10
   # Also evaluate the zero-forcing (no-model) rollout on each eval batch.

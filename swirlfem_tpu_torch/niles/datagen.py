@@ -178,17 +178,24 @@ def one_cycle(sem, cfg: DatagenConfig, advance, start_step, us, ps, cus,
   frames = {key: np.stack(val) for key, val in frames.items()}
 
   if workdir is not None:
-    import h5py  # only the shard writer needs it
-    end_step = start_step + cfg.num_steps_per_cycle
-    path = os.path.join(
-        workdir,
-        f'{cfg.split}_kolmogorov_grid_{cfg.resolution}_order_{cfg.order}'
-        f'_step_{start_step}_{end_step}.h5')
-    with h5py.File(path, 'w') as f:
-      for key, val in frames.items():
-        f[key] = val
-    log.info('wrote %s', path)
+    write_shard(workdir, cfg, start_step, frames)
   return us, ps, cus, wall, frames
+
+
+def write_shard(workdir: str, cfg: DatagenConfig, start_step: int,
+                frames: dict) -> str:
+  """Writes one cycle's frames (``t``, ``u``, ``p``) to its HDF5 shard."""
+  import h5py  # only the shard writer needs it
+  end_step = start_step + cfg.num_steps_per_cycle
+  path = os.path.join(
+      workdir,
+      f'{cfg.split}_kolmogorov_grid_{cfg.resolution}_order_{cfg.order}'
+      f'_step_{start_step}_{end_step}.h5')
+  with h5py.File(path, 'w') as f:
+    for key, val in frames.items():
+      f[key] = val
+  log.info('wrote %s', path)
+  return path
 
 
 def initial_state(sem, cfg: DatagenConfig):

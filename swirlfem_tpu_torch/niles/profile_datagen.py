@@ -16,6 +16,7 @@ import time
 import torch
 
 from swirlfem_tpu_torch.niles import datagen
+from swirlfem_tpu_torch.utils import profiling
 
 
 def _self_device_us(evt) -> float:
@@ -83,10 +84,7 @@ class StepProfiler:
     self._prof = self._t0 = None
 
   def start(self) -> None:
-    self._prof = torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA])
-    self._prof.__enter__()
+    self._prof = profiling.start_profiler()
     self._t0 = time.perf_counter()
 
   def stop(self) -> dict | None:

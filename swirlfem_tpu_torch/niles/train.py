@@ -674,9 +674,16 @@ def train_and_evaluate(config, workdir: str, *,
           kl_penalty_fn, sem, to_grid, config, preconds)))
     return _summary(evals)
 
+  profile = None
+  if config.get('profile_dir'):
+    from swirlfem_tpu_torch.utils.profiling import PeriodicProfile
+    profile = PeriodicProfile(config.profile_dir)
+
   train_metrics, last_t = [], time.time()
   log.info('starting training: %d steps', num_steps)
   for step in range(state.step, num_steps):
+    if profile is not None:
+      profile(step)
     batch = put(next(train_iter))
     state, metrics, _ = train_step(
         state, batch, make_draws_fn(model, config.batch_size, seed, step,
@@ -703,6 +710,8 @@ def train_and_evaluate(config, workdir: str, *,
                            {f'eval_{k}': v for k, v in summary.items()})
     if (step + 1) % steps_per_checkpoint == 0 or step + 1 == num_steps:
       save_checkpoint(workdir, state)
+  if profile is not None:
+    profile.close()
 
   fe_batch = config.get('final_eval_batch_size', 0)
   if fe_batch:

@@ -91,6 +91,26 @@ def _refine(premesh: Premesh, gridpoints: Nodes1D, coord_transform):
   return refined
 
 
+def _velocity_grid(order: int) -> Nodes1D:
+  return Nodes1D.create(num_points=order + 1,
+                        node_type=NodeType.GAUSS_LOBATTO_LEGENDRE)
+
+
+def _pressure_grid(order: int) -> Nodes1D:
+  return Nodes1D.create(num_points=order - 1,
+                        node_type=NodeType.GAUSS_LEGENDRE)
+
+
+def _space_mesh(premesh: Premesh, gridpoints: Nodes1D, coord_transform, *,
+                device, dtype, axis, tables) -> Mesh:
+  """A space's mesh: the refined premesh finalized, or on a rank of a
+  partitioned mesh its shipped row of the host's tables."""
+  if tables is not None:
+    return tables.mesh(axis, device=device, dtype=dtype)
+  return _refine(premesh, gridpoints, coord_transform).finalize(
+      device=device, dtype=dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class StokesProjection:
   """Solve-history pair for `stokes_one_step(projection_state=...)`: pass it
@@ -114,11 +134,10 @@ class StokesPressure:
 
   @classmethod
   def create(cls, premesh: Premesh, quadrature: Quadrature1D, order: int, *,
-             device, dtype, coord_transform=None) -> 'StokesPressure':
-    gridpoints = Nodes1D.create(num_points=order - 1,
-                                node_type=NodeType.GAUSS_LEGENDRE)
-    pmesh = _refine(premesh, gridpoints, coord_transform).finalize(
-        device=device, dtype=dtype)
+             device, dtype, coord_transform=None, axis=None,
+             tables=None) -> 'StokesPressure':
+    pmesh = _space_mesh(premesh, _pressure_grid(order), coord_transform,
+                        device=device, dtype=dtype, axis=axis, tables=tables)
     return cls(pspace=FiniteElementSpace.create(pmesh, quadrature))
 
   def to(self, device, dtype: torch.dtype) -> 'StokesPressure':
@@ -159,11 +178,11 @@ class StokesVelocity:
   @classmethod
   def create(cls, premesh: Premesh, order: int, boundary_conditions,
              num_convection_overint_nodes: int = 2, *,
-             device, dtype, coord_transform=None) -> 'StokesVelocity':
-    gridpoints = Nodes1D.create(num_points=order + 1,
-                                node_type=NodeType.GAUSS_LOBATTO_LEGENDRE)
-    vmesh = _refine(premesh, gridpoints, coord_transform).finalize(
-        device=device, dtype=dtype)
+             device, dtype, coord_transform=None, axis=None,
+             tables=None) -> 'StokesVelocity':
+    gridpoints = _velocity_grid(order)
+    vmesh = _space_mesh(premesh, gridpoints, coord_transform, device=device,
+                        dtype=dtype, axis=axis, tables=tables)
     overint_grid = Nodes1D.create(
         num_points=gridpoints.num_points + num_convection_overint_nodes,
         node_type=NodeType.GAUSS_LOBATTO_LEGENDRE)
@@ -208,11 +227,8 @@ class StokesVelocity:
                         for i in range(u_local.shape[-1])], dim=-1)
 
   def exchange(self, u: torch.Tensor) -> torch.Tensor:
-    if self.mesh.exchange_gather_indices is None or (
-        self.mesh.exchange_gather_indices.numel() == 0):
-      return u
-    return torch.stack([self.mesh.exchange(u[..., i])
-                        for i in range(u.shape[-1])], dim=-1)
+    """Q Q^T on nodal ``(N, d)``: every component in one exchange."""
+    return self.mesh.exchange(u)
 
   def B_local(self, u_local: torch.Tensor) -> torch.Tensor:
     """Vector mass: form ``int u . v`` (diagonal on collocated GLL)."""
@@ -284,7 +300,11 @@ class StokesSEM:
   element operators' fields on `device` in `dtype` (structured boxes, and
   unstructured 2D meshes with ``unstructured_el_ops=True``; None
   elsewhere), and `nodal` the nodal steps' tables there (built on first
-  use, like the Jacobi diagonals, into `cache`).
+  use, like the Jacobi diagonals, into `cache`).  On a rank of a
+  partitioned mesh, `axis` is its `parallel.spmd.Axis`: the meshes'
+  exchanges and `dot` reduce across the ranks, and the nodal vectors are
+  the rank's shards (`core.mesh.PartitionedMesh.shard_nodal`; a forcing
+  is a covector, split among the copies of a shared dof).
   """
 
   velocity: StokesVelocity
@@ -296,6 +316,7 @@ class StokesSEM:
   # Assembled mixed-divergence blocks (unstructured meshes; ops.assembled),
   # float64 on the host: D and Dt become one batched block product each.
   assembled_ops: Any = None
+  axis: Any = None
   cache: dict = dataclasses.field(default_factory=dict, repr=False,
                                   compare=False)
 
@@ -305,7 +326,8 @@ class StokesSEM:
              kernel_precision: str = 'highest',
              coord_transform=None, use_kernels: bool = True,
              unstructured_el_ops: bool = False,
-             use_assembled_ops: bool | str = 'auto') -> 'StokesSEM':
+             use_assembled_ops: bool | str = 'auto', axis=None,
+             tables=None) -> 'StokesSEM':
     """Builds the solver on the host and moves the step's fields.
 
     `coord_transform(refined_premesh) -> node_coords` moves the refined
@@ -323,13 +345,24 @@ class StokesSEM:
     gather/scatter layout transforms (opt-in, as in the JAX package).
     `use_assembled_ops` ('auto': on meshes without `fast_ops`, up to 16M
     block entries) assembles D and D^T into element blocks.
+    On a rank of a partitioned premesh, `axis` is the rank's
+    `parallel.spmd.Axis` and `tables` its row of both spaces' stacked
+    tables, which the host builds once (`partition_tables`); the solver
+    steps through the generic operators (as the JAX package does:
+    ``swirlfem_tpu/nse/solver.py:267-360``).
     """
     if premesh.order != 1:
       raise ValueError(f'expected an order-1 premesh, got {premesh.order}')
-    if premesh.is_partitioned() or premesh.ndim not in (2, 3):
-      raise NotImplementedError(
-          'only the single-device 2D and 3D paths are ported (partitioned '
-          'meshes: ROADMAP.md, Queue 1 item 17)')
+    if premesh.ndim not in (2, 3):
+      raise NotImplementedError('only the 2D and 3D paths are ported')
+    partitioned = premesh.is_partitioned()
+    if partitioned and (axis is None or tables is None):
+      raise ValueError('a partitioned premesh needs the rank\'s axis and its '
+                       'row of StokesSEM.partition_tables()')
+    if partitioned and (unstructured_el_ops or use_assembled_ops is True):
+      raise ValueError('a partitioned mesh steps through the generic '
+                       'operators only')
+    spaces = dict(axis=axis if partitioned else None, **_HOST)
     # The FDM transforms and every float32 product must stay float32-exact
     # (the JAX package runs them at HIGHEST precision).
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -337,15 +370,15 @@ class StokesSEM:
     quadrature = Quadrature1D.create(
         num_points=order + 1,
         quadrature_type=NodeType.GAUSS_LOBATTO_LEGENDRE)
-    pressure = StokesPressure.create(premesh, quadrature, order,
-                                     coord_transform=coord_transform,
-                                     **_HOST)
-    velocity = StokesVelocity.create(premesh, order, boundary_conditions,
-                                     coord_transform=coord_transform,
-                                     **_HOST)
+    pressure = StokesPressure.create(
+        premesh, quadrature, order, coord_transform=coord_transform,
+        tables=tables['pressure'] if partitioned else None, **spaces)
+    velocity = StokesVelocity.create(
+        premesh, order, boundary_conditions, coord_transform=coord_transform,
+        tables=tables['velocity'] if partitioned else None, **spaces)
     ones = torch.ones(velocity.local_shape, **_HOST)
     velocity_mass_diag = velocity.scatter(velocity.B_local(ones))
-    if coord_transform is not None:
+    if coord_transform is not None and not partitioned:
       vs = velocity.vspace
       pressure = StokesPressure(pspace=dataclasses.replace(
           pressure.pspace, invjacs=vs.invjacs, jacdets=vs.jacdets,
@@ -353,7 +386,7 @@ class StokesSEM:
     structured = (velocity.mesh.structured is not None
                   and pressure.pspace.mesh.structured is not None)
     device = torch.device(device)
-    fast_ops = None
+    fast_ops = None  # (a partitioned premesh refines without the grid)
     if premesh.ndim == 2 and (structured or unstructured_el_ops):
       fast_ops = sem2d.build_sem2d_ops(velocity, pressure,
                                        kernel_precision=kernel_precision,
@@ -365,12 +398,13 @@ class StokesSEM:
               velocity_mass_diag=velocity_mass_diag,
               fast_ops=None if fast_ops is None else fast_ops.to(device,
                                                                  dtype),
-              device=device, dtype=dtype)
+              device=device, dtype=dtype, axis=axis if partitioned else None)
     if use_assembled_ops == 'auto':
       entries = (premesh.num_elements
                  * pressure.pspace.mesh.num_nodes_per_element
                  * velocity.mesh.num_nodes_per_element * premesh.ndim)
-      use_assembled_ops = fast_ops is None and entries <= 16_000_000
+      use_assembled_ops = (fast_ops is None and not partitioned
+                           and entries <= 16_000_000)
     if use_assembled_ops:
       if fast_ops is not None:
         raise ValueError('use_assembled_ops requires a mesh without the '
@@ -379,8 +413,28 @@ class StokesSEM:
       sem = dataclasses.replace(sem, assembled_ops=build_assembled_mixed(sem))
     return sem
 
+  @staticmethod
+  def partition_tables(premesh: Premesh, order: int, *,
+                       exchange_mode: str = 'auto',
+                       coord_transform=None) -> list[dict]:
+    """The host side of a partitioned solver: both spaces' stacked tables
+    (`Premesh.partition_tables`), built once.  Returns each rank's rows,
+    ``{'velocity': PartitionRow, 'pressure': PartitionRow}``, for
+    ``create(..., axis=, tables=rows[rank])``."""
+    if not premesh.is_partitioned():
+      raise ValueError('partition_tables needs a partitioned premesh')
+    spaces = {
+        name: _refine(premesh, grid, coord_transform).partition_tables(
+            exchange_mode)
+        for name, grid in (('velocity', _velocity_grid(order)),
+                           ('pressure', _pressure_grid(order)))}
+    return [{name: t.row(r) for name, t in spaces.items()}
+            for r in range(spaces['velocity'].num_partitions)]
+
   def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return vdot(a, b)
+    """Inner product; summed across the ranks of a partitioned mesh."""
+    d = vdot(a, b)
+    return d if self.axis is None else self.axis.psum(d)
 
   def host_copy(self) -> 'StokesSEM':
     """This solver's generic operators on the host in float64 (the setup
@@ -481,11 +535,14 @@ class StokesSEM:
     return nodal.velocity.interior_mask * nodal.mass_diag * u
 
   def Bi(self, u):
-    """Lumped inverse velocity mass: 1/exchange(diag) after exchange."""
+    """Lumped inverse velocity mass: 1/exchange(diag) after exchange (the
+    inverted diagonal built once)."""
     vel = self.nodal.velocity
-    d = vel.exchange(self.nodal.mass_diag)
-    diag = torch.where(d > 0, 1.0 / torch.where(d > 0, d, 1.0), 0.0)
-    return diag * vel.exchange(u)
+    if 'mass_inv' not in self.cache:
+      d = vel.exchange(self.nodal.mass_diag)
+      self.cache['mass_inv'] = torch.where(
+          d > 0, 1.0 / torch.where(d > 0, d, 1.0), 0.0)
+    return self.cache['mass_inv'] * vel.exchange(u)
 
   def A(self, u):
     """Velocity stiffness (row-masked), generic forms."""
@@ -586,8 +643,13 @@ class StokesSEM:
 
   def _pressure_ones(self, like):
     """Valid-pressure-dof indicator (the constant-nullspace direction): ones
-    on an unpartitioned mesh."""
-    return torch.ones_like(like)
+    on an unpartitioned mesh; on a rank of a partitioned one the padded
+    slots are 0, so that nullspace projections neither count them nor
+    write into them."""
+    if self.axis is None:
+      return torch.ones_like(like)
+    valid = self.nodal.pressure.pspace.mesh.node_indices != topology.SENTINEL
+    return valid.to(like.dtype).reshape(like.shape)
 
   # Layout transforms between flat nodal arrays and E-last element-local
   # ``(q, .., q, E)`` blocks: index-free on structured boxes, one index of
@@ -669,10 +731,14 @@ class StokesSEM:
 
   def _pressure_project_out_nullspace(self, p):
     """Removes the constant (all-ones) nullspace component from p, in the
-    euclidean inner product (``swirlfem_tpu/nse/solver.py:95-107``)."""
+    euclidean inner product (``swirlfem_tpu/nse/solver.py:95-107``); <q, q>
+    is computed once (on a partitioned mesh it costs a collective)."""
     w = self.nodal.pressure.exchange(p)
     q = self._pressure_ones(p)
-    return w - (self.dot(q, w) / self.dot(q, q)) * q
+    key = ('ones_dot', p.dtype, str(p.device))
+    if key not in self.cache:
+      self.cache[key] = self.dot(q, q)
+    return w - (self.dot(q, w) / self.cache[key]) * q
 
   def stokes_one_step(self, us, ps, f, mu: float, dt: float, time_order: int,
                       alpha: float = 0.05, u_boundary=None,

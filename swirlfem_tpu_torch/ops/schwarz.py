@@ -28,7 +28,7 @@ coarse restriction) add in a fixed order (`topology.ScatterTable`).
 
 The host graph code is a numpy copy of the JAX package's, function by
 function, under the same names.  Partitioned meshes are not ported yet
-(ROADMAP.md, Queue 1 item 17).
+(ROADMAP.md, Queue 1 item 17b).
 """
 
 from __future__ import annotations
@@ -565,7 +565,7 @@ def build_schwarz_pressure_solver(sem, premesh, boundary_conditions,
   if premesh.is_partitioned():
     raise NotImplementedError(
         'the Schwarz preconditioner of a partitioned mesh is not ported yet '
-        '(ROADMAP.md, Queue 1 item 17)')
+        '(ROADMAP.md, Queue 1 item 17b)')
   t0 = time.perf_counter()
   pmesh = sem.pressure.pspace.mesh
   d = premesh.ndim

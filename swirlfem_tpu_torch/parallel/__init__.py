@@ -1,0 +1,1 @@
+"""parallel modules of the PyTorch port (see the package docstring)."""

@@ -33,10 +33,12 @@ MODULES = [
     'swirlfem_tpu_torch.niles.config',
     'swirlfem_tpu_torch.niles.datagen',
     'swirlfem_tpu_torch.niles.datagen_config',
+    'swirlfem_tpu_torch.niles.datagen_distributed',
     'swirlfem_tpu_torch.niles.input_pipeline',
     'swirlfem_tpu_torch.niles.main',
     'swirlfem_tpu_torch.niles.profile_datagen',
     'swirlfem_tpu_torch.niles.train',
+    'swirlfem_tpu_torch.nse.distributed',
     'swirlfem_tpu_torch.nse.scalar',
     'swirlfem_tpu_torch.nse.solver',
     'swirlfem_tpu_torch.ops.assembled',
@@ -55,12 +57,15 @@ MODULES = [
     'swirlfem_tpu_torch.ops.schwarz',
     'swirlfem_tpu_torch.ops.sem2d',
     'swirlfem_tpu_torch.ops.sem3d',
+    'swirlfem_tpu_torch.parallel.spmd',
     'swirlfem_tpu_torch.sde.nn_sde',
     'swirlfem_tpu_torch.sde.sdeint',
     'swirlfem_tpu_torch.utils.box',
     'swirlfem_tpu_torch.utils.cylinder',
     'swirlfem_tpu_torch.utils.facets',
     'swirlfem_tpu_torch.utils.gmsh',
+    'swirlfem_tpu_torch.utils.partition',
+    'swirlfem_tpu_torch.utils.profiling',
 ]
 
 CHECK = """
