@@ -190,7 +190,29 @@ datagen cycle's frames.  Phases:
      psum mode, 3 in the neighbor and owner modes (`CAVITY_STEPS`), against
      the same steps unpartitioned on the card (`CAVITY_GATES`, relative)
      and bitwise against the psum mode's state after as many steps, every
-     shared velocity dof's copies bitwise equal across the ranks.
+     shared velocity dof's copies bitwise equal across the ranks;
+ 42. the communication layer on the 4 ranks, on the card: `pscan` and
+     `preduce` in both methods against a host oracle, the crystal
+     router's dense, ppermute and ragged forms placing every row bitwise
+     alike, the 128^2 mesh's element fields repartitioned from
+     `utils.partition.partition` to slabs and back, bitwise, and each
+     collective's backward against its adjoint computed on the host;
+ 43. the distributed two-level Schwarz at full width: the JAX package's
+     `experiments/schwarz_scale.py` configuration (a warped 128^2 cavity,
+     order 4, overlap 0, the 'vertex-cheb' coarse, the neighbor exchange,
+     the element-FDM viscous preconditioner) on 4 ranks from one host
+     set-up (`SCHWARZ_SCALE`): in float32 at tol 1e-5, the apply against
+     the single-device float64 Schwarz on the same twin, 20 repeats of it
+     bitwise, CG iterations, ms/step and collectives a step over 5 steps;
+     in float64 at tol 1e-8, the apply and 5 steps against the same
+     unpartitioned on the card;
+ 44. gradients and the scalar: one certified sharded datagen step (64^2,
+     order 8, 4 slabs) differentiated by a forcing scale against the
+     single-device step on the card, row 2's launches counted forward and
+     backward on every rank; one partitioned step of phase 41's cavity
+     (psum mode) differentiated against the unpartitioned step; 3
+     partitioned passive-scalar steps against the unpartitioned ones
+     (`LATE_GATES`).
 
 Each kernel's count is set to 0 just before the path that launches it and
 read just after.  Every kernel's bound is the larger of its bytes (each
@@ -2772,6 +2794,636 @@ def run_cavity_phase(torch, device, steps=None) -> None:
     require(du <= gate_u and dp <= gate_p, (mode, count, du, dp))
 
 
+# -- Phases 42-44: the distributed layer, part two -----------------------------
+
+# The full-width distributed Schwarz run (phase 43): the JAX package's
+# `experiments/schwarz_scale.py` configuration, its 8 partitions cut to the
+# 4 ranks.  The ranks run it twice from the same float64 tables: in
+# float32 at tol 1e-5 (the configuration's cut of the JAX run's float64 at
+# 1e-8) for the times, the CG counts and the collectives, and in float64
+# at the JAX run's tol 1e-8 for the steps' agreement with the same steps
+# unpartitioned.  Two correct float32 runs at tol 1e-5 sit ~7e-2 apart in
+# p after 5 steps on this mesh (PERF.md §6): too loose a yardstick for the
+# partitioning.  Both stop at the relative test alone (atol 0; the JAX
+# run's atol = tol = 1e-8 sits below its relative test in float64).
+SCHWARZ_SCALE = dict(n=128, order=4, dt=1e-2, time_order=2, mu=1e-3,
+                     tol=1e-5, tol64=1e-8, atol=0.0, steps=5, repeats=20)
+# Phases 43-44's gates, relative to the reference's largest entry: about
+# 3x the readings on an H100 (each the same in every call that read it):
+# the float32 apply 2.389e-6 and the float64 one 2.687e-15 from the
+# single-device float64 apply; the float64 steps u 1.226e-11, p 1.063e-10
+# from the unpartitioned ones; at most 13 (float32) and 22 (float64)
+# pressure CG iterations a step; the cavity gradient 2.590e-7, the scalar
+# 3.578e-7.  The sharded gradient (a float32 sum over the ranks of about
+# 5.35e9) reads 2.392e-8 and read 8.155e-8 under an earlier forcing: its
+# gate is four float32 ulps (1.19e-7 each), not 3x one input's rounding.
+LATE_GATES = {'apply': 7.2e-6, 'apply64': 8.1e-15, 'u43': 3.7e-11,
+              'p43': 3.2e-10, 'iters43': {'float32': 39, 'float64': 66},
+              'grad_box': 5e-7, 'grad_cavity': 7.8e-7, 'scalar': 1.1e-6}
+
+
+def _host_adjoint(name, gs, size):
+  """Every rank's input cotangent from every rank's output cotangent (the
+  adjoint of each collective as `late_rank` calls it)."""
+  import numpy as np
+  ring = [(i, (i + 1) % size) for i in range(size)]
+  out = []
+  for r in range(size):
+    if name == 'psum':
+      total = gs[0]
+      for g in gs[1:]:
+        total = total + g
+    elif name == 'ppermute':
+      dst = [d for s, d in ring[:-1] if s == r]
+      total = gs[dst[0]] if dst else np.zeros_like(gs[0])
+    elif name == 'all_to_all':       # split 0, concat 1 (tiled)
+      cols = gs.shape[2] // size
+      total = np.concatenate([gs[j][:, r * cols:(r + 1) * cols]
+                              for j in range(size)], axis=0)
+    elif name == 'all_gather':       # stacked at axis 1
+      total = gs[0][:, r]
+      for g in gs[1:]:
+        total = total + g[:, r]
+    out.append(total)
+  return out
+
+
+def _comm_checks(ax, shard, device):
+  """Phase 42 on one rank: every result on the card, read back."""
+  import numpy as np
+  import torch
+  from swirlfem_tpu_torch.parallel import crystal_router
+  from swirlfem_tpu_torch.parallel import pscan
+  from swirlfem_tpu_torch.parallel import repartition
+  me = ax.index
+  out = {'scan': {}, 'route': {}}
+  ops = {'add': torch.add, 'mul': torch.mul, 'maximum': torch.maximum,
+         'minimum': torch.minimum}
+  vals = torch.as_tensor(shard['scan_values'][me], device=device)
+  for name, op in ops.items():
+    for method in ('all_gather', 'tree'):
+      out['scan'][(name, method)] = pscan.pscan(vals, op, ax, reduction=True,
+                                                method=method)
+  ints = torch.as_tensor(shard['bits'][me], device=device)
+  out['preduce'] = pscan.preduce(ints, torch.bitwise_or, ax)
+  route = shard['route']
+  data = {'a': torch.as_tensor(route['a'][me], device=device),
+          'b': torch.as_tensor(route['b'][me], device=device)}
+  target = torch.as_tensor(route['target'][me], device=device)
+  for impl in ('dense', 'ppermute', 'ragged'):
+    out['route'][impl] = crystal_router.crystal_router_spmd(
+        int(route['n'][me]), data, target, ax=ax,
+        out_capacity=route['capacity'], implementation=impl)
+  rp = shard['repartition']
+  fields = {'u': torch.as_tensor(rp['fields'], device=device)}
+  t0 = time.perf_counter()
+  there, _ = repartition.repartition_element_fields(ax, rp['old'], rp['new'],
+                                                    fields)
+  back, _ = repartition.repartition_element_fields(ax, rp['new'], rp['old'],
+                                                   there)
+  out['repartition'] = {'there': there['u'], 'back': back['u'],
+                        'ms': (time.perf_counter() - t0) * 1e3}
+  rng = np.random.default_rng(42)
+  ring = [(i, (i + 1) % ax.size) for i in range(ax.size)]
+  cases = {'psum': lambda x: ax.psum(x),
+           'ppermute': lambda x: ax.ppermute(x, ring[:-1]),
+           'all_to_all': lambda x: ax.all_to_all(x, 0, 1),
+           'all_gather': lambda x: ax.all_gather(x, 1)}
+  out['adjoint'] = {}
+  for name, fn in cases.items():
+    xs = rng.standard_normal((ax.size, ax.size, 2))
+    x = torch.as_tensor(xs[me], device=device).requires_grad_()
+    y = fn(x)
+    gs = rng.standard_normal((ax.size,) + tuple(y.shape))
+    y.backward(torch.as_tensor(gs[me], device=device))
+    out['adjoint'][name] = {'gs': gs, 'grad': x.grad}
+  return out
+
+
+def late_rank(ax, shard, *, device, scale, cfg, cavity):
+  """Phases 42-44 on one rank (a `spmd.launch` function)."""
+  import torch
+  from swirlfem_tpu_torch.core.bc import BCType
+  from swirlfem_tpu_torch.examples.cavity import lid_boundary_field
+  from swirlfem_tpu_torch.nse.distributed import DistributedStokesBox
+  from swirlfem_tpu_torch.nse.scalar import ScalarTransport
+  from swirlfem_tpu_torch.nse.solver import StokesSEM
+  from swirlfem_tpu_torch.ops import cuda_stiffness
+  from swirlfem_tpu_torch.ops.fdm_element import build_element_fdm
+  dtype = torch.float32
+  sync = ((lambda: torch.cuda.synchronize(device))
+          if torch.device(device).type == 'cuda' else (lambda: None))
+  bcs = {'boundary': (BCType.DIRICHLET, 0.0)}
+  out = {}
+  # -- 42. the communication layer ------------------------------------------
+  out['comm'] = _comm_checks(ax, shard['comm'], device)
+
+  # -- 43. the full-width distributed Schwarz -------------------------------
+  # float32 at tol 1e-5 (the configuration's cut) for the times, the CG
+  # counts and the collectives; float64 at the JAX run's tol 1e-8 for the
+  # steps' agreement with the unpartitioned run.
+  s43 = shard['s43']
+  out['s43'] = {}
+  for rank_dtype, tol in ((torch.float32, scale['tol']),
+                          (torch.float64, scale['tol64'])):
+    t0 = time.perf_counter()
+    sem = StokesSEM.create(s43['premesh'], bcs, order=scale['order'],
+                           device=device, dtype=rank_dtype, axis=ax,
+                           tables=s43['tables'])
+    m = s43['schwarz'].on_rank(ax, device=device, dtype=rank_dtype)
+    fdm = build_element_fdm(sem)
+    sync()
+    res = {'setup_s': time.perf_counter() - t0}
+    r = torch.as_tensor(s43['r'], dtype=rank_dtype, device=device)
+    y = m(r)
+    sync()
+    ax.reset_stats()
+    t0 = time.perf_counter()
+    same = True
+    for _ in range(scale['repeats']):
+      same &= bool(torch.equal(m(r), y))
+    sync()
+    res['apply'] = {'y': y, 'bitwise': same,
+                    'ms': (time.perf_counter() - t0) / scale['repeats'] * 1e3,
+                    'collectives': ax.stats['collectives'] / scale['repeats']}
+    u0 = torch.as_tensor(s43['u0'], dtype=rank_dtype, device=device)
+    zp = torch.zeros(sem.pressure.pspace.mesh.num_nodes, dtype=rank_dtype,
+                     device=device)
+    us, ps = [u0, 0.9 * u0], [zp, zp]
+    sync()
+    ax.reset_stats()
+    t0 = time.perf_counter()
+    iters = []
+    for _ in range(scale['steps']):
+      u, p, aux = sem.stokes_one_step(
+          us, ps, 0.0, pressure_preconditioner=m, viscous_fdm=fdm,
+          mu=scale['mu'], dt=scale['dt'], time_order=scale['time_order'],
+          tol=tol, atol=scale['atol'], maxiter=2000)
+      us, ps = [us[-1], u], [ps[-1], p]
+      iters.append((int(aux['u_star_info']['num_iterations']),
+                    int(aux['dp_info']['num_iterations'])))
+    sync()
+    res['steps'] = {'u': us[-1], 'p': ps[-1], 'iters': iters,
+                    'ms': (time.perf_counter() - t0) / scale['steps'] * 1e3,
+                    'stats': {k: v / scale['steps']
+                              for k, v in ax.stats.items()}}
+    out['s43'][str(rank_dtype).removeprefix('torch.')] = res
+    del sem, m, fdm
+
+  # -- 44. the certified sharded step, differentiated ------------------------
+  box = DistributedStokesBox(shard['slab'], ax, device=device, dtype=dtype)
+  step = box.make_step(mu=1.0 / cfg.reynolds_number, dt=cfg.dt,
+                       time_order=cfg.time_order, tol=1e-5, atol=1e-4,
+                       preconditioner='fdm', exact_solves=False)
+  bus, bps, _ = box.to_device(shard['state'])
+  f_base = box.to_device(shard['f_base'])
+  theta = torch.tensor(1.0, dtype=dtype, device=device, requires_grad=True)
+  sync()
+  cuda_stiffness.stiffness_uniform.launches = 0
+  t0 = time.perf_counter()
+  u, _, _ = step(list(bus), list(bps), tuple(theta * c for c in f_base))
+  loss = sum((c * c).sum() for c in u)
+  fwd = cuda_stiffness.stiffness_uniform.launches
+  loss.backward()
+  sync()
+  out['grad_box'] = {'grad': float(theta.grad), 'loss': float(loss.detach()),
+                     'launches_fwd': fwd,
+                     'launches_bwd': cuda_stiffness.stiffness_uniform.launches
+                                     - fwd,
+                     'ms': (time.perf_counter() - t0) * 1e3}
+
+  # -- 44. the partitioned cavity step, differentiated; the scalar ----------
+  sem = StokesSEM.create(cavity['premesh'], bcs, order=cavity['order'],
+                         device=device, dtype=dtype, axis=ax,
+                         tables=shard['cavity']['tables'])
+  ub = lid_boundary_field(sem)
+  zu = torch.zeros((sem.velocity.mesh.num_nodes, 2), dtype=dtype,
+                   device=device)
+  zp = torch.zeros(sem.pressure.pspace.mesh.num_nodes, dtype=dtype,
+                   device=device)
+  c0 = sem.C(zu + ub)
+  w = torch.as_tensor(shard['cavity']['w'], dtype=dtype, device=device)
+  # The forcing's scaled part: a smooth field as a covector, split among
+  # its copies (1 / multiplicity), as the JAX test splits it.
+  g = torch.as_tensor(shard['cavity']['g'], dtype=dtype, device=device)
+  theta = torch.tensor(1.0, dtype=dtype, device=device, requires_grad=True)
+  sync()
+  t0 = time.perf_counter()
+  u, _, aux = sem.stokes_one_step(
+      [zu, zu], [zp, zp], -c0 + theta * (w[:, None] * g),
+      mu=1.0 / cavity['reynolds'],
+      dt=cavity['dt'], time_order=2, u_boundary=ub, tol=cavity['tol'],
+      atol=cavity['atol'], maxiter=2000)
+  loss = ax.psum((w[:, None] * u * u).sum())
+  loss.backward(torch.ones_like(loss) if ax.index == 0
+                else torch.zeros_like(loss))
+  sync()
+  out['grad_cavity'] = {'grad': float(theta.grad),
+                        'loss': float(loss.detach()),
+                        'ms': (time.perf_counter() - t0) * 1e3,
+                        'iters': (int(aux['u_star_info']['num_iterations']),
+                                  int(aux['dp_info']['num_iterations']))}
+  st = ScalarTransport.create(sem, bcs)
+  xy = sem.velocity.mesh.node_coords.to(device=device, dtype=dtype)
+  valid = (torch.as_tensor(sem.velocity.mesh.node_indices, device=device)
+           >= 0).to(dtype)
+  th = torch.sin(torch.pi * xy[:, 0]) * torch.sin(torch.pi * xy[:, 1]) * valid
+  uu = torch.stack([torch.sin(torch.pi * xy[:, 1]) * xy[:, 0] * (1 - xy[:, 0]),
+                    0.1 * torch.cos(torch.pi * xy[:, 0])], -1) * valid[:, None]
+  thetas = [th, th]
+  sync()
+  t0 = time.perf_counter()
+  for _ in range(cavity['scalar_steps']):
+    new, _ = st.one_step(thetas, [uu, uu], **cavity['scalar'])
+    thetas = [thetas[1], new]
+  sync()
+  out['scalar'] = {'theta': thetas[1],
+                   'ms': (time.perf_counter() - t0)
+                         / cavity['scalar_steps'] * 1e3,
+                   'v_idx': sem.velocity.mesh.node_indices,
+                   'v_xy': sem.velocity.mesh.node_coords}
+  return out
+
+
+def _cavity_forcing(xy, mask):
+  """Phase 44's scaled forcing on the cavity: a smooth field, zero on the
+  walls (rows masked by `mask`)."""
+  import numpy as np
+  xy = np.asarray(xy, dtype=np.float64)
+  bump = np.sin(np.pi * xy[:, 0]) * np.sin(np.pi * xy[:, 1])
+  return np.stack([bump, 0.5 * bump * xy[:, 0]], axis=-1) * mask
+
+
+def _warped_box(n):
+  """The JAX package's `experiments/schwarz_scale.py` premesh: an n x n
+  unit box, warped, on the generic refine path."""
+  import numpy as np
+  from swirlfem_tpu_torch.utils.box import unit_cube_mesh
+  pm = unit_cube_mesh(n, ndim=2)
+  c = np.asarray(pm.node_coords)
+  return pm.replace(node_coords=np.stack(
+      [c[:, 0] + 0.06 * np.sin(np.pi * c[:, 1]),
+       c[:, 1] + 0.04 * np.sin(2 * np.pi * c[:, 0])], axis=-1), box_info=None)
+
+
+def run_late_distributed_phases(torch, device, times, dg) -> None:
+  """Phases 42-44 on NUM_RANKS ranks that share the card, in one launch:
+  the host builds every table first (the Schwarz set-up among them), then
+  the ranks run, then the single-device references run on the card.
+  `dg` holds the datagen solver and its config; row 2's launches on the
+  differentiated sharded step go into `times`."""
+  import numpy as np
+  from swirlfem_tpu_torch.core.bc import BCType
+  from swirlfem_tpu_torch.examples.cavity import lid_boundary_field
+  from swirlfem_tpu_torch.niles import datagen
+  from swirlfem_tpu_torch.nse import distributed
+  from swirlfem_tpu_torch.nse.scalar import ScalarTransport
+  from swirlfem_tpu_torch.nse.solver import StokesSEM
+  from swirlfem_tpu_torch.ops import schwarz
+  from swirlfem_tpu_torch.ops import schwarz_distributed
+  from swirlfem_tpu_torch.ops.fdm_element import build_element_fdm
+  from swirlfem_tpu_torch.parallel import repartition
+  from swirlfem_tpu_torch.parallel import spmd
+  from swirlfem_tpu_torch.utils import partition
+  from swirlfem_tpu_torch.utils.box import unit_cube_mesh
+  nr = NUM_RANKS
+  sc = SCHWARZ_SCALE
+  bcs = {'boundary': (BCType.DIRICHLET, 0.0)}
+  rng = np.random.default_rng(0)
+  dtype = torch.float32
+
+  # -- 42. host inputs --------------------------------------------------------
+  t0 = time.perf_counter()
+  pm0 = _warped_box(sc['n'])
+  parts = partition.partition(pm0, nr)
+  log(f'[42] utils.partition.partition of the {sc["n"]}^2 mesh into {nr}: '
+      f'{time.perf_counter() - t0:.2f} s, '
+      f'{np.bincount(parts, minlength=nr).tolist()} elements')
+  num_e = pm0.num_elements
+  slabs = np.arange(num_e) // (num_e // nr)
+  old_ids, old_counts = repartition.partition_layout(parts, nr)
+  kk = sc['order'] + 1
+  global_fields = rng.standard_normal((num_e, kk * kk, 2)).astype(np.float32)
+  route = {'n': rng.integers(0, 7, nr), 'target': rng.integers(0, nr, (nr, 6)),
+           'a': rng.standard_normal((nr, 6)).astype(np.float32),
+           'b': rng.integers(0, 100, (nr, 6, 2)).astype(np.int32),
+           'capacity': nr * 6}
+  comm = [{'scan_values': (np.arange(nr * 3).reshape(nr, 3) % 5 + 1).astype(
+               np.float32),
+           'bits': np.asarray([1 << r for r in range(nr)], np.int32),
+           'route': route,
+           'repartition': {'old': parts, 'new': slabs,
+                           'fields': np.where(
+                               (old_ids[r] >= 0)[:, None, None],
+                               global_fields[np.clip(old_ids[r], 0, None)],
+                               0.0).astype(np.float32)}}
+          for r in range(nr)]
+
+  # -- 43. the host set-up -----------------------------------------------------
+  # One float64 twin: the distributed tables (float64; each rank casts
+  # them to its dtype), the single-device Schwarz and its steps.
+  t0 = time.perf_counter()
+  pm = pm0.replace(partitions=parts)
+  twin = StokesSEM.create(pm0, bcs, order=sc['order'], device=device,
+                          dtype=torch.float64)
+  twin_s = time.perf_counter() - t0
+  cap = (sc['n'] + 1) ** 2 + 1
+  tables = schwarz_distributed.build_distributed_schwarz(
+      twin, pm, bcs, sc['dt'], sc['time_order'], coarse='vertex-cheb',
+      overlap=0, max_coarse_dofs=cap)
+  t0 = time.perf_counter()
+  rows = StokesSEM.partition_tables(pm, sc['order'], exchange_mode='neighbors')
+  rows_s = time.perf_counter() - t0
+  row_bytes = [tables.row(r).nbytes for r in range(nr)]
+  log(f'[43] {sc["n"]}^2 warped cavity, order {sc["order"]} ({num_e} '
+      f'elements) in {nr} parts: twin on the card {twin_s:.2f} s; '
+      f'distributed Schwarz set-up {tables.setup_seconds:.2f} s ('
+      f'{tables.colors} colours, {tables.probe_applies} probe applies, '
+      f'coarse {tables.coarse} with {tables.coarse_dofs} dofs, Chebyshev '
+      f'degree {tables.cheb_degree}, overlap {tables.overlap}); table bytes '
+      f'a rank (float64) {row_bytes}; partitioned solver tables (neighbors) '
+      f'{rows_s:.2f} s')
+  single = schwarz.build_schwarz_pressure_solver(
+      twin, pm0, bcs, sc['dt'], sc['time_order'], coarse='vertex-cheb',
+      overlap=0, max_coarse_dofs=cap)
+  log(f'[43] single-device Schwarz on the same twin: set-up '
+      f'{single.setup_seconds:.2f} s')
+  npn = twin.pressure.pspace.mesh.num_nodes
+  r_glob = rng.standard_normal(npn)
+  vc = twin.velocity.mesh.node_coords.numpy()
+  mask = np.asarray(twin.velocity.interior_mask).reshape(len(vc), -1)
+  u0 = np.stack([np.sin(np.pi * vc[:, 1]) * vc[:, 0] * (1 - vc[:, 0]),
+                 0.1 * np.cos(np.pi * vc[:, 0])], axis=-1) * mask
+
+  def shard(x, idx):
+    valid = (idx != -1).astype(np.float64)
+    return x[np.clip(idx, 0, None)] * valid.reshape(
+        idx.shape + (1,) * (x.ndim - 1))
+
+  # -- 44. host inputs ---------------------------------------------------------
+  sem, cfg = dg['sem'], dg['cfg']
+  # The datagen's deterministic start (independent of the earlier phases).
+  start = datagen.initial_state(sem, cfg)
+  box_slabs = distributed.split_box(sem, nr, dt=cfg.dt,
+                                    time_order=cfg.time_order)
+  # The forcing's direction: the start's velocity, as the JAX package's
+  # sharded-gradient test scales it (``tests/test_distributed_fast.py:125``).
+  f_base = tuple(c.contiguous() for c in start[0][-1])
+  cav = dict(n=16, order=7, reynolds=100.0, dt=1e-3, tol=1e-6, atol=1e-9,
+             scalar_steps=3,
+             scalar=dict(kappa=1e-2, dt=1e-3, time_order=2, tol=1e-6))
+  cav_pm = unit_cube_mesh(cav['n'], ndim=2)
+  cav_parted = cav_pm.replace(partitions=partition.partition(cav_pm, nr))
+  cav_rows = StokesSEM.partition_tables(cav_parted, cav['order'],
+                                        exchange_mode='psum')
+  v_ids = [row['velocity'].node_indices for row in cav_rows]
+  mult = np.zeros(int(max(v.max() for v in v_ids)) + 1)
+  for v in v_ids:
+    np.add.at(mult, v[v >= 0], 1.0)
+  shards = []
+  for r in range(nr):
+    p_idx = rows[r]['pressure'].node_indices
+    v_idx = rows[r]['velocity'].node_indices
+    w = np.where(v_ids[r] >= 0, 1.0 / mult[np.clip(v_ids[r], 0, None)], 0.0)
+    row_v = cav_rows[r]['velocity']
+    g_rank = _cavity_forcing(row_v.node_coords, np.ones((len(w), 1)))
+    shards.append({
+        'comm': comm[r],
+        's43': {'premesh': pm, 'tables': rows[r],
+                'schwarz': tables.row(r), 'r': shard(r_glob, p_idx),
+                'u0': shard(u0, v_idx)},
+        'slab': box_slabs[r],
+        'state': distributed.shard_el(start, r, nr, 2),
+        'f_base': distributed.shard_el(f_base, r, nr, 2),
+        'cavity': {'tables': cav_rows[r], 'w': w, 'g': g_rank}})
+  t0 = time.perf_counter()
+  outs = spmd.launch(late_rank, shards, device=str(device), scale=sc,
+                     cfg=cfg, cavity=dict(cav, premesh=cav_parted),
+                     timeout=900, threads=1)
+  log(f'[42-44] {nr} ranks on {device}: launch to results '
+      f'{time.perf_counter() - t0:.1f} s')
+
+  # -- 42. against the host ----------------------------------------------------
+  vals = comm[0]['scan_values']
+  np_ops = {'add': np.add, 'mul': np.multiply, 'maximum': np.maximum,
+            'minimum': np.minimum}
+  for (name, method), _ in outs[0]['comm']['scan'].items():
+    op = np_ops[name]
+    total = vals[0]
+    for v in vals[1:]:
+      total = op(total, v)
+    unit = {'add': 0, 'mul': 1, 'maximum': np.finfo(np.float32).min,
+            'minimum': np.finfo(np.float32).max}[name]
+    for r, o in enumerate(outs):
+      scan, red = o['comm']['scan'][(name, method)]
+      want = np.full(3, unit, np.float32)
+      for v in vals[:r]:
+        want = op(want, v)
+      require(np.array_equal(scan, want) and np.array_equal(red, total),
+              ('pscan', name, method, r, scan, want))
+  require(all(int(o['comm']['preduce']) == (1 << nr) - 1 for o in outs),
+          'preduce bitwise_or')
+  forms_alike = all(
+      all(np.array_equal(a, b) for a, b in zip(
+          _flat(o['comm']['route'][impl]), _flat(o['comm']['route']['dense'])))
+      for o in outs for impl in ('ppermute', 'ragged'))
+  counts = [int(o['comm']['route']['dense'][0]) for o in outs]
+  want_counts = [sum(int((route['target'][s, :route['n'][s]] == d).sum())
+                     for s in range(nr)) for d in range(nr)]
+  require(forms_alike, 'the router forms place rows differently')
+  require(counts == want_counts, (counts, want_counts))
+  new_ids, new_counts = repartition.partition_layout(slabs, nr)
+  there_ok = all(
+      np.array_equal(o['comm']['repartition']['there'][:new_counts[r]],
+                     global_fields[new_ids[r, :new_counts[r]]])
+      for r, o in enumerate(outs))
+  back_ok = all(np.array_equal(o['comm']['repartition']['back'],
+                               comm[r]['repartition']['fields'])
+                for r, o in enumerate(outs))
+  require(there_ok and back_ok, ('repartition', there_ok, back_ok))
+  adj_ok = True
+  for name in outs[0]['comm']['adjoint']:
+    gs = outs[0]['comm']['adjoint'][name]['gs']
+    want = _host_adjoint(name, gs, nr)
+    adj_ok &= all(np.array_equal(o['comm']['adjoint'][name]['grad'], want[r])
+                  for r, o in enumerate(outs))
+  require(adj_ok, 'a collective backward differs from its host adjoint')
+  log(f'[42] pscan/preduce (add, mul, max, min; all_gather and tree) equal '
+      f'the host oracle; router dense/ppermute/ragged bitwise alike, counts '
+      f'{counts}; repartition partition -> slabs -> partition of '
+      f'{num_e} x {kk * kk} x 2 element fields bitwise '
+      f'({outs[0]["comm"]["repartition"]["ms"]:.1f} ms both ways, rank 0); '
+      f'psum/ppermute/all_to_all/all_gather backward equal their host '
+      f'adjoints')
+
+  # -- 43. against the single-device Schwarz on the card ---------------------
+  y_u = single(torch.as_tensor(r_glob, dtype=torch.float64,
+                               device=device)).cpu().numpy()
+  d_apply = {}
+  for key in ('float32', 'float64'):
+    d = 0.0
+    for r, o in enumerate(outs):
+      idx = rows[r]['pressure'].node_indices
+      d = max(d, float(np.abs(o['s43'][key]['apply']['y'][idx >= 0]
+                              - y_u[idx[idx >= 0]]).max()))
+    d_apply[key] = d / np.abs(y_u).max()
+  bitwise = all(o['s43'][key]['apply']['bitwise'] for o in outs
+                for key in ('float32', 'float64'))
+  fdm_u = build_element_fdm(twin)
+  us = [torch.as_tensor(u0, dtype=torch.float64, device=device)]
+  us.append(0.9 * us[0])
+  zp = torch.zeros(npn, dtype=torch.float64, device=device)
+  ps = [zp, zp]
+  torch.cuda.synchronize(device)
+  t0 = time.perf_counter()
+  iters_u = []
+  for _ in range(sc['steps']):
+    u, p, aux = twin.stokes_one_step(
+        us, ps, 0.0, mu=sc['mu'], dt=sc['dt'], time_order=sc['time_order'],
+        tol=sc['tol64'], atol=sc['atol'], maxiter=2000,
+        pressure_preconditioner=single, viscous_fdm=fdm_u)
+    us, ps = [us[-1], u], [ps[-1], p]
+    iters_u.append((int(aux['u_star_info']['num_iterations']),
+                    int(aux['dp_info']['num_iterations'])))
+  torch.cuda.synchronize(device)
+  ms_u = (time.perf_counter() - t0) / sc['steps'] * 1e3
+  u_ref, p_ref = us[-1].cpu().numpy(), ps[-1].cpu().numpy()
+  # Every rank's dofs in the global numbering (each pressure dof lives on
+  # one rank; a shared velocity dof's copies are equal).
+  u_part = np.zeros_like(u_ref)
+  p_part = np.zeros_like(p_ref)
+  for r, o in enumerate(outs):
+    v_idx = rows[r]['velocity'].node_indices
+    p_idx = rows[r]['pressure'].node_indices
+    u_part[v_idx[v_idx >= 0]] = o['s43']['float64']['steps']['u'][v_idx >= 0]
+    p_part[p_idx[p_idx >= 0]] = o['s43']['float64']['steps']['p'][p_idx >= 0]
+  # u relative to the reference's largest entry, p with its mean removed.
+  q_part, q_ref = p_part - p_part.mean(), p_ref - p_ref.mean()
+  du = float(np.abs(u_part - u_ref).max() / np.abs(u_ref).max())
+  dp = float(np.abs(q_part - q_ref).max() / np.abs(q_ref).max())
+  o0 = outs[0]['s43']
+  for key, tol in (('float32', sc['tol']), ('float64', sc['tol64'])):
+    a, st = o0[key]['apply'], o0[key]['steps']
+    log(f'[43] {key}: apply {a["ms"]:.2f} ms (rank 0, mean of '
+        f'{sc["repeats"]}), {a["collectives"]:.0f} collectives, vs the '
+        f'single-device float64 apply rel {d_apply[key]:.3e}; '
+        f'{sc["steps"]} partitioned steps at tol {tol:.0e}: '
+        f'{st["ms"]:.1f} ms/step (rank 0), CG (viscous, pressure) '
+        f'{st["iters"]}, collectives/step {st["stats"]["collectives"]:.0f}, '
+        f'host-staged bytes/step {st["stats"]["host_bytes"]:.0f}; rank '
+        f'set-up on the card {o0[key]["setup_s"]:.2f} s')
+  log(f'[43] {sc["repeats"]} repeats of the apply bitwise on every rank in '
+      f'both dtypes: {bitwise}; unpartitioned float64 steps on the card at '
+      f'tol {sc["tol64"]:.0e}: {ms_u:.1f} ms/step, CG {iters_u}; the '
+      f'partitioned float64 steps vs them: u rel {du:.3e}, p rel (mean '
+      f'removed) {dp:.3e}')
+  require(bitwise, 'the distributed Schwarz apply does not repeat bitwise')
+  require(d_apply['float32'] <= LATE_GATES['apply'] and
+          d_apply['float64'] <= LATE_GATES['apply64'], ('apply', d_apply))
+  require(du <= LATE_GATES['u43'] and dp <= LATE_GATES['p43'], (du, dp))
+  for key in ('float32', 'float64'):
+    runs = [o['s43'][key]['steps']['iters'] for o in outs]
+    require(all(p_it <= LATE_GATES['iters43'][key] for _, p_it in runs[0]),
+            (key, 'pressure CG iterations', runs[0]))
+    require(all(run == runs[0] for run in runs),
+            (key, 'the ranks took different CG paths'))
+
+  # -- 44. the single-device references ----------------------------------------
+  mu = 1.0 / cfg.reynolds_number
+  vp_el, pp_el = sem.fdm_el_preconditioners(mu, cfg.dt, cfg.time_order)
+  us_, ps_, _ = start
+  theta = torch.tensor(1.0, dtype=dtype, device=device, requires_grad=True)
+  from swirlfem_tpu_torch.ops import cuda_stiffness
+  cuda_stiffness.stiffness_uniform.launches = 0
+  u, _, _ = sem.stokes_one_step_el(
+      list(us_), list(ps_), tuple(theta * c for c in f_base), mu=mu,
+      dt=cfg.dt, time_order=cfg.time_order, tol=1e-5, atol=1e-4,
+      pressure_preconditioner_el=pp_el, viscous_preconditioner_el=vp_el,
+      exact_solves=False)
+  loss = sum((c * c).sum() for c in u)
+  loss.backward()
+  g_single = float(theta.grad)
+  g_box = sum(o['grad_box']['grad'] for o in outs)
+  l_box = sum(o['grad_box']['loss'] for o in outs)
+  d_box = abs(g_box - g_single) / abs(g_single)
+  fwd = [o['grad_box']['launches_fwd'] for o in outs]
+  bwd = [o['grad_box']['launches_bwd'] for o in outs]
+  log(f'[44] certified sharded datagen step, d loss/d forcing scale: '
+      f'{g_box:.8e} (sum of the ranks; loss {l_box:.6e}) vs single-device '
+      f'{g_single:.8e} (loss {float(loss.detach()):.6e}): rel {d_box:.3e}; '
+      f'row 2 '
+      f'launches per rank forward {fwd}, backward {bwd}; '
+      f'{outs[0]["grad_box"]["ms"]:.1f} ms forward + backward (rank 0)')
+  require(d_box <= LATE_GATES['grad_box'], ('grad box', d_box))
+  require(all(n > 0 for n in fwd + bwd), ('row 2 launches', fwd, bwd))
+  times['stiffness_uniform']['sharded_grad_launches_per_rank'] = {
+      'forward': fwd, 'backward': bwd}
+
+  ref = StokesSEM.create(cav_pm, bcs, order=cav['order'], device=device,
+                         dtype=dtype)
+  ub = lid_boundary_field(ref)
+  zu = torch.zeros((ref.velocity.mesh.num_nodes, 2), dtype=dtype,
+                   device=device)
+  zp = torch.zeros(ref.pressure.pspace.mesh.num_nodes, dtype=dtype,
+                   device=device)
+  c0 = ref.C(zu + ub)
+  theta = torch.tensor(1.0, dtype=dtype, device=device, requires_grad=True)
+  g_field = torch.as_tensor(_cavity_forcing(
+      ref.velocity.mesh.node_coords.numpy(),
+      np.asarray(ref.velocity.interior_mask)),
+                            dtype=dtype, device=device)
+  u, _, _ = ref.stokes_one_step(
+      [zu, zu], [zp, zp], -c0 + theta * g_field, mu=1.0 / cav['reynolds'],
+      dt=cav['dt'],
+      time_order=2, u_boundary=ub, tol=cav['tol'], atol=cav['atol'],
+      maxiter=2000)
+  loss = (u * u).sum()
+  loss.backward()
+  g_ref = float(theta.grad)
+  g_cav = sum(o['grad_cavity']['grad'] for o in outs)
+  d_cav = abs(g_cav - g_ref) / abs(g_ref)
+  log(f'[44] partitioned cavity step (psum mode), d loss/d forcing scale: '
+      f'{g_cav:.8e} (sum of the ranks) vs unpartitioned {g_ref:.8e}: rel '
+      f'{d_cav:.3e}; loss {outs[0]["grad_cavity"]["loss"]:.6e} vs '
+      f'{float(loss.detach()):.6e}; CG {outs[0]["grad_cavity"]["iters"]}; '
+      f'{outs[0]["grad_cavity"]["ms"]:.0f} ms forward + backward (rank 0)')
+  require(d_cav <= LATE_GATES['grad_cavity'], ('grad cavity', d_cav))
+
+  st = ScalarTransport.create(ref, bcs)
+  xy = ref.velocity.mesh.node_coords.to(device=device, dtype=dtype)
+  th = torch.sin(torch.pi * xy[:, 0]) * torch.sin(torch.pi * xy[:, 1])
+  uu = torch.stack([torch.sin(torch.pi * xy[:, 1]) * xy[:, 0] * (1 - xy[:, 0]),
+                    0.1 * torch.cos(torch.pi * xy[:, 0])], -1)
+  thetas = [th, th]
+  with torch.no_grad():
+    for _ in range(cav['scalar_steps']):
+      new, _ = st.one_step(thetas, [uu, uu], **cav['scalar'])
+      thetas = [thetas[1], new]
+  th_ref = thetas[1].cpu().numpy()
+  ref_xy = ref.velocity.mesh.node_coords.numpy()
+  d_sc = 0.0
+  for o in outs:
+    valid = o['scalar']['v_idx'] >= 0
+    at = coordinate_rows(ref_xy, o['scalar']['v_xy'][valid])
+    require((at >= 0).all(), 'a scalar node off the mesh')
+    d_sc = max(d_sc, float(np.abs(o['scalar']['theta'][valid]
+                                  - th_ref[at]).max()))
+  d_sc /= np.abs(th_ref).max()
+  log(f'[44] {cav["scalar_steps"]} partitioned scalar steps: '
+      f'{outs[0]["scalar"]["ms"]:.1f} ms/step (rank 0) vs unpartitioned: rel '
+      f'{d_sc:.3e}')
+  require(d_sc <= LATE_GATES['scalar'], ('scalar', d_sc))
+
+
+def _flat(tree):
+  """The arrays of a (nested) result, in a fixed order."""
+  if isinstance(tree, dict):
+    return [a for k in sorted(tree) for a in _flat(tree[k])]
+  if isinstance(tree, (list, tuple)):
+    return [a for v in tree for a in _flat(v)]
+  return [tree]
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -2985,6 +3637,7 @@ def main() -> int:
                                small_runs)
   run_distributed_phases(torch, device, kernel_checks, times, launches, dg,
                          tgv_box)
+  run_late_distributed_phases(torch, device, times, dg)
 
   kernels = [
       {'name': 'exchange2d', 'route': 'cuda',

@@ -16,16 +16,21 @@ import torch
 
 
 def tree_map(fn, *trees):
-  """Applies `fn` leafwise over parallel (nested) tuples/lists of tensors."""
+  """Applies `fn` leafwise over parallel (nested) tuples, lists and dicts
+  of tensors."""
   if isinstance(trees[0], (tuple, list)):
     return type(trees[0])(tree_map(fn, *xs) for xs in zip(*trees))
+  if isinstance(trees[0], dict):
+    return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
   return fn(*trees)
 
 
 def tree_leaves(tree):
-  """The tensors of a (nested) tuple/list, in order."""
+  """The tensors of a (nested) tuple, list or dict, in `tree_map`'s order."""
   if isinstance(tree, (tuple, list)):
     return [leaf for t in tree for leaf in tree_leaves(t)]
+  if isinstance(tree, dict):
+    return [leaf for t in tree.values() for leaf in tree_leaves(t)]
   return [tree]
 
 

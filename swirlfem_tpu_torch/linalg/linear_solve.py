@@ -47,6 +47,9 @@ class _LinearSolve(torch.autograd.Function):
   @staticmethod
   def backward(ctx, *x_bar):
     matvec, solve, form, num_b, params, _ = ctx.spec
+    # A cotangent may arrive as a strided view (a broadcast sum's gradient);
+    # the kernels on the card take dense tensors.
+    x_bar = tuple(g.contiguous() for g in x_bar)
     with torch.no_grad():
       lam, aux = solve(matvec, _like(form, x_bar))
     linear_solve.transpose_solves += 1

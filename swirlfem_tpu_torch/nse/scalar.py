@@ -56,10 +56,15 @@ class ScalarTransport:
   velocity: StokesVelocity        # sem.nodal.velocity (on the device)
   interior_mask: torch.Tensor     # (num_nodes,) 1.0 interior / 0.0 Dirichlet
   mass_diag: torch.Tensor         # assembled scalar lumped mass (unmasked)
+  axis: object = None             # the rank's Axis on a partitioned mesh
 
   @classmethod
   def create(cls, sem: StokesSEM, boundary_conditions) -> 'ScalarTransport':
     """Builds the scalar space on ``sem``'s velocity mesh.
+
+    On a rank of a partitioned solver the scalar lives on the rank's
+    partition, and its products sum across the ranks
+    (``swirlfem_tpu/nse/scalar.py:57-92``).
 
     Args:
       sem: the flow solver (its velocity space is reused).
@@ -79,11 +84,15 @@ class ScalarTransport:
     return cls(velocity=vel,
                interior_mask=torch.as_tensor(mask, dtype=sem.dtype,
                                              device=sem.device),
-               mass_diag=mass_diag)
+               mass_diag=mass_diag, axis=sem.axis)
 
   @property
   def mesh(self):
     return self.velocity.mesh
+
+  def _dot(self, a, b):
+    d = vdot(a, b)
+    return d if self.axis is None else self.axis.psum(d)
 
   def fdm_preconditioner(self, sem: StokesSEM, kappa, dt, time_order: int):
     """Exact FDM inverse of the scalar Helmholtz operator, separable boxes.
@@ -198,8 +207,8 @@ class ScalarTransport:
     def solve(matvec, b):
       b = self.interior_mask * b
       x0 = None if preconditioner is None else preconditioner(b)
-      return cg(matvec, b, x0=x0, M=m_op, tol=tol, atol=atol, dot_fn=vdot,
-                maxiter=maxiter)
+      return cg(matvec, b, x0=x0, M=m_op, tol=tol, atol=atol,
+                dot_fn=self._dot, maxiter=maxiter)
 
     theta, info = linear_solve(h_op, rhs, solve, params=(kappa,))
     if theta_boundary is not None:

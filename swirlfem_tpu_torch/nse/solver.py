@@ -801,6 +801,9 @@ class StokesSEM:
     operators (``swirlfem_tpu/nse/solver.py:843-990``)."""
     from swirlfem_tpu_torch.linalg import projection as proj
     vel = self.nodal.velocity
+    # The history's products: one launch for all K on one device, summed
+    # across the ranks on a partitioned mesh.
+    hist_dot = vdot if self.axis is None else self.dot
     mask = vel.interior_mask
     if pressure_preconditioner is None and project_out_nullspace:
       pressure_preconditioner = self._pressure_project_out_nullspace
@@ -846,7 +849,8 @@ class StokesSEM:
     atol_v = atol
     if projection_state is not None:
       b_v = mask * f
-      x0v, ax0v = proj.project_guess(projection_state.viscous, b_v.detach())
+      x0v, ax0v = proj.project_guess(projection_state.viscous, b_v.detach(),
+                                     hist_dot)
       x0v, ax0v = x0v.detach(), ax0v.detach()
       f = f - ax0v
       mb = vel.exchange(b_v) / diag_h[:, None]
@@ -870,7 +874,7 @@ class StokesSEM:
       with torch.no_grad():
         new_viscous = proj.update_history(
             projection_state.viscous, u_star.detach(), x0v,
-            viscous_matvec if viscous_matvec is not None else H, vdot,
+            viscous_matvec if viscous_matvec is not None else H, hist_dot,
             ax0=ax0v)
     if u_boundary is not None:
       u_star = u_star + u_boundary
@@ -899,7 +903,8 @@ class StokesSEM:
                   or e_op)
       # History entries are mean-free, so the coefficients are insensitive
       # to b's mean; the stopping test is anchored to the projected rhs.
-      x0p, ax0p = proj.project_guess(projection_state.pressure, b_p.detach())
+      x0p, ax0p = proj.project_guess(projection_state.pressure, b_p.detach(),
+                                     hist_dot)
       x0p, ax0p = x0p.detach(), ax0p.detach()
       bp0 = b_p.detach()
       if project_out_nullspace:
@@ -919,7 +924,7 @@ class StokesSEM:
       dp = dp + x0p
       with torch.no_grad():
         new_pressure = proj.update_history(
-            projection_state.pressure, dp.detach(), x0p, e_matvec, vdot,
+            projection_state.pressure, dp.detach(), x0p, e_matvec, hist_dot,
             ax0=ax0p)
       aux['projection_state'] = StokesProjection(viscous=new_viscous,
                                                  pressure=new_pressure)

@@ -27,8 +27,8 @@ apply's two colliding scatter-adds (the overlapping locals and the vertex
 coarse restriction) add in a fixed order (`topology.ScatterTable`).
 
 The host graph code is a numpy copy of the JAX package's, function by
-function, under the same names.  Partitioned meshes are not ported yet
-(ROADMAP.md, Queue 1 item 17b).
+function, under the same names.  A partitioned premesh goes to
+`ops.schwarz_distributed`.
 """
 
 from __future__ import annotations
@@ -559,13 +559,24 @@ def build_schwarz_pressure_solver(sem, premesh, boundary_conditions,
   (float64 E applies of the set-up), ``.setup_seconds``, ``.block_bytes``
   (the device's local inverse blocks) and ``.fast_matvec`` (the assembled
   block-sparse E).
+
+  Given a PARTITIONED premesh (and, as `sem`, its unpartitioned twin)
+  this returns the host tables of every partition instead
+  (`ops.schwarz_distributed.build_distributed_schwarz`): each rank builds
+  its apply from its row.
   """
   if premesh.order != 1:
     raise ValueError(f'expected the order-1 premesh, got {premesh.order}')
   if premesh.is_partitioned():
-    raise NotImplementedError(
-        'the Schwarz preconditioner of a partitioned mesh is not ported yet '
-        '(ROADMAP.md, Queue 1 item 17b)')
+    # A partitioned premesh goes to `build_distributed_schwarz` (the same
+    # probed blocks and coarse spaces, every partition's tables built once
+    # on the host), which refuses anything but the UNPARTITIONED twin as
+    # `sem` (``swirlfem_tpu/ops/schwarz.py:660-673``).
+    from swirlfem_tpu_torch.ops.schwarz_distributed import (
+        build_distributed_schwarz)
+    return build_distributed_schwarz(
+        sem, premesh, boundary_conditions, dt, time_order, coarse=coarse,
+        max_coarse_dofs=max_coarse_dofs, overlap=overlap)
   t0 = time.perf_counter()
   pmesh = sem.pressure.pspace.mesh
   d = premesh.ndim

@@ -16,7 +16,17 @@ collectives of ``lax`` are the methods of an `Axis` over a
   zeros;
 * `Axis.all_to_all` — ``lax.all_to_all`` (tiled or not): splits one axis
   into `size` chunks, sends chunk j to rank j, concatenates (or stacks)
-  the received chunks along another axis in rank order.
+  the received chunks along another axis in rank order;
+* `Axis.all_gather` — ``lax.all_gather`` (tiled or stacked);
+* `Axis.ragged_all_to_all` — ``lax.ragged_all_to_all``: chunks of uneven
+  sizes, planned from a count matrix every rank holds.
+
+Each collective but the ragged one is differentiable: where its input
+requires grad, a ``torch.autograd.Function`` runs its adjoint in the
+backward pass (ppermute with the pairs reversed, all_to_all with the split
+and concat axes swapped, all_gather as a reduce-scatter: an all_to_all
+of the cotangent's slices, added in rank order; psum as a psum, as JAX
+transposes it under ``shard_map``).  The backward's collectives count in `Axis.stats`.
 
 The transport is host memory: a tensor on the card is copied to the host,
 exchanged, and copied back.  That is what ranks that share one card (or
@@ -43,6 +53,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import platform
 import queue as queue_lib
@@ -146,6 +157,27 @@ class SharedSlots:
     return torch.cat([self._slot(bank, r, x)[rank * chunk:(rank + 1) * chunk]
                       for r in range(self.size)])
 
+  def all_gather(self, x: torch.Tensor, rank: int,
+                 timeout: float) -> torch.Tensor:
+    """Every rank's `x`, stacked in rank order."""
+    bank = self._publish(x, rank, timeout)
+    return torch.stack([self._slot(bank, r, x) for r in range(self.size)])
+
+  def ragged(self, x: torch.Tensor, rank: int, counts,
+             timeout: float) -> torch.Tensor:
+    """`x` holds this rank's rows sorted by destination, ``counts[s][d]``
+    rows from rank s to rank d; returns the rows sent here, in source
+    order."""
+    bank = self._publish(x, rank, timeout)
+    row = x[:1]
+    pieces = []
+    for r in range(self.size):
+      start = sum(counts[r][:rank])
+      rows = self._slot(bank, r, row.expand((start + counts[r][rank],)
+                                            + tuple(x.shape[1:])))
+      pieces.append(rows[start:])
+    return torch.cat(pieces).clone()
+
 
 def shared_slots_supported() -> bool:
   return platform.machine().lower() in ('x86_64', 'amd64')
@@ -196,8 +228,74 @@ class Axis:
 
   # -- collectives -----------------------------------------------------------
 
+  def _tracked(self, x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
   def psum(self, x: torch.Tensor) -> torch.Tensor:
     """The sum over ranks, added in ascending rank order on every rank."""
+    if self._tracked(x):
+      return _Psum.apply(x, self)
+    return self._psum(x)
+
+  def ppermute(self, x: torch.Tensor, perm) -> torch.Tensor:
+    """``lax.ppermute``: `perm` lists ``(source, destination)`` pairs; this
+    rank receives the `x` of its source, or zeros if it has none."""
+    if self._tracked(x):
+      return _Ppermute.apply(x, self, tuple(map(tuple, perm)))
+    return self._ppermute(x, perm)
+
+  def all_to_all(self, x: torch.Tensor, split_axis: int, concat_axis: int,
+                 tiled: bool = True) -> torch.Tensor:
+    """``lax.all_to_all``: chunk j of `split_axis` goes to rank j; the
+    chunks received (in rank order) are concatenated along `concat_axis`
+    (`tiled`) or stacked as a new axis there (not tiled, where the split
+    axis has exactly `size` entries and is dropped)."""
+    if self._tracked(x):
+      return _AllToAll.apply(x, self, split_axis % x.ndim,
+                             concat_axis % x.ndim, tiled)
+    return self._all_to_all(x, split_axis, concat_axis, tiled)
+
+  def all_gather(self, x: torch.Tensor, axis: int = 0,
+                 tiled: bool = False) -> torch.Tensor:
+    """``lax.all_gather``: every rank's `x` in rank order, stacked as a new
+    axis `axis` of `size` entries, or concatenated along `axis` (`tiled`).
+    Up to `SHARED_BYTES` a rank through the shared slots, beyond through
+    gloo."""
+    if self._tracked(x):
+      return _AllGather.apply(x, self, axis, tiled)
+    return self._all_gather(x, axis, tiled)
+
+  def ragged_all_to_all(self, x: torch.Tensor, counts) -> torch.Tensor:
+    """``lax.ragged_all_to_all`` over every rank: ``counts[s][d]`` (the same
+    ``(size, size)`` matrix on every rank) rows go from rank s to rank d.
+    `x` holds this rank's ``sum(counts[index])`` rows sorted by destination;
+    the result holds the ``sum(counts[:, index])`` rows sent here, in
+    source order, each chunk in its sender's order.  Through the shared
+    slots where every rank's payload fits (every rank decides alike from
+    `counts`), else through gloo's uneven all-to-all."""
+    counts = [[int(c) for c in row] for row in counts]
+    me, size = self.index, self.size
+    if x.shape[0] != sum(counts[me]):
+      raise ValueError(f'{x.shape[0]} rows, counts say {sum(counts[me])}')
+    recv = [counts[s][me] for s in range(size)]
+    if size == 1:
+      return x.clone()
+    host = self._to_host(x)
+    row_bytes = math.prod(host.shape[1:]) * host.element_size()
+    most = max(sum(row) for row in counts) * row_bytes
+    if self.slots is not None and most <= self.slots.capacity:
+      if host.shape[0] == 0:  # every rank publishes, an empty one too
+        host = torch.zeros((1,) + tuple(host.shape[1:]), dtype=host.dtype)
+      out = self.slots.ragged(host, me, counts, self.timeout)
+    else:
+      out = host.new_empty((sum(recv),) + tuple(host.shape[1:]))
+      dist.all_to_all_single(out, host, output_split_sizes=recv,
+                             input_split_sizes=counts[me], group=self.group)
+    return self._back(out, x)
+
+  # -- the transports (no autograd) ------------------------------------------
+
+  def _psum(self, x: torch.Tensor) -> torch.Tensor:
     if self.size == 1:
       return x
     host = self._to_host(x)
@@ -210,9 +308,7 @@ class Axis:
       total = total + part
     return self._back(total, x)
 
-  def ppermute(self, x: torch.Tensor, perm) -> torch.Tensor:
-    """``lax.ppermute``: `perm` lists ``(source, destination)`` pairs; this
-    rank receives the `x` of its source, or zeros if it has none."""
+  def _ppermute(self, x: torch.Tensor, perm) -> torch.Tensor:
     sends = [dst for src, dst in perm if src == self.index]
     recvs = [src for src, dst in perm if dst == self.index]
     if len(sends) > 1 or len(recvs) > 1:
@@ -234,17 +330,13 @@ class Axis:
         req.wait()
     return self._back(out, x)
 
-  def all_to_all(self, x: torch.Tensor, split_axis: int, concat_axis: int,
-                 tiled: bool = True) -> torch.Tensor:
-    """``lax.all_to_all``: chunk j of `split_axis` goes to rank j; the
-    chunks received (in rank order) are concatenated along `concat_axis`
-    (`tiled`) or stacked as a new axis there (not tiled, where the split
-    axis has exactly `size` entries and is dropped)."""
+  def _all_to_all(self, x: torch.Tensor, split_axis: int, concat_axis: int,
+                  tiled: bool = True) -> torch.Tensor:
     size = self.size
     split_axis %= x.ndim
     concat_axis %= x.ndim
     if x.is_complex():  # gloo carries real tensors: (..., 2) pairs
-      return torch.view_as_complex(self.all_to_all(
+      return torch.view_as_complex(self._all_to_all(
           torch.view_as_real(x), split_axis, concat_axis, tiled).contiguous())
     if x.shape[split_axis] % size:
       raise ValueError(f'axis {split_axis} of {tuple(x.shape)} does not '
@@ -270,6 +362,96 @@ class Axis:
                        f'{size} entries, got {x.shape[split_axis]}')
     pieces = [p[0] for p in pieces]
     return torch.stack(pieces, dim=concat_axis)
+
+
+  def _all_gather(self, x: torch.Tensor, axis: int = 0,
+                  tiled: bool = False) -> torch.Tensor:
+    axis %= x.ndim + (0 if tiled else 1)
+    if self.size == 1:
+      return x.clone() if tiled else x.unsqueeze(axis)
+    if x.is_complex():
+      return torch.view_as_complex(self._all_gather(
+          torch.view_as_real(x), axis, tiled).contiguous())
+    host = self._to_host(x)
+    if self._shared(host):
+      out = self.slots.all_gather(host, self.index, self.timeout)
+    else:
+      parts = [torch.empty_like(host) for _ in range(self.size)]
+      dist.all_gather(parts, host, group=self.group)
+      out = torch.stack(parts)
+    out = self._back(out, x)
+    if tiled:
+      return torch.cat(list(out), dim=axis)
+    return out.movedim(0, axis)
+
+
+# -- the adjoints -------------------------------------------------------------
+
+
+class _Psum(torch.autograd.Function):
+  """psum; its adjoint is the psum of the cotangents (JAX's transpose of
+  psum under ``shard_map``)."""
+
+  @staticmethod
+  def forward(ctx, x, ax):
+    ctx.ax = ax
+    return ax._psum(x)  # pylint: disable=protected-access
+
+  @staticmethod
+  def backward(ctx, g):
+    return ctx.ax._psum(g.contiguous()), None  # pylint: disable=protected-access
+
+
+class _Ppermute(torch.autograd.Function):
+  """ppermute; its adjoint sends each cotangent back along its pair."""
+
+  @staticmethod
+  def forward(ctx, x, ax, perm):
+    ctx.ax, ctx.perm = ax, perm
+    return ax._ppermute(x, perm)  # pylint: disable=protected-access
+
+  @staticmethod
+  def backward(ctx, g):
+    back = [(dst, src) for src, dst in ctx.perm]
+    return ctx.ax._ppermute(g.contiguous(), back), None, None  # pylint: disable=protected-access
+
+
+class _AllToAll(torch.autograd.Function):
+  """all_to_all; its adjoint is the all_to_all with the split and concat
+  axes swapped."""
+
+  @staticmethod
+  def forward(ctx, x, ax, split_axis, concat_axis, tiled):
+    ctx.ax, ctx.args = ax, (split_axis, concat_axis, tiled)
+    return ax._all_to_all(x, split_axis, concat_axis, tiled)  # pylint: disable=protected-access
+
+  @staticmethod
+  def backward(ctx, g):
+    split_axis, concat_axis, tiled = ctx.args
+    return (ctx.ax._all_to_all(g.contiguous(), concat_axis, split_axis,  # pylint: disable=protected-access
+                               tiled), None, None, None, None)
+
+
+class _AllGather(torch.autograd.Function):
+  """all_gather; its adjoint is a reduce-scatter: each rank's slice of
+  every cotangent comes home by one all_to_all and is added in rank
+  order (the psum's order, so its sums are the psum's)."""
+
+  @staticmethod
+  def forward(ctx, x, ax, axis, tiled):
+    ctx.ax, ctx.axis, ctx.tiled = ax, axis % (x.ndim + (0 if tiled else 1)), tiled
+    return ax._all_gather(x, axis, tiled)  # pylint: disable=protected-access
+
+  @staticmethod
+  def backward(ctx, g):
+    g = g.contiguous()
+    if ctx.tiled:
+      g = g.unflatten(ctx.axis, (ctx.ax.size, -1))
+    parts = ctx.ax._all_to_all(g, ctx.axis, 0, tiled=False)  # pylint: disable=protected-access
+    total = parts[0]
+    for part in parts[1:]:
+      total = total + part
+    return total, None, None, None
 
 
 def _host_tree(tree):

@@ -55,8 +55,13 @@ MODULES = [
     'swirlfem_tpu_torch.ops.fft_pressure',
     'swirlfem_tpu_torch.ops.kernel_checks',
     'swirlfem_tpu_torch.ops.schwarz',
+    'swirlfem_tpu_torch.ops.schwarz_distributed',
     'swirlfem_tpu_torch.ops.sem2d',
     'swirlfem_tpu_torch.ops.sem3d',
+    'swirlfem_tpu_torch.parallel.crystal_router',
+    'swirlfem_tpu_torch.parallel.pscan',
+    'swirlfem_tpu_torch.parallel.repartition',
+    'swirlfem_tpu_torch.parallel.semi_traced',
     'swirlfem_tpu_torch.parallel.spmd',
     'swirlfem_tpu_torch.sde.nn_sde',
     'swirlfem_tpu_torch.sde.sdeint',

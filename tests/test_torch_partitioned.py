@@ -16,6 +16,8 @@ gloo ranks and its partitioned steps, against the JAX package.
 * One partitioned step in 2D (``tests/test_parallel.py:63``, in every
   mode) and in 3D (``:354``) against the JAX partitioned step: u 1e-10,
   p 1e-9.
+* Three passive-scalar steps on the ranks against the unpartitioned JAX
+  transport (``tests/test_scalar.py:164``), 1e-10.
 
 The ranks start once (a module fixture) and run every case.
 """
@@ -137,6 +139,52 @@ def dmesh():
   return device_mesh('part', NUM)
 
 
+SCALAR_SOLVE = dict(kappa=1e-2, dt=1e-3, time_order=2, tol=1e-12)
+SCALAR_STEPS = 3
+
+
+def _scalar_case():
+  """``tests/test_scalar.py:164``: the passive scalar on the 6x6 order-4
+  box in 2x2 parts against the unpartitioned JAX transport, `SCALAR_STEPS`
+  steps."""
+  from swirlfem_tpu.nse.scalar import ScalarTransport as JScalar
+  premesh = lambda box: box(6, ndim=2, partitions=_quad_parts())
+  bcs_j = {'boundary': (JBCType.DIRICHLET, 0.0)}
+  bcs_t = {'boundary': (BCType.DIRICHLET, 0.0)}
+  jpm = premesh(junit_cube_mesh)
+  sem_u = JStokesSEM.create(jpm.replace(partitions=None), bcs_j, order=4)
+  vc = np.asarray(sem_u.velocity.mesh.node_coords)
+  mask = np.asarray(sem_u.velocity.interior_mask)[:, 0]
+  th0 = np.sin(np.pi * vc[:, 0]) * np.sin(np.pi * vc[:, 1])
+  u0 = np.stack([np.sin(np.pi * vc[:, 1]) * mask, 0.1 * mask], axis=-1)
+  tpm = premesh(unit_cube_mesh)
+  rows = StokesSEM.partition_tables(tpm, 4)
+
+  def shard(x, idx):
+    valid = (idx != -1).astype(np.float64)
+    return x[np.clip(idx, 0, None)] * valid.reshape(
+        idx.shape + (1,) * (x.ndim - 1))
+
+  shards = []
+  for r in range(NUM):
+    idx = rows[r]['velocity'].node_indices
+    shards.append({'box': {'tables': rows[r], 'theta': shard(th0, idx),
+                           'u': shard(u0, idx)}})
+
+  def oracle():
+    st_u = JScalar.create(sem_u, bcs_j)
+    step = jax.jit(lambda ths, us: st_u.one_step(ths, us, **SCALAR_SOLVE)[0])
+    thetas = [jnp.asarray(th0)] * 2
+    u = jnp.asarray(u0)
+    for _ in range(SCALAR_STEPS):
+      thetas = [thetas[1], step(thetas, [u, u])]
+    return np.asarray(thetas[1])
+
+  case = {'box': {'premesh': tpm, 'bcs': bcs_t, 'order': 4,
+                  'solve': SCALAR_SOLVE, 'steps': SCALAR_STEPS}}
+  return oracle, shards, case
+
+
 @pytest.fixture(scope='module')
 def refined():
   return {name: _refined(name) for name in CASES}
@@ -216,11 +264,14 @@ def run(refined, dmesh):
                                    0.9 * np.asarray(v_sh[r])]
         ps[r][f'{name}/{mode}'] = [np.asarray(p_sh[r]),
                                    0.9 * np.asarray(p_sh[r])]
+  scalar_oracle, scalar_shards, scalars = _scalar_case()
+  oracles['scalar'] = scalar_oracle
   shards = [{'w': w_rank[r], 'rows': rows[r], 'tables': sem_rows[r],
-             'us': us[r], 'ps': ps[r]} for r in range(NUM)]
+             'us': us[r], 'ps': ps[r], 'scalar': scalar_shards[r]}
+            for r in range(NUM)]
   ranks = torch_port_ranks.in_background(
       spmd.launch, torch_port_ranks.partitioned, shards,
-      exchanges=exchanges, steps=steps)
+      exchanges=exchanges, steps=steps, scalars=scalars)
   # Each oracle on a thread of its own: XLA compiles in parallel.
   jax_out = {name: torch_port_ranks.in_background(oracle)
              for name, oracle in oracles.items()}
@@ -365,3 +416,14 @@ def test_partitioned_step_matches_jax(run, key):
     assert np.isfinite(got['u']).all() and np.isfinite(got['p']).all()
     # The same CG paths on every rank (they read one psum'd total).
     assert got['iters'] == outs[0]['step'][key]['iters']
+
+
+def test_partitioned_scalar_step_matches_unpartitioned(run):
+  jax_out, outs = run
+  want = jax_out['scalar']
+  for o in outs:
+    got = o['scalar']['box']
+    valid = got['v_idx'] != -1
+    np.testing.assert_allclose(got['theta'][valid],
+                               want[got['v_idx'][valid]], atol=1e-10, rtol=0)
+    assert got['iters'] == outs[0]['scalar']['box']['iters']

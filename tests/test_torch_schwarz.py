@@ -17,6 +17,7 @@ vmapped E and its element stiffness is computed once a premesh
 (``torch_port_jax_probes``).
 """
 
+import dataclasses
 import itertools
 
 import jax
@@ -330,11 +331,25 @@ def test_cylinder_step_with_schwarz_matches_jax(cases):
 
 
 def test_partitioned_premesh_is_refused(cases):
-  c = cases['cavity']
-  parts = c['tpm'].replace(partitions=np.zeros(c['tpm'].num_elements,
-                                                 dtype=np.int64))
-  with pytest.raises(NotImplementedError, match='item 17'):
-    ts.build_schwarz_pressure_solver(c['tsem'], parts, c['tbcs'], DT,
+  """A partitioned premesh goes to `build_distributed_schwarz` (the tables
+  are a direct call's); a rank's partitioned solver
+  as the probing oracle is refused (``tests/test_schwarz_distributed.py:
+  78``); so is a premesh of another order."""
+  from swirlfem_tpu_torch.ops import schwarz_distributed as tsd
+  from swirlfem_tpu_torch.parallel import spmd
+  c = cases['cylinder']
+  parts = c['tpm'].replace(partitions=np.arange(c['tpm'].num_elements) % 2)
+  got = ts.build_schwarz_pressure_solver(c['tsem'], parts, c['tbcs'], DT,
+                                         TIME_ORDER)
+  want = tsd.build_distributed_schwarz(c['tsem'], parts, c['tbcs'], DT,
+                                       TIME_ORDER)
+  assert type(got) is type(want) and got.num_partitions == 2
+  for a, b in zip(got.rows, want.rows):
+    for f in ('binv', 'ext_buf_idx', 'rb', 'nbr_buf_idx', 'inv_c_rows'):
+      np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+  rank_sem = dataclasses.replace(c['tsem'], axis=spmd.Axis(size=2, index=0))
+  with pytest.raises(ValueError, match='UNPARTITIONED twin'):
+    ts.build_schwarz_pressure_solver(rank_sem, parts, c['tbcs'], DT,
                                      TIME_ORDER)
   with pytest.raises(ValueError, match='order-1'):
     ts.build_schwarz_pressure_solver(

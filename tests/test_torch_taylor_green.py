@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax._src import api_util
 from swirlfem_tpu.examples import taylor_green_3d as jtg
 from swirlfem_tpu.nse import solver as jsolver
 from swirlfem_tpu_torch import interop
@@ -31,6 +32,23 @@ MU, DT, TIME_ORDER, ALPHA = 1.0 / RE, 2e-3, 2, 0.05
 def _rel(got, want):
   got, want = np.asarray(got), np.asarray(want)
   return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _fresh_jax_caches():
+  """JAX caches a jit's donated arguments by their tree, and the JAX
+  solver's tree carries arrays as metadata: two `run_tgv`s of this box in
+  one process (this module's and the JAX package's energy-balance test,
+  should they share a worker) would compare the trees and raise.  The
+  module starts and ends with no such entry."""
+
+  def clear():
+    api_util.donation_vector.cache_clear()
+    jax.clear_caches()
+
+  clear()
+  yield
+  clear()
 
 
 @pytest.fixture(scope='module')
