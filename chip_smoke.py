@@ -117,13 +117,21 @@ datagen cycle's frames.  Phases:
      frames restricted to the training mesh; one training step whose
      forcing requires grad, with the kernels against `use_kernels=False` on
      the card (loss within 1e-5; gradient within 1e-4 in float64 and 3e-4
-     in the training's float32; a missing or zero gradient fails);
+     in the training's float32; a missing or zero gradient fails); the
+     batched layout at the config's batch of 128: exchange2d on 128
+     samples x 2 components of (5, 5, 12, 12) in one launch, bitwise in
+     float32 and float64, timed against its plain version and the loop's
+     128 two-field launches; stiffness_uniform on the batch folded into E
+     (E = 128 x 144) within 1e-5 of the float64 operator, timed;
  30. NiLES training at the full default configuration (the model under
-     bf16 autocast, the solver float32): 3 train steps at batch 16 on
-     windows of those frames, each step's loss, CG telemetry, host-clock
-     time and row 1 and 2 launches, one more step under `torch.profiler`
-     (the device's busy share), then one eval at batch 4 with its rollout
-     shortened to 16 steps (the model and the no-model baseline);
+     bf16 autocast, the solver float32, one batched solver step a rollout
+     step): two more datagen cycles from phase 4's state (141 windows);
+     2 train steps at the config's batch of 128 (`TRAIN_BATCH`), each
+     step's loss, CG telemetry, host-clock time and row 1 and 2 launches,
+     one more step under `torch.profiler` (the device's busy share), one
+     step at batch 16 (its launches beside the per-sample loop's), then
+     one eval at batch 4 with its rollout shortened to 16 steps (the model
+     and the no-model baseline);
  31. one train step at the tests' tiny configuration on the card (float32)
      against the CPU plain path (float64 solver), from the same
      parameters, batch and draws: loss and global gradient norm within
@@ -186,7 +194,7 @@ datagen cycle's frames.  Phases:
      and 6 launched on every rank in every step (counted per rank);
  41. the lid-driven cavity (16^2, order 7, Re 100, dt 1e-3) partitioned 4
      ways by `utils.partition.partition`, each mode's tables built once on
-     the host and each rank shipped its row: 20 steps from rest in the
+     the host and each rank shipped its row: 10 steps from rest in the
      psum mode, 3 in the neighbor and owner modes (`CAVITY_STEPS`), against
      the same steps unpartitioned on the card (`CAVITY_GATES`, relative)
      and bitwise against the psum mode's state after as many steps, every
@@ -212,7 +220,15 @@ datagen cycle's frames.  Phases:
      backward on every rank; one partitioned step of phase 41's cavity
      (psum mode) differentiated against the unpartitioned step; 3
      partitioned passive-scalar steps against the unpartitioned ones
-     (`LATE_GATES`).
+     (`LATE_GATES`);
+ 45. data-parallel training: 4 ranks sharing the card (`train.train_step`
+     on a `parallel.spmd.Axis`), a global batch of 16 windows of phase
+     30's frames (4 a rank, each rank with its rows of the global draws),
+     2 steps against the single-process trainer on the same batch, draws
+     and initial parameters: the parameters bitwise equal on every rank
+     after every step, the loss and the parameters within `DP_GATES` of
+     the single process; ms/step on rank 0, collectives and host-staged
+     bytes a step.
 
 Each kernel's count is set to 0 just before the path that launches it and
 read just after.  Every kernel's bound is the larger of its bytes (each
@@ -1548,13 +1564,23 @@ def grad_norm(grads) -> float:
   return math.sqrt(sum(float(g.double().square().sum()) for g in grads))
 
 
-def run_training_phases(torch, device, kernel_checks, frames) -> dict:
+# Phase 30's batch: the training config's own (niles/config.py).
+TRAIN_BATCH = 128
+# Windows in phase 29's batched step with grad, kernels against plain.
+GRAD_BATCH = 8
+
+
+def run_training_phases(torch, device, kernel_checks, frames, dgen) -> dict:
   """Phases 29-30: the NiLES training slice at the default configuration.
-  Returns the train and eval step's times, the launches of rows 1 and 2
-  per train step and the device's busy share."""
+  `dgen` holds the datagen solver, config and phase 4's end state (two more
+  cycles from it give phase 30's windows).  Returns the train and eval
+  step's times, the launches of rows 1 and 2 per train step, the device's
+  busy share, rows 1 and 2 on the batched layout, and the restricted
+  frames."""
   import numpy as np
   from swirlfem_tpu_torch.linalg.linear_solve import linear_solve
   from swirlfem_tpu_torch.niles import coarsen
+  from swirlfem_tpu_torch.niles import datagen
   from swirlfem_tpu_torch.niles import config as niles_config
   from swirlfem_tpu_torch.niles import input_pipeline
   from swirlfem_tpu_torch.niles import profile_datagen
@@ -1620,8 +1646,74 @@ def run_training_phases(torch, device, kernel_checks, frames) -> dict:
   require(st_launches == 2 and err_st <= kernel_checks.STIFFNESS_REL_TOL,
           (st_launches, err_st))
 
-  # One training el step whose forcing requires grad: the kernels against
-  # the plain versions (use_kernels=False) on the card.
+  # Row 1 on the batched layout at the config's batch (128 samples, both
+  # components in one launch, float32 and float64): bitwise its plain
+  # version, timed against the plain version and against the loop's form
+  # (a two-field launch a sample); row 2 on the batch folded into E.
+  nb = niles_config.get_config().batch_size
+  batched = {}
+  for dt_ in (torch.float32, torch.float64):
+    wb = tuple(kernel_checks.random_field((k, k, nb, n, n), dtype=dt_,
+                                          device=device, seed=s)
+               for s in (5, 6))
+    reset()
+    exb = kernel_checks.check_exchange2d(wb)
+    one = read()[0]
+    log(f'[29] exchange2d batched 2 x {tuple(wb[0].shape)} {dt_}: {exb}, '
+        f'{one} launch')
+    require(exb['bitwise_equal'] and one == 1, (exb, one))
+    per_sample = [tuple(x[:, :, b].contiguous() for x in wb)
+                  for b in range(nb)]
+    nbytes = 2 * sum(x.numel() * x.element_size() for x in wb)
+    entry = {
+        'max_abs_err': exb['max_abs_err'],
+        'ms': kernel_checks.time_ms(lambda: cuda_exchange.exchange2d(wb),
+                                    device=device),
+        'plain_ms': kernel_checks.time_ms(
+            lambda: tuple(cuda_exchange.exchange2d_plain(x) for x in wb),
+            device=device, calls=PLAIN_CALLS),
+        'loop_ms': kernel_checks.time_ms(
+            lambda: [cuda_exchange.exchange2d(f) for f in per_sample],
+            device=device, calls=2),
+        'kernel_us': kernel_checks.kernel_us(
+            lambda: cuda_exchange.exchange2d(wb), 'exchange2d_kernel',
+            device=device),
+        **kernel_checks.bound(2 * 2 * k * n * n * nb, nbytes)}
+    batched[str(dt_).replace('torch.', '')] = entry
+    log(f'[29] exchange2d batched {dt_}: {entry["ms"] * 1e3:.2f} us '
+        f'(kernel {us_or_none(entry["kernel_us"])}), plain '
+        f'{entry["plain_ms"] * 1e3:.2f} us, the loop\'s {nb} two-field '
+        f'launches {entry["loop_ms"] * 1e3:.2f} us, bound '
+        f'{entry["bound_ms"] * 1e3:.3f} us ({entry["bound_by"]})')
+  folded = ops.fold_batch(nb)
+  uf = tuple(kernel_checks.random_field((k, k, nb * n * n),
+                                        dtype=torch.float32, device=device,
+                                        seed=s) for s in (7, 8))
+  stf = kernel_checks.check_stiffness_uniform(folded, uf)
+  log(f'[29] stiffness_uniform on the folded batch 2 x '
+      f'{tuple(uf[0].shape)} f32: {stf}')
+  require(stf['rel_err_f64'] <= kernel_checks.STIFFNESS_REL_TOL, stf)
+  amat = ops.mats['amat']
+  k2 = amat.shape[0]
+  ustack = torch.cat([u.reshape(k2, -1) for u in uf], dim=1)
+  batched['stiffness_folded'] = {
+      'max_abs_err': stf['max_abs_err'],
+      'ms': kernel_checks.time_ms(lambda: folded.stiffness_el_multi(uf),
+                                  device=device),
+      'plain_ms': kernel_checks.time_ms(
+          lambda: cuda_stiffness.stiffness_uniform_plain(uf, amat),
+          device=device, calls=PLAIN_CALLS),
+      'library_ms': kernel_checks.time_ms(lambda: torch.matmul(amat, ustack),
+                                          device=device),
+      **kernel_checks.bound(2 * k2 ** 2 * uf[0].shape[-1] * len(uf),
+                            (k2 * k2 + 2 * len(uf) * uf[0].numel())
+                            * amat.element_size())}
+  log(f'[29] stiffness_uniform folded (E = {nb} x {n * n}): '
+      f'{batched["stiffness_folded"]}')
+
+  # The training's batched solver step (`train.solve_batch_step`) on a
+  # batch of restricted windows whose forcing requires grad: the kernels
+  # against the plain versions (use_kernels=False) on the card.
   restrict = coarsen.make_restriction(64, 8, cfg)
   dns = {key: np.concatenate([f[key] for f in frames]) for key in ('u', 'p')}
   les = restrict(dns)
@@ -1630,52 +1722,60 @@ def run_training_phases(torch, device, kernel_checks, frames) -> dict:
       f'{n}^2 order {cfg.order}: u {les["u"].shape}, p {les["p"].shape}')
   require(np.isfinite(les['u']).all() and np.isfinite(les['p']).all(),
           'non-finite restricted frames')
-  # Half the squared distance to the next frame, over its value at the
-  # start.  In float64 both paths solve to rounding.  In float32 (the
-  # training's dtype) the transpose solves stop at the absolute atol = 1e-7
-  # of the training step or run to their cap on the rounding floor, and
-  # the two paths' gradients have read 5.5e-5 to 9.1e-5 apart (PERF.md):
-  # gated at 3e-4, three times the largest reading.
+  # Sample b steps from frames b .. b + T - 1 (T the time order).  The loss
+  # is half the squared distance to each sample's next frame, summed over
+  # the batch, over its value at the start.  In float64 both paths solve
+  # to rounding.  In float32 (the training's dtype) the transpose solves
+  # stop at the absolute atol = 1e-7 of the training step or run to their
+  # cap on the rounding floor; one sample's gradients read 5.5e-5 to
+  # 9.1e-5 apart on the two paths (PERF.md): gated at 3e-4, three times
+  # the largest reading.
+  order = cfg.time_order
+  require(nf >= GRAD_BATCH + order, (nf, GRAD_BATCH))
+  window = lambda key, i: les[key][i:i + GRAD_BATCH]
   rng = np.random.default_rng(29)
-  misfit = float(np.square(les['u'][cfg.time_order].astype(np.float64)
-                           - les['u'][cfg.time_order - 1]).sum())
-  f0 = 1e-2 * rng.standard_normal(les['u'].shape[1:])
+  misfit = float(np.square(window('u', order).astype(np.float64)
+                           - window('u', order - 1)).sum())
+  f0 = 1e-2 * rng.standard_normal((GRAD_BATCH,) + les['u'].shape[1:])
   for dtype, tol_l, tol_g in ((torch.float64, 1e-5, 1e-4),
                               (torch.float32, 1e-5, 3e-4)):
     results = []
     for use_kernels in (True, False):
       solver = train.build_solver(cfg, device=device, dtype=dtype,
                                   use_kernels=use_kernels)
-      frame = lambda key, i: torch.as_tensor(les[key][i], dtype=dtype,
+      frame = lambda key, i: torch.as_tensor(window(key, i), dtype=dtype,
                                              device=device)
-      hist = [frame('u', i) for i in range(cfg.time_order)]
-      ps = [frame('p', i) for i in range(cfg.time_order)]
-      target = frame('u', cfg.time_order)
+      hist = [frame('u', i) for i in range(order)]
+      ps = [frame('p', i) for i in range(order)]
+      target = frame('u', order)
       f = torch.as_tensor(f0, dtype=dtype, device=device).requires_grad_()
       cus = [solver.C(u) for u in hist]
       reset()
       solves = linear_solve.transpose_solves
-      u, _, _, cg = train.solve_one_step(
+      u, _, _, cg = train.solve_batch_step(
           hist, ps, cus, f, solver, cfg,
           train.make_solver_preconds(solver, cfg))
       fwd = read()
       loss = 0.5 * (u - target).square().sum() / misfit
       (g,) = torch.autograd.grad(loss, f)
       torch.cuda.synchronize(device)
+      cg = {key: [int(x) for x in cg[key].tolist()]
+            for key in ('cg_u_iters', 'cg_p_iters')}
       results.append((float(loss), g, fwd, tuple(
           b - a for a, b in zip(fwd, read())),
           linear_solve.transpose_solves - solves, cg))
-    (l_k, g_k, fwd_k, bwd_k, ns_k, cg_k), (l_p, g_p, fwd_p, bwd_p, _, _) = (
+    (l_k, g_k, fwd_k, bwd_k, ns_k, cg_k), (l_p, g_p, fwd_p, bwd_p, _, cg_p) = (
         results)
     dl = abs(l_k - l_p) / abs(l_p)
     dg = rel_err(g_k, g_p)
     gmax = float(g_k.abs().max())
-    log(f'[29] {dtype} el step with grad, kernels vs use_kernels=False on '
-        f'the card: loss {l_k:.10e} vs {l_p:.10e} (rel {dl:.3e}), d loss / '
-        f'd f rel {dg:.3e} (max |g| {gmax:.3e}; tolerances {tol_l:g}, '
-        f'{tol_g:g}); launches (exchange2d, stiffness_uniform) forward '
-        f'{fwd_k}, backward {bwd_k} ({ns_k} transpose solves); plain path '
-        f'{fwd_p}, {bwd_p}; CG {cg_k}')
+    log(f'[29] {dtype} batched el step ({GRAD_BATCH} windows) with grad, '
+        f'kernels vs use_kernels=False on the card: loss {l_k:.10e} vs '
+        f'{l_p:.10e} (rel {dl:.3e}), d loss / d f rel {dg:.3e} (max |g| '
+        f'{gmax:.3e}; tolerances {tol_l:g}, {tol_g:g}); launches '
+        f'(exchange2d, stiffness_uniform) forward {fwd_k}, backward {bwd_k} '
+        f'({ns_k} transpose solves); plain path {fwd_p}, {bwd_p}; CG per '
+        f'sample {cg_k}, plain path {cg_p}')
     require(math.isfinite(l_k) and gmax > 0 and all_finite(g_k),
             'missing or zero gradient through the step')
     require(dl <= tol_l and dg <= tol_g, (dtype, dl, dg))
@@ -1683,8 +1783,27 @@ def run_training_phases(torch, device, kernel_checks, frames) -> dict:
     require(bwd_p[1] == 0, bwd_p)
 
   # -- 30. training at the full default configuration ----------------------
-  cfg.batch_size = 16
-  steps_run, eval_steps = 3, 16
+  # Two more datagen cycles from phase 4's end state: one trajectory of 151
+  # frames gives 141 training windows, enough for a batch of 128 distinct
+  # ones (one cycle gives 41).
+  advance = datagen.make_step_fn(dgen['sem'], dgen['cfg'])
+  us_, ps_, cus_ = dgen['state']
+  cycles = []
+  t0 = time.perf_counter()
+  for c in (1, 2):
+    us_, ps_, cus_, _, fr = datagen.one_cycle(
+        dgen['sem'], dgen['cfg'], advance,
+        c * dgen['cfg'].num_steps_per_cycle, us_, ps_, cus_, None)
+    cycles.append(fr)
+  dns = {key: np.concatenate([dns[key]] + [f[key][1:] for f in cycles])
+         for key in ('u', 'p')}
+  les = restrict(dns)
+  log(f'[30] two more datagen cycles from phase 4\'s state '
+      f'({time.perf_counter() - t0:.1f} s): {les["u"].shape[0]} frames')
+  require(np.isfinite(les['u']).all() and np.isfinite(les['p']).all(),
+          'non-finite restricted frames')
+  cfg.batch_size = TRAIN_BATCH
+  steps_run, eval_steps = 2, 16
   torch.manual_seed(cfg.seed)
   model = train.create_model(cfg).to(device)
   state = train.create_train_state(model, cfg)
@@ -1704,42 +1823,49 @@ def run_training_phases(torch, device, kernel_checks, frames) -> dict:
       f'pushforward), model width {cfg.model.width} depth {cfg.model.depth} '
       f'dtype {cfg.model.dtype}, {num_params} parameters; {n_windows} '
       f'train windows of {cfg.train_window_size}, batch {cfg.batch_size}, '
-      f'{steps_run} steps')
+      f'{steps_run} steps, one batched solver step a rollout step')
   before = [p.detach().clone() for p in model.parameters()]
-  step_ms, step_launches, losses, cg_iters, tr_iters = [], [], [], [], []
-  for step in range(steps_run):
-    batch = {key: torch.as_tensor(v, device=device)
-             for key, v in next(it).items()}
-    draws = train.make_draws_fn(model, cfg.batch_size, cfg.seed, step, device)
+
+  def timed_step(step, batch, batch_size):
+    draws = train.make_draws_fn(model, batch_size, cfg.seed, step, device)
     torch.cuda.synchronize(device)
     reset()
     solves, iters = (linear_solve.transpose_solves,
                      linear_solve.transpose_iterations)
     t0 = time.perf_counter()
-    state, metrics, _ = train.train_step(state, batch, draws, lr_fn, kl_fn,
-                                         sem, cfg, preconds)
+    _, metrics, _ = train.train_step(state, batch, draws, lr_fn, kl_fn,
+                                     sem, cfg, preconds)
     torch.cuda.synchronize(device)
-    step_ms.append((time.perf_counter() - t0) * 1e3)
-    step_launches.append(read())
+    ms = (time.perf_counter() - t0) * 1e3
     m = train.metrics_to_host(metrics)
+    tr = (linear_solve.transpose_solves - solves,
+          linear_solve.transpose_iterations - iters)
+    log(f'[30] step {step} (batch {batch_size}): loss {m["loss"]:.6e} (mse '
+        f'{m["mse"]:.6e}, kl {m["kl"]:.3e}), lr {m["learning_rate"]:.3e}, '
+        f'cg_max_iters {m["cg_max_iters"]:g}, cg_max_resid '
+        f'{m["cg_max_resid"]:.2e}, {ms:.1f} ms, launches (exchange2d, '
+        f'stiffness_uniform) {read()}, backward solves {tr[0]} ({tr[1]} CG '
+        f'iterations, every sample\'s)')
+    return ms, read(), m, tr
+
+  step_ms, step_launches, losses, cg_iters, tr_iters = [], [], [], [], []
+  for step in range(steps_run):
+    batch = {key: torch.as_tensor(v, device=device)
+             for key, v in next(it).items()}
+    ms, launched, m, tr = timed_step(step, batch, cfg.batch_size)
+    step_ms.append(ms)
+    step_launches.append(launched)
     losses.append(m['loss'])
     cg_iters.append(m['cg_max_iters'])
-    tr_iters.append((linear_solve.transpose_solves - solves,
-                     linear_solve.transpose_iterations - iters))
-    log(f'[30] step {step}: loss {m["loss"]:.6e} (mse {m["mse"]:.6e}, kl '
-        f'{m["kl"]:.3e}), lr {m["learning_rate"]:.3e}, cg_max_iters '
-        f'{m["cg_max_iters"]:g}, cg_max_resid {m["cg_max_resid"]:.2e}, '
-        f'{step_ms[-1]:.1f} ms, launches (exchange2d, stiffness_uniform) '
-        f'{step_launches[-1]}, backward solves {tr_iters[-1][0]} '
-        f'({tr_iters[-1][1]} CG iterations)')
+    tr_iters.append(tr)
   changed = sum(float((p.detach() - b).abs().max()) for p, b in
                 zip(model.parameters(), before))
   require(all(math.isfinite(x) for x in losses), losses)
   require(changed > 0, 'the parameters did not change')
   require(max(cg_iters) < 50, cg_iters)
   require(all(min(x) > 0 for x in step_launches), step_launches)
-  # One more step under the profiler (the CUDA activity alone: a step makes
-  # ~500k launches, and the per-op tables would take minutes).
+  # One more step under the profiler (the CUDA activity alone: the per-op
+  # tables over a step's launches would take minutes).
   batch = {key: torch.as_tensor(v, device=device)
            for key, v in next(it).items()}
   draws = train.make_draws_fn(model, cfg.batch_size, cfg.seed, steps_run,
@@ -1752,7 +1878,13 @@ def run_training_phases(torch, device, kernel_checks, frames) -> dict:
   log(f'[30] profiled train step: {prof} ({time.perf_counter() - t0:.1f} s '
       f'with the trace\'s reading); busy '
       f'{"not measured" if prof is None else prof["busy_ms"]} ms against '
-      f'the unprofiled steps\' median below')
+      f'the unprofiled steps\' last below')
+  # One step at batch 16, for its launches beside those of a solver step a
+  # sample at that batch.
+  small = {key: torch.as_tensor(v[:16], device=device)
+           for key, v in next(it).items()}
+  ms16, launches16, m16, _ = timed_step(steps_run + 1, small, 16)
+  require(math.isfinite(m16['loss']) and m16['cg_max_iters'] < 50, m16)
   # One eval at batch 4, its rollout shortened from 125 to 16 steps.
   cfg.eval_num_steps = eval_steps
   cfg.eval_window_size = eval_steps + 3
@@ -1779,20 +1911,25 @@ def run_training_phases(torch, device, kernel_checks, frames) -> dict:
       f'{eval_launches} (the eval step runs the model and the no-model '
       f'baseline)')
   require(all(math.isfinite(v) for v in ev.values()), ev)
-  train_ms = statistics.median(step_ms[1:])
+  train_ms = step_ms[-1]
   busy_text = ('not measured' if prof is None else
                f'{prof["busy_ms"]:.1f} ms: {100 * busy:.1f}% of the profiled '
-               f'step, {100 * prof["busy_ms"] / train_ms:.1f}% of the median')
-  log(f'[30] train step (batch {cfg.batch_size}, host clock, median of '
-      f'steps 1-{steps_run - 1}): {train_ms:.1f} ms; launches per train step '
-      f'(exchange2d, stiffness_uniform) {step_launches[-1]}; device busy '
-      f'{busy_text}; backward solves per step {tr_iters[-1][0]}, '
-      f'{tr_iters[-1][1]} CG iterations in all')
+               f'step, {100 * prof["busy_ms"] / train_ms:.1f}% of the last '
+               'timed step')
+  log(f'[30] train step (batch {cfg.batch_size}, host clock): steps '
+      f'{", ".join(f"{x:.1f}" for x in step_ms)} ms; launches per train step '
+      f'(exchange2d, stiffness_uniform) {step_launches[-1]} (batch 16: '
+      f'{launches16}, {ms16:.1f} ms); device busy {busy_text}; backward '
+      f'solves per step {tr_iters[-1][0]}, {tr_iters[-1][1]} CG iterations '
+      f'in all')
 
-  return {'train_step_ms': train_ms, 'eval_ms': eval_ms,
-          'train_step_launches': dict(zip(('exchange2d', 'stiffness_uniform'),
-                                          step_launches[-1])),
-          'busy': prof}
+  names = ('exchange2d', 'stiffness_uniform')
+  return {'train_step_ms': train_ms, 'step_ms': step_ms, 'eval_ms': eval_ms,
+          'batch': cfg.batch_size,
+          'train_step_launches': dict(zip(names, step_launches[-1])),
+          'batch16_launches': dict(zip(names, launches16)),
+          'batch16_ms': ms16, 'busy': prof, 'batched': batched,
+          'les': les}
 
 
 def run_tiny_train_phase(torch, device) -> None:
@@ -2675,16 +2812,18 @@ def run_distributed_phases(torch, device, kernel_checks, times, launches, dg,
 # Phase 41's steps a mode.  A partitioned cavity step takes 400-650
 # pressure CG iterations (no preconditioner off the structured box) and
 # 2,000-3,000 collectives of ~2 ms each from the card: ~5-6 s a step on an
-# H100 in every mode.  The psum mode runs the 20 steps of the walled
-# phases; the neighbor and owner modes, whose arithmetic is the psum
+# H100 in every mode (up to ~9 s on a slow host).  The psum mode runs 10
+# steps (20, those of the walled phases, until the script outgrew its
+# time); the neighbor and owner modes, whose arithmetic is the psum
 # mode's (every sum in ascending rank order), run 3 and are held bitwise
 # to the psum mode's state there.  All three at 20 took 369 s of the
 # script's 889 s.
-CAVITY_STEPS = {'psum': 20, 'neighbors': 3, 'owner': 3}
+CAVITY_STEPS = {'psum': 10, 'neighbors': 3, 'owner': 3}
 # (u, p) gates relative to the unpartitioned run's largest entry, by step
-# count: about 3x the readings on an H100 (20 steps: 2.38e-7, 1.22e-5; 3
-# steps: 1.61e-6, 1.14e-5; the same in every mode).
-CAVITY_GATES = {20: (7.5e-7, 4e-5), 3: (5e-6, 3.5e-5)}
+# count: about 3x the readings on an H100 (20 steps: 2.38e-7, 1.22e-5; 10
+# steps: 2.98e-7, 1.10e-5; 3 steps: 1.61e-6, 1.14e-5; the same in every
+# mode).
+CAVITY_GATES = {20: (7.5e-7, 4e-5), 10: (9e-7, 3.3e-5), 3: (5e-6, 3.5e-5)}
 
 
 def run_cavity_phase(torch, device, steps=None) -> None:
@@ -3415,6 +3554,141 @@ def run_late_distributed_phases(torch, device, times, dg) -> None:
   require(d_sc <= LATE_GATES['scalar'], ('scalar', d_sc))
 
 
+# -- Phase 45: data-parallel training on ranks that share the card -----------
+
+# The global batch of phase 45 (4 samples a rank) and its gates against the
+# single-process trainer: the loss (relative, the larger of the two steps')
+# and the parameters after the steps (largest difference over the largest
+# parameter), 3x the readings on an NVIDIA H100 80GB HBM3 at 700 W
+# (2.564e-7 and 2.755e-5: the model's bf16 autocast at batch 4 a rank
+# against batch 16, amplified in the parameters by AdamW's normalisation).
+DP_BATCH = 16
+DP_STEPS = 2
+DP_GATES = {'loss': 7.7e-7, 'params': 8.3e-5}
+
+
+def dp_steps(torch, cfg, batch, steps, device, lr, axis=None) -> dict:
+  """`steps` train steps of the default model (seeded by ``cfg.seed``) on
+  `batch` (numpy, the global batch), on one process or, with `axis`, on
+  this rank's rows of it with the global draws' rows and the gradients
+  averaged across the ranks.  Returns the set-up seconds (model, solver
+  and preconditioners on the device), each step's loss, host-clock ms,
+  collectives, host-staged bytes and row 1 and 2 launches, and the
+  parameters after each step."""
+  t_setup = time.perf_counter()
+  from swirlfem_tpu_torch.niles import train
+  from swirlfem_tpu_torch.ops import cuda_exchange
+  from swirlfem_tpu_torch.ops import cuda_stiffness
+  torch.manual_seed(cfg.seed)
+  model = train.create_model(cfg).to(device)
+  state = train.create_train_state(model, cfg)
+  sem = train.build_solver(cfg, device=device)
+  preconds = train.make_solver_preconds(sem, cfg)
+  size = cfg.batch_size
+  rows = None
+  if axis is not None:
+    local = size // axis.size
+    rows = slice(axis.index * local, (axis.index + 1) * local)
+  tb = {key: torch.as_tensor(v if rows is None else v[rows], device=device)
+        for key, v in batch.items()}
+  kl_fn = train.create_kl_penalty_fn(cfg, 1)
+  counters = (cuda_exchange.exchange2d, cuda_stiffness.stiffness_uniform)
+  on_card = torch.device(device).type == 'cuda'
+  sync = (lambda: torch.cuda.synchronize(device)) if on_card else (
+      lambda: None)  # (a CPU rehearsal)
+  out = {key: [] for key in ('loss', 'ms', 'collectives', 'host_bytes',
+                             'launches', 'params')}
+  sync()
+  out['setup_s'] = time.perf_counter() - t_setup
+  for step in range(steps):
+    draws = train.make_draws_fn(model, size, cfg.seed, step, device, rows)
+    sync()
+    for c in counters:
+      c.launches = 0
+    if axis is not None:
+      axis.reset_stats()
+    t0 = time.perf_counter()
+    state, metrics, _ = train.train_step(state, tb, draws, lambda _: lr,
+                                         kl_fn, sem, cfg, preconds,
+                                         axis=axis)
+    sync()
+    out['ms'].append((time.perf_counter() - t0) * 1e3)
+    out['loss'].append(float(metrics['loss']))
+    stats = axis.stats if axis is not None else {'collectives': 0,
+                                                'host_bytes': 0}
+    out['collectives'].append(stats['collectives'])
+    out['host_bytes'].append(stats['host_bytes'])
+    out['launches'].append([c.launches for c in counters])
+    out['params'].append(torch.cat([p.detach().reshape(-1).cpu()
+                                    for p in model.parameters()]).numpy())
+  return out
+
+
+def dp_train_rank(ax, shard, *, cfg, batch, steps, device, lr):
+  """Phase 45 on one rank (a `spmd.launch` function)."""
+  del shard
+  import torch
+  return dp_steps(torch, cfg, batch, steps, device, lr, axis=ax)
+
+
+def run_data_parallel_phase(torch, device, training) -> dict:
+  """Phase 45: `NUM_RANKS` data-parallel ranks sharing the card train
+  `DP_STEPS` steps on a global batch of `DP_BATCH` windows of phase 30's
+  frames, against the single-process trainer on the same batch, draws and
+  initial parameters."""
+  import numpy as np
+  from swirlfem_tpu_torch.niles import config as niles_config
+  from swirlfem_tpu_torch.niles import input_pipeline
+  from swirlfem_tpu_torch.parallel import spmd
+
+  cfg = niles_config.get_config()
+  cfg.drag_coeff = 0.05  # the datagen's, as in phase 30
+  cfg.batch_size = DP_BATCH
+  lr = cfg.learning_rate * cfg.batch_size / 256.0
+  batch = next(input_pipeline.create_split(
+      cfg.batch_size, True, cfg, prefetch=0, seed=45,
+      frames=[training['les']]))
+  t0 = time.perf_counter()
+  outs = spmd.launch(dp_train_rank, [None] * NUM_RANKS, cfg=cfg, batch=batch,
+                     steps=DP_STEPS, device=str(device), lr=lr, timeout=900,
+                     threads=1)
+  launch_s = time.perf_counter() - t0
+  ref = dp_steps(torch, cfg, batch, DP_STEPS, device, lr)
+  r0 = outs[0]
+  same = all(np.array_equal(o['params'][s], r0['params'][s])
+             for o in outs[1:] for s in range(DP_STEPS))
+  dloss = max(abs(a - b) / abs(b) for a, b in zip(r0['loss'], ref['loss']))
+  scale = float(np.abs(ref['params'][-1]).max())
+  dparams = float(np.abs(r0['params'][-1] - ref['params'][-1]).max()) / scale
+  moved = float(np.abs(ref['params'][-1] - ref['params'][0]).max()) / scale
+  log(f'[45] {NUM_RANKS} data-parallel ranks on {device}, global batch '
+      f'{cfg.batch_size} ({cfg.batch_size // NUM_RANKS} a rank), '
+      f'{DP_STEPS} steps: launch to results {launch_s:.1f} s (set-up on '
+      f'rank 0 {r0["setup_s"]:.1f} s, single process {ref["setup_s"]:.1f} '
+      f's); rank 0 ms/step '
+      f'{[round(x, 1) for x in r0["ms"]]} (single process '
+      f'{[round(x, 1) for x in ref["ms"]]}); collectives a step '
+      f'{r0["collectives"]}, host-staged bytes a step {r0["host_bytes"]}; '
+      f'launches (exchange2d, stiffness_uniform) a step on rank 0 '
+      f'{r0["launches"]} (single process {ref["launches"]}); parameters '
+      f'bitwise equal on every rank after every step: {same}; loss '
+      f'{r0["loss"]} vs {ref["loss"]} (rel {dloss:.3e}, gate '
+      f'{DP_GATES["loss"]:g}); parameters after {DP_STEPS} steps vs the '
+      f'single process {dparams:.3e} of their scale {scale:.3e} (gate '
+      f'{DP_GATES["params"]:g}; the steps moved them {moved:.3e})')
+  require(same, 'the ranks\' parameters differ')
+  require(all(math.isfinite(x) for o in outs for x in o['loss']),
+          [o['loss'] for o in outs])
+  require(dloss <= DP_GATES['loss'], dloss)
+  require(dparams <= DP_GATES['params'], dparams)
+  require(moved > 0, 'the parameters did not change')
+  require(all(min(x) > 0 for x in r0['launches']), r0['launches'])
+  return {'ms': r0['ms'], 'setup_s': r0['setup_s'],
+          'collectives': r0['collectives'],
+          'host_bytes': r0['host_bytes'], 'dloss': dloss,
+          'dparams': dparams}
+
+
 def _flat(tree):
   """The arrays of a (nested) result, in a fixed order."""
   if isinstance(tree, dict):
@@ -3629,7 +3903,7 @@ def main() -> int:
   run_split_phases(torch, device, dtype, tgv, kernel_checks, times,
                    launches, dg, walled, tgv_box)
   run_knob_phase(torch, device, dtype)
-  training = run_training_phases(torch, device, kernel_checks, frames)
+  training = run_training_phases(torch, device, kernel_checks, frames, dg)
   run_tiny_train_phase(torch, device)
   small_runs = run_cylinder_phases(torch, device, kernel_checks, times,
                                    launches)
@@ -3638,6 +3912,7 @@ def main() -> int:
   run_distributed_phases(torch, device, kernel_checks, times, launches, dg,
                          tgv_box)
   run_late_distributed_phases(torch, device, times, dg)
+  run_data_parallel_phase(torch, device, training)
 
   kernels = [
       {'name': 'exchange2d', 'route': 'cuda',
@@ -3645,6 +3920,12 @@ def main() -> int:
        'replaces': 'swirlfem_tpu/ops/pallas_exchange.py:43',
        'launches': launches['exchange2d'],
        'train_step_launches': training['train_step_launches']['exchange2d'],
+       'train_batch': training['batch'],
+       'train_step_launches_batch16':
+           training['batch16_launches']['exchange2d'],
+       # Both components of the 128-sample batch in one launch (phase 29).
+       'batched': {key: training['batched'][key]
+                   for key in ('float32', 'float64')},
        'max_abs_err': ex['max_abs_err'], **times['exchange2d']},
       {'name': 'stiffness_uniform', 'route': 'cuda',
        'source': 'swirlfem_tpu_torch/csrc/stiffness_uniform.cu',
@@ -3652,6 +3933,9 @@ def main() -> int:
        'launches': launches['stiffness_uniform'],
        'train_step_launches':
            training['train_step_launches']['stiffness_uniform'],
+       'train_step_launches_batch16':
+           training['batch16_launches']['stiffness_uniform'],
+       'folded_batch': training['batched']['stiffness_folded'],
        'max_abs_err': st['max_abs_err'], **times['stiffness_uniform']},
       {'name': 'stiffness2d_general', 'route': 'cuda',
        'source': 'swirlfem_tpu_torch/csrc/stiffness2d_general.cu',

@@ -1,9 +1,11 @@
 // Periodic 2D direct-stiffness summation (Q Q^T) in element-local form, for
-// up to four fields in one launch.
+// up to four fields of a batch of element grids in one launch.
 //
 // Replaces swirlfem_tpu/ops/pallas_exchange.py:exchange2d_pallas (_kernel),
-// the TPU kernel that runs the two sequential axis passes in VMEM.  Input and
-// output are (k, k, n0, n1), contiguous, element axes last:
+// the TPU kernel that runs the two sequential axis passes in VMEM (and, under
+// the JAX trainer's vmap, runs them for every sample).  Input and output are
+// (k, k, nb, n0, n1), contiguous, element axes last: nb independent periodic
+// grids (nb = 1 is one (k, k, n0, n1) grid), each exchanged on its own:
 //
 //   pass 1 (local axis 1 <-> element axis n1): s = w[a,p,e0,e1] + w[a,0,e0,e1+1]
 //     is written to face p of element e1 and face 0 of element e1+1;
@@ -22,9 +24,11 @@
 // Bound.  Memory: one read and one write per entry; at the datagen shape
 // (9, 9, 64, 64) in float32 that is 2.65 MB, 0.79 us at 3.35 TB/s.
 //
-// Design.  A block owns one plane (a, b) (blockIdx.y = a, blockIdx.z = b), a
-// band of blockDim.y element rows (blockIdx.x) and, along threadIdx.z, one
-// field each: no thread divides.  A thread moves V values along the
+// Design.  A block owns one plane (a, b) (blockIdx.y = a, blockIdx.z = b) of
+// one grid of the batch, a band of blockDim.y element rows of it (blockIdx.x
+// = grid * bands + band) and, along threadIdx.z, one field each: a block
+// never reads another grid's rows, so no periodic wrap crosses from one
+// sample into the next.  The batch adds one division a thread.  A thread moves V values along the
 // contiguous axis e1 at once, 16 bytes where n1 and the pointers allow it
 // (V = 4 in float32, 2 in float64), else one; it strides over its row by
 // blockDim.x chunks.  The plane decides the work for the whole block:
@@ -123,22 +127,29 @@ __device__ __forceinline__ P pick(P const (&a)[kMaxFields], int i) {
 }
 
 template <typename T, int V, bool kShfl>
-__global__ void exchange2d_kernel(Fields f, int k, int n0, int n1) {
+__global__ void exchange2d_kernel(Fields f, int k, int nb, int n0, int n1,
+                                  int bands) {
   const int a = blockIdx.y;
   const int b = blockIdx.z;
   const int p = k - 1;
+  const int grid = blockIdx.x / bands;
+  const int band = blockIdx.x - grid * bands;
   const T* __restrict__ w = static_cast<const T*>(pick(f.in, threadIdx.z));
   T* __restrict__ out = static_cast<T*>(pick(f.out, threadIdx.z));
   const long long plane_size = static_cast<long long>(n0) * n1;
-  auto plane = [&](int i, int j) { return w + (i * k + j) * plane_size; };
+  // Plane (i, j) of this block's grid.
+  auto at = [&](int i, int j) {
+    return (static_cast<long long>(i * k + j) * nb + grid) * plane_size;
+  };
+  auto plane = [&](int i, int j) { return w + at(i, j); };
   const int chunks = n1 / V;
   // With shuffles every thread of a row takes part, so a row past n0 is
   // computed on the last row and not stored.
-  const int e0_raw = blockIdx.x * blockDim.y + threadIdx.y;
+  const int e0_raw = band * blockDim.y + threadIdx.y;
   const bool live = e0_raw < n0;
   const int e0 = live ? e0_raw : n0 - 1;
   const long long row = static_cast<long long>(e0) * n1;
-  T* __restrict__ dst = out + (a * k + b) * plane_size + row;
+  T* __restrict__ dst = out + at(a, b) + row;
   for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
     Pack<T, V> v;
     if (a == p || a == 0) {
@@ -159,11 +170,13 @@ __global__ void exchange2d_kernel(Fields f, int k, int n0, int n1) {
 }
 
 template <typename T, int V, bool kShfl>
-int launch_v(const Fields& f, int num_fields, int k, int n0, int n1, int tx,
-             int ty, cudaStream_t stream) {
+int launch_v(const Fields& f, int num_fields, int k, int nb, int n0, int n1,
+             int tx, int ty, cudaStream_t stream) {
+  const int bands = (n0 + ty - 1) / ty;
   const dim3 block(tx, ty, num_fields);
-  const dim3 grid((n0 + ty - 1) / ty, k, k);
-  exchange2d_kernel<T, V, kShfl><<<grid, block, 0, stream>>>(f, k, n0, n1);
+  const dim3 grid(static_cast<unsigned>(bands) * nb, k, k);
+  exchange2d_kernel<T, V, kShfl><<<grid, block, 0, stream>>>(f, k, nb, n0, n1,
+                                                             bands);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -171,12 +184,14 @@ int launch_v(const Fields& f, int num_fields, int k, int n0, int n1, int tx,
 // checks that it covers the fields as the kernel reads them.
 template <typename T>
 int launch(const void* const* ins, void* const* outs, int num_fields, int k,
-           int n0, int n1, int vec, int tx, int ty, int shfl, void* stream) {
+           int nb, int n0, int n1, int vec, int tx, int ty, int shfl,
+           void* stream) {
   constexpr int kV = 16 / static_cast<int>(sizeof(T));
   const int v = vec ? kV : 1;
   const bool pow2 = tx > 0 && (tx & (tx - 1)) == 0;
   if (num_fields < 1 || num_fields > kMaxFields || k < 2 || k > 65535 ||
-      n0 < 1 || n1 < 1 || n1 % v != 0 || tx < 1 || ty < 1 ||
+      nb < 1 || n0 < 1 || n1 < 1 || n1 % v != 0 || tx < 1 || ty < 1 ||
+      static_cast<long long>((n0 + ty - 1) / ty) * nb > 0x7fffffffLL ||
       tx * ty * num_fields > kMaxThreads ||
       (shfl && (tx != n1 / v || !pow2 || tx > 32 ||
                 tx * ty * num_fields % 32 != 0))) {
@@ -193,30 +208,33 @@ int launch(const void* const* ins, void* const* outs, int num_fields, int k,
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec) {
-    return shfl ? launch_v<T, kV, true>(f, num_fields, k, n0, n1, tx, ty, s)
-                : launch_v<T, kV, false>(f, num_fields, k, n0, n1, tx, ty, s);
+    return shfl
+        ? launch_v<T, kV, true>(f, num_fields, k, nb, n0, n1, tx, ty, s)
+        : launch_v<T, kV, false>(f, num_fields, k, nb, n0, n1, tx, ty, s);
   }
-  return shfl ? launch_v<T, 1, true>(f, num_fields, k, n0, n1, tx, ty, s)
-              : launch_v<T, 1, false>(f, num_fields, k, n0, n1, tx, ty, s);
+  return shfl ? launch_v<T, 1, true>(f, num_fields, k, nb, n0, n1, tx, ty, s)
+              : launch_v<T, 1, false>(f, num_fields, k, nb, n0, n1, tx, ty, s);
 }
 
 }  // namespace
 
-// ins, outs: num_fields (<= 4) distinct (k, k, n0, n1) fields of one shape;
-// vec: 16-byte chunks (n1 a multiple of 16 / sizeof(T), pointers aligned);
-// tx, ty: the block's threads along e1 and e0 (threadIdx.z: the field);
-// shfl: the e1 neighbours by warp shuffle (tx = the row's chunks, a power
-// of two <= 32, whole warps).
+// ins, outs: num_fields (<= 4) distinct (k, k, nb, n0, n1) fields of one
+// shape (nb periodic grids each); vec: 16-byte chunks (n1 a multiple of
+// 16 / sizeof(T), pointers aligned); tx, ty: the block's threads along e1
+// and e0 (threadIdx.z: the field); shfl: the e1 neighbours by warp shuffle
+// (tx = the row's chunks, a power of two <= 32, whole warps).
 extern "C" int exchange2d_f32(const void* const* ins, void* const* outs,
-                              int num_fields, int k, int n0, int n1, int vec,
-                              int tx, int ty, int shfl, void* stream) {
-  return launch<float>(ins, outs, num_fields, k, n0, n1, vec, tx, ty, shfl,
-                       stream);
+                              int num_fields, int k, int nb, int n0, int n1,
+                              int vec, int tx, int ty, int shfl,
+                              void* stream) {
+  return launch<float>(ins, outs, num_fields, k, nb, n0, n1, vec, tx, ty,
+                       shfl, stream);
 }
 
 extern "C" int exchange2d_f64(const void* const* ins, void* const* outs,
-                              int num_fields, int k, int n0, int n1, int vec,
-                              int tx, int ty, int shfl, void* stream) {
-  return launch<double>(ins, outs, num_fields, k, n0, n1, vec, tx, ty, shfl,
-                        stream);
+                              int num_fields, int k, int nb, int n0, int n1,
+                              int vec, int tx, int ty, int shfl,
+                              void* stream) {
+  return launch<double>(ins, outs, num_fields, k, nb, n0, n1, vec, tx, ty,
+                        shfl, stream);
 }

@@ -13,7 +13,8 @@ passes through without a gradient.
 With grad mode off, or when neither `b` nor `params` requires grad, this is
 exactly ``solve(matvec, b)``: no wrapper, no copy, no extra host read.
 `linear_solve.transpose_solves` counts the backward passes' solves and
-`linear_solve.transpose_iterations` adds up their ``num_iterations``.
+`linear_solve.transpose_iterations` adds up their ``num_iterations`` (every
+sample's, for a batched solve).
 """
 
 from __future__ import annotations
@@ -53,7 +54,9 @@ class _LinearSolve(torch.autograd.Function):
     with torch.no_grad():
       lam, aux = solve(matvec, _like(form, x_bar))
     linear_solve.transpose_solves += 1
-    linear_solve.transpose_iterations += int(aux['num_iterations'])
+    iters = aux['num_iterations']
+    linear_solve.transpose_iterations += int(
+        iters.sum() if isinstance(iters, torch.Tensor) else iters)
     lam = _leaves(lam)
     needs = ctx.needs_input_grad[1:]
     b_bar = [l if need else None for l, need in zip(lam, needs[:num_b])]

@@ -80,6 +80,12 @@ def layer_norm(features: int, bias: bool = True) -> nn.LayerNorm:
   return nn.LayerNorm(features, eps=1e-6, bias=bias)
 
 
+def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
+  """An autocast block's output for the float32 norm after it (float64
+  stays float64)."""
+  return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _autocast(x: torch.Tensor, dtype):
   if dtype is None or dtype == torch.float32:
     return contextlib.nullcontext()
@@ -290,7 +296,7 @@ class MultiscaleEncoder(nn.Module):
         if layer in self.pooling_layers:
           skips[layer] = x
         x = getattr(self, f'block_{layer}')(x)
-    return self.encoder_norm(x.float()), skips
+    return self.encoder_norm(_at_least_f32(x)), skips
 
 
 class MultiscaleDecoder(nn.Module):
@@ -320,7 +326,7 @@ class MultiscaleDecoder(nn.Module):
         x = getattr(self, f'decoder_block_{layer}')(x)
         if layer in self.pooling_layers and self.use_residuals:
           x = x + skips[layer]
-    return self.decoder_norm(x.float())
+    return self.decoder_norm(_at_least_f32(x))
 
 
 class AddPosEmbs(nn.Module):
@@ -709,9 +715,12 @@ class Model(nn.Module):
 
   def forward(self, inputs, generator=None, draws=None):
     """`generator` draws the processor's noise; `draws` passes it in (see
-    `LatentSDE`)."""
+    `LatentSDE`).  The model computes in its parameters' dtype (float32,
+    or float64 after ``.double()``, as a flax model computes in its
+    `dtype`); the inputs are cast to it."""
     b = inputs.shape[0]
     aux = {}
+    inputs = inputs.to(self.embedding.weight.dtype)
     x = self.encoder_posembed(self.embedding(inputs))
     if self.depth > 0:
       x, skips = self.multiscale_encoder(x)

@@ -3,8 +3,9 @@
 Counterpart of ``swirlfem_tpu/niles/input_pipeline.py``: windows of
 (u, p) trajectories are formed by index arithmetic over the frames,
 shuffled per epoch, and yielded as numpy batches (a background prefetch
-thread by default).  One process reads everything (the JAX package's
-per-host slice with one host).
+thread by default).  A data-parallel rank reads its own contiguous slice of
+each shuffled epoch, as each JAX host does (`create_split`'s `rank` and
+`num_ranks`); one process reads everything.
 
 Sources, in order: frames in memory (`frames`: one ``{'u': (F, N, d),
 'p': (F, P)}`` dict per trajectory, such as `datagen.run_simulation`'s
@@ -108,22 +109,30 @@ class _WindowDataset:
 
 
 def create_split(batch_size: int, train: bool, config, prefetch: int = 2,
-                 seed: int = 0, restrict_fn=None,
-                 frames=None) -> Iterator[dict]:
+                 seed: int = 0, restrict_fn=None, frames=None, *,
+                 rank: int = 0, num_ranks: int = 1) -> Iterator[dict]:
   """Yields batches ``{'u': (B, W, nodes, ndim), 'p': (B, W, pnodes)}``.
 
   Iterates forever, reshuffling each epoch for training.  `restrict_fn`
   (e.g. `niles.coarsen.make_restriction`) is applied to each window as it
   is read: the DNS -> LES resolution bridge.  `frames`: trajectories in
   memory (see the module docstring) in place of the config's source.
+
+  `rank` of `num_ranks` data-parallel ranks draws the rank-th contiguous
+  slice of each shuffled epoch (every rank shuffles alike), and
+  `batch_size` is its share of the global batch: the JAX package's host
+  sharding with ``jax.process_index()`` = rank and ``jax.process_count()``
+  = num_ranks (``swirlfem_tpu/niles/input_pipeline.py:136-155``).
   """
   window = config.train_window_size if train else config.eval_window_size
   stride = config.train_window_stride if train else config.eval_window_stride
   ds = _WindowDataset(config, train, window, stride, frames)
-  if len(ds) < batch_size:
+  per_rank = len(ds) // num_ranks
+  if per_rank < batch_size:
     raise ValueError(
-        f'example count {len(ds)} is smaller than batch_size {batch_size}: '
-        'the loader would never yield a batch')
+        f'per-rank example count {per_rank} (of {len(ds)} total over '
+        f'{num_ranks} ranks) is smaller than batch_size {batch_size}: the '
+        'loader would never yield a batch')
 
   def generate():
     rng = np.random.default_rng(seed)
@@ -131,8 +140,9 @@ def create_split(batch_size: int, train: bool, config, prefetch: int = 2,
       order = np.arange(len(ds))
       if train:
         order = rng.permutation(len(ds))
-      for i in range(0, len(order) - batch_size + 1, batch_size):
-        items = [ds.get(int(j)) for j in order[i:i + batch_size]]
+      local = order[rank * per_rank:(rank + 1) * per_rank]
+      for i in range(0, len(local) - batch_size + 1, batch_size):
+        items = [ds.get(int(j)) for j in local[i:i + batch_size]]
         if restrict_fn is not None:
           items = [restrict_fn(it) for it in items]
         yield {k: np.stack([it[k] for it in items]) for k in items[0]}

@@ -10,9 +10,18 @@ energy-spectrum metrics on a uniform transfer grid.
 
 Where the port differs in form:
 
-* one process on one device; the batch is a loop over its samples, one el
-  step each (each sample's CG is its own either way: vmapped CG freezes
-  converged samples);
+* the rollout steps the whole batch in one batched solver step
+  (`solve_batch_step`, ``StokesSEM.stokes_batch_step``), the counterpart
+  of ``jax.vmap(solve_one_step)``: each sample's CG is its own, frozen by a
+  select once it has stopped, as under vmap;
+* data parallelism is a `parallel.spmd.Axis` of R ranks (one process each,
+  `niles.main --ranks`) in place of the ``('batch',)`` device mesh: each
+  rank holds a replica of the model and optimizer, reads its own slice of
+  each shuffled epoch (`input_pipeline.create_split`'s rank arithmetic,
+  the JAX per-host slices), takes its rows of the global batch's draws,
+  and averages its gradients with the others' in one psum a step before
+  the clipped AdamW update, so that every rank applies the same update;
+  rank 0 alone writes checkpoints and metrics;
 * gradients through both solves come from `linalg.linear_solve` (the
   ``lax.custom_linear_solve`` counterpart) and, on CUDA, through the
   exchange and stiffness kernels' autograd functions; the solver is built
@@ -62,28 +71,39 @@ def kolmogorov_forcing(config, x, u):
   return f - config.drag_coeff * u
 
 
-def solve_one_step(us, ps, cus, f, sem, config, preconds=None):
-  """One NSE step of one sample with EXTk-extrapolated advection entering
-  the forcing; nodal ``(N, 2)`` velocities, ``(P,)`` pressures.
-
-  `preconds`: the ``(viscous, pressure)`` exact FDM inverses of
-  `make_solver_preconds`; each CG, the transpose solves of the backward
-  pass included, then certifies in 0-2 iterations.  ``maxiter=200`` bounds
-  a below-floor wander and is inert on the healthy path (the telemetry
-  shows it).  Returns ``(u, p, C(u), cg_stats)``: the iteration counts as
-  ints, the residuals as 0-d tensors.
-  """
-  vprecond, pprecond = preconds if preconds is not None else (None, None)
+def _step_forcing(us, cus, f, sem, config):
+  """The step's nodal covector: EXTk-extrapolated advection and the
+  Kolmogorov body force added to the model's forcing `f`."""
   ext = [float(c) for c in navier_stokes.extk_coeffs(k=config.time_order - 1)]
   cu = sum(ext[-i] * cus[-i] for i in range(1, len(ext) + 1))
   f = f + kolmogorov_forcing(config, sem.nodal.velocity.mesh.node_coords,
                              us[-1])
-  f = -cu + sem.B(f)
+  return -cu + sem.B(f)
+
+
+def _step_kwargs(config):
+  return dict(mu=1.0 / config.reynolds_number, dt=config.dt,
+              alpha=config.alpha, time_order=config.time_order, tol=0.0,
+              atol=1e-7, maxiter=200)
+
+
+def solve_one_step(us, ps, cus, f, sem, config, preconds=None):
+  """One NSE step of one sample with EXTk-extrapolated advection entering
+  the forcing; nodal ``(N, 2)`` velocities, ``(P,)`` pressures.
+
+  The per-sample function the JAX trainer vmaps; `solve_batch_step` steps
+  a whole batch.  `preconds`: the ``(viscous, pressure)`` exact FDM
+  inverses in nodal form (`make_nodal_preconds`); each CG, the transpose
+  solves of the backward pass included, then certifies in 0-2 iterations.
+  ``maxiter=200`` bounds a below-floor wander and is inert on the healthy
+  path (the telemetry shows it).  Returns ``(u, p, C(u), cg_stats)``: the
+  iteration counts as ints, the residuals as 0-d tensors.
+  """
+  vprecond, pprecond = preconds if preconds is not None else (None, None)
   u, p, aux = sem.stokes_one_step(
-      list(us), list(ps), f, mu=1.0 / config.reynolds_number, dt=config.dt,
-      alpha=config.alpha, time_order=config.time_order, tol=0.0, atol=1e-7,
-      maxiter=200, viscous_preconditioner=vprecond,
-      pressure_preconditioner=pprecond)
+      list(us), list(ps), _step_forcing(us, cus, f, sem, config),
+      viscous_preconditioner=vprecond, pressure_preconditioner=pprecond,
+      **_step_kwargs(config))
   cg_stats = {
       'cg_u_iters': int(aux['u_star_info']['num_iterations']),
       'cg_p_iters': int(aux['dp_info']['num_iterations']),
@@ -93,8 +113,42 @@ def solve_one_step(us, ps, cus, f, sem, config, preconds=None):
   return u, p, sem.C(u), cg_stats
 
 
+def solve_batch_step(us, ps, cus, f, sem, config, preconds=None):
+  """`solve_one_step` on every sample of a batch in one batched solver
+  step: ``(B, N, 2)`` velocities, ``(B, P)`` pressures, the counterpart of
+  ``jax.vmap(solve_one_step)`` (``swirlfem_tpu/niles/train.py:252-255``).
+
+  `preconds`: `make_solver_preconds`'s el-form inverses on the batched
+  layout, fed to the solves directly.  Returns ``(u, p, C(u), cg_stats)``
+  with per-sample ``(B,)`` iteration counts and residuals (float32) on the
+  solver's device.
+  """
+  vprecond, pprecond = preconds if preconds is not None else (None, None)
+  u, p, aux = sem.stokes_batch_step(
+      list(us), list(ps), _step_forcing(us, cus, f, sem, config),
+      viscous_preconditioner_el=vprecond, pressure_preconditioner_el=pprecond,
+      **_step_kwargs(config))
+  info_u, info_p = aux['u_star_info'], aux['dp_info']
+  cg_stats = {
+      'cg_u_iters': info_u['num_iterations'].float(),
+      'cg_p_iters': info_p['num_iterations'].float(),
+      'cg_u_resid': info_u['residual'].detach().float(),
+      'cg_p_resid': info_p['residual'].detach().float(),
+  }
+  return u, p, sem.C(u), cg_stats
+
+
 def make_solver_preconds(sem, config):
-  """Exact FDM inverses for the training solver's two CG solves."""
+  """Exact FDM inverses for the training solver's two CG solves: the
+  ``(viscous, pressure)`` el-form callables on the batched layout that
+  `solve_batch_step` takes."""
+  return sem.fdm_el_preconditioners(1.0 / config.reynolds_number, config.dt,
+                                    config.time_order, batched=True)
+
+
+def make_nodal_preconds(sem, config):
+  """`make_solver_preconds`'s two inverses in nodal form, for the
+  per-sample `solve_one_step` (the same operators to rounding)."""
   vprecond = sem.fdm_viscous_preconditioner(
       1.0 / config.reynolds_number, config.dt, config.time_order)
   pprecond = sem.best_pressure_preconditioner(config.dt, config.time_order)
@@ -228,7 +282,7 @@ def compute_mse_loss(batch, model_apply_fn, draws_fn, kl_penalty, sem,
   tau = config.time_order
   us = tuple(batch['u'][:, i] for i in range(tau))
   ps = tuple(batch['p'][:, i] for i in range(tau))
-  cus = tuple(torch.stack([sem.C(u) for u in ub]) for ub in us)
+  cus = tuple(sem.C(u) for u in us)
   batch_size = us[-1].shape[0]
   perm = invperm = None
   if config.permute_elements:
@@ -239,7 +293,7 @@ def compute_mse_loss(batch, model_apply_fn, draws_fn, kl_penalty, sem,
   vmesh = vel.mesh
 
   def body(us, ps, cus, i, draws):
-    inputs = torch.stack([vel.gather(u) for u in us[-1]]).float()
+    inputs = torch.vmap(vel.gather)(us[-1]).float()
     inputs = inputs.reshape(batch_size, vmesh.num_elements,
                             vmesh.num_nodes_per_element * vmesh.ndim)
     if perm is not None:
@@ -254,19 +308,14 @@ def compute_mse_loss(batch, model_apply_fn, draws_fn, kl_penalty, sem,
     forcing = forcing.reshape(batch_size, vmesh.num_elements,
                               vmesh.num_nodes_per_element,
                               vmesh.ndim).to(us[-1].dtype)
-    outs = [solve_one_step([u[b] for u in us], [p[b] for p in ps],
-                           [c[b] for c in cus], vel.scatter(forcing[b]), sem,
-                           config, preconds) for b in range(batch_size)]
-    u, p, cu = (torch.stack([o[j] for o in outs]) for j in range(3))
-    cg = {k: [o[3][k] for o in outs] for k in CG_KEYS}
+    u, p, cu, cg = solve_batch_step(us, ps, cus, torch.vmap(vel.scatter)(
+        forcing), sem, config, preconds)
     return u, p, cu, aux, cg
 
   num_solver_steps = config.num_steps if train else config.eval_num_steps
   zeros = torch.zeros(batch_size, dtype=torch.float32, device=sem.device)
   aux_sum = {k: zeros for k in AUX_KEYS}
-  cg_max = {'cg_u_iters': 0, 'cg_p_iters': 0,
-            'cg_u_resid': torch.zeros((), device=sem.device),
-            'cg_p_resid': torch.zeros((), device=sem.device)}
+  cg_max = {k: torch.zeros((), device=sem.device) for k in CG_KEYS}
   preds = []
   for i in range(num_solver_steps):
     draws = draws_fn(i)
@@ -280,10 +329,7 @@ def compute_mse_loss(batch, model_apply_fn, draws_fn, kl_penalty, sem,
     aux_sum = {k: (aux[k] + aux_sum[k] if k in ('kl_path', 'kl_q0')
                    else aux[k]) for k in AUX_KEYS}
     # Running max over rollout steps and batch of the CG telemetry.
-    for k in ('cg_u_iters', 'cg_p_iters'):
-      cg_max[k] = max(cg_max[k], *cg[k])
-    for k in ('cg_u_resid', 'cg_p_resid'):
-      cg_max[k] = torch.maximum(cg_max[k], torch.stack(cg[k]).max())
+    cg_max = {k: torch.maximum(cg_max[k], cg[k].max()) for k in CG_KEYS}
     us, ps, cus = us[1:] + (u,), ps[1:] + (p,), cus[1:] + (cu,)
     preds.append(u)
   preds = torch.stack(preds, dim=1)  # (batch, steps, nodes, ndim)
@@ -306,8 +352,8 @@ def compute_mse_loss(batch, model_apply_fn, draws_fn, kl_penalty, sem,
       'z1_means': aux_sum['z1_means'].abs().mean(),
       'z1_stds': aux_sum['z1_stds'].abs().mean(),
       # Rollout-max CG telemetry (shows the maxiter=200 cap is inert).
-      'cg_max_iters': float(max(cg_max['cg_u_iters'],
-                                cg_max['cg_p_iters'])),
+      'cg_max_iters': float(torch.maximum(cg_max['cg_u_iters'],
+                                          cg_max['cg_p_iters'])),
       'cg_max_resid': torch.maximum(cg_max['cg_u_resid'],
                                     cg_max['cg_p_resid']),
   }
@@ -499,14 +545,34 @@ def create_train_state(model, config) -> TrainState:
                     grad_clip_norm=config.grad_clip_norm)
 
 
-def make_draws_fn(model, batch_size: int, seed: int, step: int, device):
+def slice_draws(draws, batch_size: int, rows: slice):
+  """The draws of samples `rows` of a batch of `batch_size`: every tensor's
+  leading axis holds ``batch_size`` blocks of equal size (the SDE's
+  samples of each input are adjacent), and the blocks of `rows` are
+  kept."""
+  if draws is None:
+    return None
+  out = {}
+  for key, x in draws.items():
+    per = x.shape[0] // batch_size
+    out[key] = x[rows.start * per:rows.stop * per]
+  return out
+
+
+def make_draws_fn(model, batch_size: int, seed: int, step: int, device,
+                  rows: slice | None = None):
   """Rollout step i's processor draws from a generator seeded by
-  (seed, step, i): the counterpart of ``fold_in(step_rng, i)``."""
+  (seed, step, i): the counterpart of ``fold_in(step_rng, i)``.
+
+  `rows`: a data-parallel rank's samples of the global batch of
+  `batch_size`; the global batch's draws are made and sliced, so that each
+  sample's noise is the single-process run's."""
   def draws_fn(i):
     g = torch.Generator(device=device)
     g.manual_seed(int(np.random.SeedSequence([seed, step, i]).generate_state(
         1)[0]))
-    return model.sample_draws(batch_size, generator=g, device=device)
+    draws = model.sample_draws(batch_size, generator=g, device=device)
+    return draws if rows is None else slice_draws(draws, batch_size, rows)
 
   return draws_fn
 
@@ -515,10 +581,47 @@ def _model_apply(model):
   return lambda inputs, draws: model(inputs, draws=draws)
 
 
+def average_gradients(grads, axis):
+  """Every rank's gradients averaged across `axis`, in one psum of one flat
+  buffer (added in rank order: bitwise the same on every rank)."""
+  flat = axis.psum(torch.cat([g.reshape(-1) for g in grads])) / axis.size
+  out, start = [], 0
+  for g in grads:
+    out.append(flat[start:start + g.numel()].reshape(g.shape))
+    start += g.numel()
+  return out
+
+
+def reduce_metrics(metrics: dict, axis) -> dict:
+  """Metrics of every rank's shard combined across `axis` in one
+  all_gather: the CG telemetry (``cg_max*``) by their maximum, the rest by
+  their mean (equal shards: the global batch's mean)."""
+  keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)
+          or k.startswith('cg_max')]
+  device = next(v.device for v in metrics.values()
+                if isinstance(v, torch.Tensor))
+  local = torch.stack([torch.as_tensor(metrics[k], dtype=torch.float64,
+                                       device=device).reshape(())
+                       for k in keys])
+  every = axis.all_gather(local)  # (ranks, keys)
+  out = dict(metrics)
+  for j, k in enumerate(keys):
+    col = every[:, j]
+    out[k] = col.max() if k.startswith('cg_max') else col.mean()
+  return out
+
+
 def train_step(state: TrainState, batch, draws_fn, learning_rate_fn,
-               kl_penalty_fn, sem, config, preconds=None, to_grid=None):
+               kl_penalty_fn, sem, config, preconds=None, to_grid=None,
+               axis=None):
   """One train step: loss and gradients through the rollout, then the
-  clipped AdamW update.  Returns ``(state, metrics, grads)``."""
+  clipped AdamW update.  Returns ``(state, metrics, grads)``.
+
+  `axis`: a data-parallel `parallel.spmd.Axis`; `batch` and `draws_fn`
+  are then this rank's shard of the global batch (`slice_draws`), the
+  gradients of the rank's mean loss are averaged across the ranks
+  (`average_gradients`) before the update, and the metrics are the global
+  batch's (`reduce_metrics`)."""
   kl_penalty = kl_penalty_fn(state.step)
   params = list(state.model.parameters())
   loss, aux = compute_mse_loss(batch, _model_apply(state.model), draws_fn,
@@ -530,6 +633,9 @@ def train_step(state: TrainState, batch, draws_fn, learning_rate_fn,
   metrics = compute_metrics(
       loss.detach(), {k: v.detach() if isinstance(v, torch.Tensor) else v
                       for k, v in aux.items()}, train=True)
+  if axis is not None:
+    grads = average_gradients(grads, axis)
+    metrics = reduce_metrics(metrics, axis)
   lr = learning_rate_fn(state.step)
   metrics['learning_rate'] = lr
   metrics['kl_penalty'] = kl_penalty
@@ -623,19 +729,35 @@ def _summary(metrics_list):
 # -- top-level loop ---------------------------------------------------------------
 
 
-def train_and_evaluate(config, workdir: str, *,
-                       device='cuda') -> TrainState:
+def train_and_evaluate(config, workdir: str, *, device='cuda',
+                       axis=None) -> TrainState:
   """Runs training + periodic evaluation; returns the final TrainState.
 
   The data come from ``config.dataset_dir`` (HDF5 or ``.npz`` shards at
   the training resolution) or the synthetic debug split.  A run resumes
   from the latest checkpoint under `workdir`.
+
+  `axis`: this rank's `parallel.spmd.Axis` of a data-parallel run (the JAX
+  package's ``('batch',)`` mesh, ``swirlfem_tpu/niles/train.py:566-579``):
+  its size must divide ``config.batch_size``; the rank reads its own
+  slice of each epoch, holds a replica of the state, and rank 0 alone
+  writes checkpoints and metrics.
   """
   device = torch.device(device)
-  writer = MetricWriter(workdir)
+  num_ranks = 1 if axis is None else axis.size
+  rank = 0 if axis is None else axis.index
+  if config.batch_size % num_ranks:
+    raise ValueError(f'batch size {config.batch_size} must be divisible by '
+                     f'the rank count {num_ranks}')
+  local_batch = config.batch_size // num_ranks
+  rows = (None if axis is None
+          else slice(rank * local_batch, (rank + 1) * local_batch))
+  lead = rank == 0
+  writer = MetricWriter(workdir) if lead else None
   torch.manual_seed(config.get('seed', 0))
-  train_iter = input_pipeline.create_split(config.batch_size, True, config)
-  eval_iter = input_pipeline.create_split(config.batch_size, False, config)
+  shard = dict(rank=rank, num_ranks=num_ranks)
+  train_iter = input_pipeline.create_split(local_batch, True, config, **shard)
+  eval_iter = input_pipeline.create_split(local_batch, False, config, **shard)
   steps_per_epoch = input_pipeline.get_num_examples(
       config.dataset_dir, True, config.train_window_size,
       config.train_window_stride, debug=config.debug) // config.batch_size
@@ -652,7 +774,9 @@ def train_and_evaluate(config, workdir: str, *,
                                              steps_per_epoch)
   kl_penalty_fn = create_kl_penalty_fn(config, steps_per_epoch)
   state = restore_checkpoint(workdir, create_train_state(model, config))
-  log.info('model: %d parameters', sum(p.numel() for p in model.parameters()))
+  if lead:
+    log.info('model: %d parameters',
+             sum(p.numel() for p in model.parameters()))
 
   sem = build_solver(config, device=device)
   preconds = make_solver_preconds(sem, config)
@@ -664,51 +788,61 @@ def train_and_evaluate(config, workdir: str, *,
   def put(batch):
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
-  def evaluate(it, step_seed, count):
+  def evaluate(it, step_seed, count, batch_size):
     evals = []
     for i in range(count):
       batch = put(next(it))
-      evals.append(metrics_to_host(eval_step(
-          state, batch, make_draws_fn(model, batch['u'].shape[0], seed + 1,
-                                      step_seed + i, device),
-          kl_penalty_fn, sem, to_grid, config, preconds)))
+      draws = make_draws_fn(
+          model, batch_size, seed + 1, step_seed + i, device,
+          None if axis is None else slice(rank * batch['u'].shape[0],
+                                          (rank + 1) * batch['u'].shape[0]))
+      metrics = eval_step(state, batch, draws, kl_penalty_fn, sem, to_grid,
+                          config, preconds)
+      if axis is not None:
+        metrics = reduce_metrics(metrics, axis)
+      evals.append(metrics_to_host(metrics))
     return _summary(evals)
 
   profile = None
-  if config.get('profile_dir'):
+  if config.get('profile_dir') and lead:
     from swirlfem_tpu_torch.utils.profiling import PeriodicProfile
     profile = PeriodicProfile(config.profile_dir)
 
   train_metrics, last_t = [], time.time()
-  log.info('starting training: %d steps', num_steps)
+  if lead:
+    log.info('starting training: %d steps on %d rank(s)', num_steps,
+             num_ranks)
   for step in range(state.step, num_steps):
     if profile is not None:
       profile(step)
     batch = put(next(train_iter))
     state, metrics, _ = train_step(
         state, batch, make_draws_fn(model, config.batch_size, seed, step,
-                                    device),
+                                    device, rows),
         learning_rate_fn, kl_penalty_fn, sem, config, preconds,
-        train_to_grid)
+        train_to_grid, axis=axis)
     if config.log_every_steps:
       train_metrics.append(metrics_to_host(metrics))
       if (step + 1) % config.log_every_steps == 0:
         stacked = _summary(train_metrics)
         stacked['steps_per_second'] = config.log_every_steps / (
             time.time() - last_t)
-        log.info('step %d: %s', step + 1, stacked)
-        writer.write_scalars(step + 1,
-                             {f'train_{k}': v for k, v in stacked.items()})
+        if lead:
+          log.info('step %d: %s', step + 1, stacked)
+          writer.write_scalars(step + 1,
+                               {f'train_{k}': v for k, v in stacked.items()})
         train_metrics, last_t = [], time.time()
     if (step + 1) % eval_every_steps == 0:
       summary = evaluate(eval_iter, step * config.steps_per_eval,
-                         config.steps_per_eval)
-      log.info('eval at step %d: %s', step + 1,
-               {k: v for k, v in summary.items()
-                if k.startswith('mse') or k == 'tke_err'})
-      writer.write_scalars(step + 1,
-                           {f'eval_{k}': v for k, v in summary.items()})
-    if (step + 1) % steps_per_checkpoint == 0 or step + 1 == num_steps:
+                         config.steps_per_eval, config.batch_size)
+      if lead:
+        log.info('eval at step %d: %s', step + 1,
+                 {k: v for k, v in summary.items()
+                  if k.startswith('mse') or k == 'tke_err'})
+        writer.write_scalars(step + 1,
+                             {f'eval_{k}': v for k, v in summary.items()})
+    if lead and ((step + 1) % steps_per_checkpoint == 0
+                 or step + 1 == num_steps):
       save_checkpoint(workdir, state)
   if profile is not None:
     profile.close()
@@ -717,16 +851,30 @@ def train_and_evaluate(config, workdir: str, *,
   if fe_batch:
     try:
       # Clamp to the eval split's size: a batch it can never fill becomes
-      # the whole split.
-      fe_eff = min(fe_batch, input_pipeline.get_num_examples(
+      # the whole split (each rank's share of it).
+      avail = input_pipeline.get_num_examples(
           config.dataset_dir, False, config.eval_window_size,
-          config.eval_window_stride, debug=config.debug))
-      fe_iter = input_pipeline.create_split(fe_eff, False, config)
-      summary = evaluate(fe_iter, 10**6, config.steps_per_eval)
-      log.info('final eval (batch %d, requested %d): %s', fe_eff, fe_batch,
-               summary)
-      writer.write_scalars(num_steps + 1, {
-          f'eval_final{fe_eff}_{k}': v for k, v in summary.items()})
+          config.eval_window_stride, debug=config.debug)
+      fe_local = min(fe_batch // num_ranks, avail // num_ranks)
+      fe_eff = fe_local * num_ranks
+      fe_iter = input_pipeline.create_split(fe_local, False, config, **shard)
+      summary = evaluate(fe_iter, 10**6, config.steps_per_eval, fe_eff)
+      if lead:
+        log.info('final eval (batch %d, requested %d): %s', fe_eff,
+                 fe_batch, summary)
+        writer.write_scalars(num_steps + 1, {
+            f'eval_final{fe_eff}_{k}': v for k, v in summary.items()})
     except Exception:  # pylint: disable=broad-except
+      # Every rank takes this branch alike: a failure is the split's.
       log.exception('final batch eval failed; continuing')
   return state
+
+
+def rank_train_and_evaluate(axis, device, config, workdir: str) -> dict:
+  """One rank of a data-parallel `train_and_evaluate` (`niles.main
+  --ranks`, through `parallel.spmd.launch`); returns the final step and the
+  rank's parameters, flat, so that the launcher can see them equal."""
+  state = train_and_evaluate(config, workdir, device=device, axis=axis)
+  return {'step': state.step,
+          'params': torch.cat([p.detach().reshape(-1).cpu()
+                               for p in state.model.parameters()])}

@@ -12,6 +12,13 @@ channel, Gmsh meshes), with the solve history of `linalg.projection`, the
 assembled divergence of ops.assembled and the element FDM of
 ops.fdm_element.
 
+`StokesSEM.stokes_batch_step` steps a batch of independent samples on a
+fully periodic 2D box at once, the counterpart of ``jax.vmap`` of the JAX
+step (the NiLES trainer's rollout): the samples' element fields are laid
+out ``(k, k, B, n, n)``, the batch folded into the element axis of the
+operators (`ops.sem2d.Sem2DOps.fold_batch`), and every CG runs per sample
+(`linalg.cg` with ``batched=True``).
+
 `StokesSEM.create` builds every host table in numpy / float64 on the CPU
 and then moves the fields the step reads (the `Sem2DOps` / `Sem3DOps`
 factors, and on first use the nodal tables of `StokesSEM.nodal`) to
@@ -55,6 +62,17 @@ from swirlfem_tpu_torch.ops import sem3d
 
 # Setup runs on the host in float64; only the step's fields move.
 _HOST = dict(device='cpu', dtype=torch.float64)
+
+
+def batch_dot(batch_axis: int):
+  """The inner product of a batched step: one per sample, the batch on
+  `batch_axis` of the operands, kept broadcastable against them."""
+
+  def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    dims = [i for i in range(a.dim()) if i != batch_axis]
+    return torch.sum(a * b, dim=dims, keepdim=True)
+
+  return dot
 
 
 def extk_coeffs(k: int) -> np.ndarray:
@@ -502,7 +520,9 @@ class StokesSEM:
 
     ops = dataclasses.replace(ops, kinv=compress(ops.kinv),
                               kinv_o=compress(ops.kinv_o))
-    return dataclasses.replace(self, fast_ops=ops)
+    # A cache of its own: entries such as the batch-folded `fast_ops` are
+    # made from the operators this copy replaces.
+    return dataclasses.replace(self, fast_ops=ops, cache={})
 
   # -- nodal operators -------------------------------------------------------
 
@@ -550,7 +570,10 @@ class StokesSEM:
     return vel.interior_mask * vel.scatter(vel.A_local(vel.gather(u)))
 
   def C(self, u):
-    """Dealiased convection covector (row-masked), nodal ``(N, d)``."""
+    """Dealiased convection covector (row-masked), nodal ``(N, d)``, or
+    of each sample of a batch ``(B, N, d)`` (structured 2D boxes)."""
+    if u.dim() == 3:
+      return self.nodal.velocity.interior_mask * self._batch_C(u)
     if self.fast_ops is not None:
       out = self._fast_C(tuple(u[..., i] for i in range(u.shape[-1])))
       return self.nodal.velocity.interior_mask * torch.stack(out, dim=-1)
@@ -700,6 +723,33 @@ class StokesSEM:
     comps = [self._v_el(u) for u in ut]
     outs = self.fast_ops.convection_el(*comps)
     return tuple(self._v_el_cov(o) for o in outs)
+
+  def _batch_ops(self, batch: int):
+    """`fast_ops` with `batch` samples folded into the element axis (made
+    once per batch size)."""
+    key = ('batch_ops', batch)
+    if key not in self.cache:
+      self.cache[key] = self.fast_ops.fold_batch(batch)
+    return self.cache[key]
+
+  def _check_batch(self):
+    if not (self._structured_fast and self._fully_periodic
+            and self.velocity.mesh.ndim == 2 and self.axis is None):
+      raise NotImplementedError(
+          'the batched step runs on fully periodic structured 2D boxes on '
+          'one device (the NiLES training box)')
+
+  def _batch_C(self, u):
+    """`_fast_C` of each sample of ``(B, N, d)``, in one pass of the folded
+    operators."""
+    self._check_batch()
+    vinfo = self.fast_ops.vinfo
+    nb = u.shape[0]
+    comps = [sem2d.nodal_to_el_batch(u[..., i], vinfo).reshape(
+        vinfo.order + 1, vinfo.order + 1, -1) for i in range(u.shape[-1])]
+    outs = self._batch_ops(nb).convection_el(*comps)
+    return torch.stack([sem2d.el_to_nodal_batch(
+        o.reshape(o.shape[:2] + (nb, -1)), vinfo) for o in outs], dim=-1)
 
   def _fast_filter(self, ut, alpha):
     ops = self.fast_ops
@@ -936,57 +986,76 @@ class StokesSEM:
   def _stokes_one_step_el(self, us, ps, f, mu, dt, time_order, alpha,
                           pressure_preconditioner, project_out_nullspace,
                           tol, atol, maxiter, as_tuple_input,
-                          viscous_preconditioner=None):
+                          viscous_preconditioner=None, batched=False):
     """Nodal-API step of a fully periodic box, run in element-local form
     (``swirlfem_tpu/nse/solver.py:564-629``): inputs are converted once at
-    entry and back once at exit."""
+    entry and back once at exit.
+
+    `batched`: every state has a leading batch axis (``(B, N)``
+    components, ``(B, P)`` pressures), stepped at once on the folded
+    operators with per-sample CG; the preconditioners are then el-form
+    callables on the batched layout (`fdm_el_preconditioners` with
+    ``batched=True``) and the infos per-sample ``(B,)`` tensors.
+    """
     mod = self._elops
-    vinfo, pinfo = self.fast_ops.vinfo, self.fast_ops.pinfo
+    ops = self.fast_ops
+    vinfo, pinfo = ops.vinfo, ops.pinfo
     d = vinfo.ndim
     kk = vinfo.order + 1
     mm = pinfo.order + 1
     eshape = (vinfo.num_elements_per_dim,) * d
     num_e = vinfo.num_elements_per_dim ** d
+    dot = self.dot
+    to_el, from_el = mod.nodal_to_el, mod.el_to_nodal
+    if batched:
+      self._check_batch()
+      nb = us[-1][0].shape[0]
+      ops = self._batch_ops(nb)
+      eshape = (nb,) + eshape
+      dot = batch_dot(d)
+      to_el, from_el = mod.nodal_to_el_batch, mod.el_to_nodal_batch
 
     def v_in(u):
-      return mod.nodal_to_el(u, vinfo).reshape((kk,) * d + eshape)
+      return to_el(u, vinfo).reshape((kk,) * d + eshape)
 
     ones_el = torch.ones((kk,) * d + (num_e,), dtype=self.dtype,
                          device=self.device)
     grid_mult = mod.el_to_nodal(ones_el, vinfo)
 
     def p_in(p):
-      return mod.nodal_to_el(p, pinfo).reshape((mm,) * d + eshape)
+      return to_el(p, pinfo).reshape((mm,) * d + eshape)
 
     us_el = [tuple(v_in(c) for c in u) for u in us]
     ps_el = [p_in(p) for p in ps]
     f_el = tuple(v_in(c / grid_mult) for c in f)
 
-    vp_el = None
-    if viscous_preconditioner is not None:
+    vp_el = pp_el = None
+    if batched:
+      vp_el, pp_el = viscous_preconditioner, pressure_preconditioner
+    elif viscous_preconditioner is not None:
       def vp_el(rt):
         return tuple(
             v_in(viscous_preconditioner(
                 mod.el_to_nodal(w.reshape((kk,) * d + (num_e,)), vinfo)))
             for w in rt)
 
-    pp_el = None
-    if pressure_preconditioner is not None:
+    if pressure_preconditioner is not None and not batched:
       def pp_el(p_el):
         p_nodal = mod.el_to_nodal(p_el.reshape((mm,) * d + (num_e,)), pinfo)
         return p_in(pressure_preconditioner(p_nodal))
 
     u, p_el, aux = stokes_step_el(
-        self.fast_ops, us_el, ps_el, f_el, mu=mu, dt=dt,
+        ops, us_el, ps_el, f_el, mu=mu, dt=dt,
         time_order=time_order, alpha=alpha,
-        exch=lambda w: mod.exchange_el(w, vinfo), dot=self.dot,
+        exch=lambda w: mod.exchange_el(w, vinfo), dot=dot,
         grid_1d=self.velocity.mesh.gridpoints_1d,
         pressure_preconditioner=pp_el,
         project_out_nullspace=project_out_nullspace, tol=tol, atol=atol,
         maxiter=maxiter, eshape=eshape, viscous_preconditioner=vp_el)
-    u = tuple(mod.el_to_nodal(w.reshape((kk,) * d + (num_e,)), vinfo)
+    lead = eshape[:1] if batched else ()
+    u = tuple(from_el(w.reshape((kk,) * d + lead + (num_e,)), vinfo)
               / grid_mult for w in u)
-    p = mod.el_to_nodal(p_el.reshape((mm,) * d + (num_e,)), pinfo)
+    p = from_el(p_el.reshape((mm,) * d + lead + (num_e,)), pinfo)
     if not as_tuple_input:
       u = torch.stack(u, dim=-1)
     return u, p, aux
@@ -1250,6 +1319,37 @@ class StokesSEM:
       precond = self.dense_pressure_preconditioner(dt, time_order)
     return precond
 
+  def stokes_batch_step(self, us, ps, f, *, mu: float, dt: float,
+                        time_order: int, alpha: float = 0.05,
+                        tol: float = 1e-8, atol: float = 0.0,
+                        maxiter: int | None = None,
+                        viscous_preconditioner_el=None,
+                        pressure_preconditioner_el=None,
+                        project_out_nullspace: bool = True):
+    """`stokes_one_step` on a batch of independent samples, in one step:
+    the counterpart of ``jax.vmap`` of the JAX step over its leading axis.
+
+    Velocities are ``(B, N, d)`` (or tuples of ``(B, N)`` components; the
+    result comes back in the same form), pressures ``(B, P)``, `f` a
+    ``(B, N, d)`` nodal covector, on a fully periodic structured 2D box.
+    The states go to the batched el layout once at entry and back once at
+    exit; each sample's CG stops on its own (frozen by a select while the
+    others run), and ``aux['u_star_info']`` / ``aux['dp_info']`` hold
+    ``(B,)`` tensors.  The preconditioners are el-form callables on the
+    batched layout: `fdm_el_preconditioners(..., batched=True)`.
+    Differentiable as `stokes_one_step`.
+    """
+    def tup(u):
+      return u if isinstance(u, tuple) else tuple(
+          u[..., i] for i in range(u.shape[-1]))
+
+    as_tuple_input = isinstance(us[-1], tuple)
+    return self._stokes_one_step_el(
+        [tup(u) for u in us], list(ps), tup(f), mu, dt, time_order, alpha,
+        pressure_preconditioner_el, project_out_nullspace, tol, atol,
+        maxiter, as_tuple_input,
+        viscous_preconditioner=viscous_preconditioner_el, batched=True)
+
   def stokes_one_step_el(self, us_el, ps_el, f_el, *, mu, dt,
                          time_order: int, alpha: float = 0.05,
                          tol: float = 1e-8, atol: float = 0.0,
@@ -1281,12 +1381,14 @@ class StokesSEM:
         viscous_preconditioner=viscous_preconditioner_el,
         exact_solves=exact_solves)
 
-  def fdm_el_preconditioners(self, mu, dt, time_order: int):
+  def fdm_el_preconditioners(self, mu, dt, time_order: int,
+                             batched: bool = False):
     """El-native exact FDM inverses for `stokes_one_step_el`.
 
     Returns ``(viscous_el, pressure_el)`` callables on el-form states
     (component tuple / single tensor), or ``(None, None)`` off separable
-    boxes.
+    boxes.  `batched`: on the batched layout of `stokes_batch_step` (the
+    nullspace projection per sample).
     """
     from swirlfem_tpu_torch.ops.fdm_pressure import (
         build_fdm_helmholtz_solver_el, build_fdm_pressure_solver_el,
@@ -1295,6 +1397,7 @@ class StokesSEM:
       return None, None
     sv = build_fdm_helmholtz_solver_el(self, time_order)
     sp = build_fdm_pressure_solver_el(self, dt, time_order)
+    dot = batch_dot(self.fast_ops.vinfo.ndim) if batched else self.dot
 
     def viscous_el(rt):
       return tuple(sv(r, mu, dt) for r in rt)
@@ -1305,7 +1408,7 @@ class StokesSEM:
     def pressure_el(r):
       w = sp(r)
       ones = torch.ones_like(w)
-      return w - (self.dot(ones, w) / self.dot(ones, ones)) * ones
+      return w - (dot(ones, w) / dot(ones, ones)) * ones
 
     return viscous_el, pressure_el
 
@@ -1382,6 +1485,13 @@ def stokes_step_el(ops, us_el, ps_el, f_el, *, mu, dt, time_order,
   reductions through `dot`.  The exact pressure solve decides on the host
   whether a second defect sweep is needed (one device->host read per step).
 
+  A batched step (`StokesSEM.stokes_batch_step`) passes ``eshape = (B, n,
+  ..)``, `ops` folded over the batch (`Sem2DOps.fold_batch`) and a `dot`
+  that returns one product per sample (`batch_dot`): every solve then runs
+  per sample (``batched=True`` CG), and the exact solve's second sweep is
+  selected per sample, as ``jax.vmap`` turns the JAX step's branches into
+  selects.
+
   Returns:
     ``(u_el, p_el, aux)`` in the same el representation as the inputs.
   """
@@ -1389,6 +1499,7 @@ def stokes_step_el(ops, us_el, ps_el, f_el, *, mu, dt, time_order,
   kk = ops.vinfo.order + 1
   mm = ops.pinfo.order + 1
   num_e = int(np.prod(eshape))
+  batched = len(eshape) > d
 
   wmass = ops.wmass.reshape((kk,) * d + eshape)
   # `exch` takes a tuple of fields in one call (one kernel launch in 2D):
@@ -1443,14 +1554,17 @@ def stokes_step_el(ops, us_el, ps_el, f_el, *, mu, dt, time_order,
     # An exact FDM inverse seeds CG: the solve becomes a direct application
     # plus a convergence certificate (0-2 polish iterations in float32).
     if exact_solves and viscous_preconditioner is not None:
+      counts = eshape[:1] if batched else ()
       return viscous_preconditioner(rhs), {
-          'residual': torch.zeros((), dtype=wmass.dtype,
+          'residual': torch.zeros(counts, dtype=wmass.dtype,
                                   device=wmass.device),
-          'num_iterations': 0}
+          'num_iterations': (torch.zeros(counts, dtype=torch.int64,
+                                         device=wmass.device)
+                             if batched else 0)}
     x0 = (None if viscous_preconditioner is None
           else viscous_preconditioner(rhs))
     return cg(matvec, rhs, x0=x0, M=M_t, tol=tol, atol=atol, dot_fn=dot,
-              maxiter=maxiter)
+              maxiter=maxiter, batched=batched)
 
   u_star, u_info = linear_solve(H_t, f_el, vsolve)
 
@@ -1493,17 +1607,27 @@ def stokes_step_el(ops, us_el, ps_el, f_el, *, mu, dt, time_order,
       x = pressure_preconditioner(rhs)
       r = rhs - matvec(x)
       thr = torch.clamp(tol**2 * dot(rhs, rhs), min=atol**2)
+      if batched:
+        again = dot(r, r) > thr
+        if bool(again.any()):
+          x2 = x + pressure_preconditioner(r)
+          x = torch.where(again, x2, x)
+          r = torch.where(again, rhs - matvec(x2), r)
+        return x, {'residual': dot(r, r).reshape(-1),
+                   'num_iterations': torch.ones(
+                       eshape[:1], dtype=torch.int64, device=x.device)}
       if bool(dot(r, r) > thr):
         x = x + pressure_preconditioner(r)
         r = rhs - matvec(x)
       return x, {'residual': dot(r, r), 'num_iterations': 1}
     if not had_preconditioner:
       return cg(matvec, rhs, M=pressure_preconditioner, tol=tol, atol=atol,
-                dot_fn=dot, maxiter=maxiter)
+                dot_fn=dot, maxiter=maxiter, batched=batched)
     # A near-exact inverse cannot serve as a CG preconditioner in finite
     # precision (see linalg.cg.near_exact_solve).
     return near_exact_solve(matvec, rhs, pressure_preconditioner, tol=tol,
-                            atol=atol, dot_fn=dot, maxiter=maxiter)
+                            atol=atol, dot_fn=dot, maxiter=maxiter,
+                            batched=batched)
 
   dp, p_info = linear_solve(E_fast, -div_el(u_star), psolve)
 

@@ -41,9 +41,9 @@ _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _I = ctypes.c_int
 _SIGNATURES = {
-    # (ws[], outs[], num_fields, k, n0, n1, vec, tx, ty, shuffle, stream)
-    'exchange2d_f32': (_PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    'exchange2d_f64': (_PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # (ws[], outs[], num_fields, k, nb, n0, n1, vec, tx, ty, shuffle, stream)
+    'exchange2d_f32': (_PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    'exchange2d_f64': (_PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # (amat layout, us[], outs[], num_c, k2, num_e, panels, rows, splits,
     #  blocks, stream)
     'stiffness_uniform_f32': (_P, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -4,10 +4,12 @@ Replaces ``swirlfem_tpu/ops/pallas_exchange.py:exchange2d_pallas``.  The
 kernel (``csrc/exchange2d.cu``) computes each output entry in gather form,
 adding a node's copies in the order of the two-pass reference, so it is
 bitwise equal to `exchange2d_plain`.  One launch takes up to four fields of
-one shape (the components of a velocity): a block owns one plane (a, b) of
-one field and a band of element rows, each thread 16 bytes of a row where
-the shape allows it (`launch_geometry`, mirrored and checked by the C
-entry).
+one shape (the components of a velocity), each ``(k, k, n0, n1)`` or a
+batch ``(k, k, B, n0, n1)`` of B independent periodic grids (the samples of
+a training batch, in the batched el layout of `nse.solver`): a block owns
+one plane (a, b) of one grid of one field and a band of its element rows,
+each thread 16 bytes of a row where the shape allows it
+(`launch_geometry`, mirrored and checked by the C entry).
 
 `exchange2d` takes the plain version only for CPU tensors.  For CUDA
 tensors it launches the kernel or raises.  It is differentiable: where a
@@ -31,11 +33,13 @@ THREADS = 256  # a block's threads, about
 
 
 def exchange2d_plain(w: torch.Tensor) -> torch.Tensor:
-  """QQ^T on a periodic ``(k, k, n0, n1)`` element grid, by torch.roll.
+  """QQ^T on a periodic ``(k, k, n0, n1)`` element grid, or on each grid of
+  a batch ``(k, k, B, n0, n1)``, by torch.roll.
 
   Transcription of ``swirlfem_tpu/ops/sem2d.py:79-89``: two sequential axis
   passes; each adds face p to the neighbour's face 0 (roll = periodic wrap)
-  and writes the sum to both faces.
+  and writes the sum to both faces.  The rolls act on the two element axes
+  only, so a batch's grids wrap each on its own.
   """
   p = w.shape[0] - 1
   w = w.clone()
@@ -55,8 +59,9 @@ class Geometry(NamedTuple):
 
   Each thread moves `width` values of a row at once (16 bytes when `vec`);
   a block is ``(tx, ty, num_fields)`` threads: `tx` strided over a row's
-  chunks, `ty` rows, one field per z; the grid is ``(ceil(n0 / ty), k,
-  k)``: a band of rows and the plane (a, b).  `shuffle`: a row's chunks are
+  chunks, `ty` rows, one field per z; the grid is ``(B ceil(n0 / ty), k,
+  k)``: a band of rows of one of the B grids (grid-major) and the plane
+  (a, b).  `shuffle`: a row's chunks are
   exactly `tx`, a power of two <= 32, in whole warps, so the e1 neighbours
   travel by warp shuffle.
   """
@@ -70,9 +75,10 @@ class Geometry(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def launch_geometry(k: int, n0: int, n1: int, itemsize: int, num_fields: int,
-                    aligned: bool = True, threads: int = THREADS) -> Geometry:
-  """The kernel's launch for `num_fields` ``(k, k, n0, n1)`` fields of
-  `itemsize`-byte values (`aligned`: every pointer on 16 bytes), about
+                    aligned: bool = True, threads: int = THREADS,
+                    batch: int = 1) -> Geometry:
+  """The kernel's launch for `num_fields` ``(k, k, batch, n0, n1)`` fields
+  of `itemsize`-byte values (`aligned`: every pointer on 16 bytes), about
   `threads` threads a block."""
   vec_width = 16 // itemsize
   vec = aligned and n1 % vec_width == 0
@@ -82,7 +88,7 @@ def launch_geometry(k: int, n0: int, n1: int, itemsize: int, num_fields: int,
   ty = max(1, min(n0, threads // num_fields // tx))
   shuffle = (tx == chunks and tx <= 32 and tx & (tx - 1) == 0
              and tx * ty * num_fields % 32 == 0)
-  return Geometry(vec, width, tx, ty, shuffle, (-(-n0 // ty), k, k))
+  return Geometry(vec, width, tx, ty, shuffle, (batch * -(-n0 // ty), k, k))
 
 
 _ENTRY = {torch.float32: 'exchange2d_f32', torch.float64: 'exchange2d_f64'}
@@ -90,8 +96,9 @@ _ENTRY = {torch.float32: 'exchange2d_f32', torch.float64: 'exchange2d_f64'}
 
 def _check(ws):
   shape = tuple(ws[0].shape)
-  if len(shape) != 4 or shape[0] != shape[1] or shape[0] < 2:
-    raise ValueError(f'expected (k, k, n0, n1) with k >= 2, got {shape}')
+  if len(shape) not in (4, 5) or shape[0] != shape[1] or shape[0] < 2:
+    raise ValueError('expected (k, k, n0, n1) or (k, k, B, n0, n1) with '
+                     f'k >= 2, got {shape}')
   for w in ws:
     if (tuple(w.shape) != shape or w.dtype != ws[0].dtype
         or w.device != ws[0].device):
@@ -112,7 +119,8 @@ class _Exchange2D(torch.autograd.Function):
 
 
 def exchange2d(w):
-  """QQ^T on a periodic ``(k, k, n0, n1)`` element grid.
+  """QQ^T on a periodic ``(k, k, n0, n1)`` element grid, or on each of the
+  B grids of ``(k, k, B, n0, n1)`` fields.
 
   `w` is one field or a tuple of up to `MAX_FIELDS` fields of one shape
   (the result has the same form).  CPU tensors: `exchange2d_plain` per
@@ -146,14 +154,16 @@ def _exchange(ws):
                     f'{ws[0].dtype}')
   if not all(x.is_contiguous() for x in ws):
     raise ValueError('exchange2d kernel needs contiguous inputs')
-  k, _, n0, n1 = ws[0].shape
+  k, n0, n1 = ws[0].shape[0], ws[0].shape[-2], ws[0].shape[-1]
+  nb = ws[0].shape[2] if ws[0].dim() == 5 else 1
   outs = tuple(torch.empty_like(x) for x in ws)
   aligned = all(x.data_ptr() % 16 == 0 for x in ws + outs)
-  geo = launch_geometry(k, n0, n1, ws[0].element_size(), len(ws), aligned)
+  geo = launch_geometry(k, n0, n1, ws[0].element_size(), len(ws), aligned,
+                        batch=nb)
   fn = getattr(cuda_build.library(), _ENTRY[ws[0].dtype])
   stream = torch.cuda.current_stream(device).cuda_stream
   cuda_build.check(fn(cuda_stiffness.ptrs(ws), cuda_stiffness.ptrs(outs),
-                      len(ws), k, n0, n1, int(geo.vec), geo.tx, geo.ty,
+                      len(ws), k, nb, n0, n1, int(geo.vec), geo.tx, geo.ty,
                       int(geo.shuffle), stream), 'exchange2d')
   exchange2d.launches += 1
   return outs

@@ -268,18 +268,44 @@ def _device(sem, arr: np.ndarray) -> torch.Tensor:
                          device=sem.device)
 
 
-def _contract(x, mats):
-  """Applies mats[a] along axis a of x: x <- mats[a] (x) along each axis."""
+def _contract(x, mats, first: int = 0):
+  """Applies mats[a] along axis first + a of x: x <- mats[a] (x) along each
+  axis (`first` = 1 past a leading batch axis)."""
   for a, mat in enumerate(mats):
-    x = torch.tensordot(mat, x, dims=([1], [a])).movedim(0, a)
+    x = torch.tensordot(mat, x, dims=([1], [first + a])).movedim(0, first + a)
   return x
+
+
+def _batch_lines(x, d: int, inner: int, outer: int, local_first: bool):
+  """A batched el field ``(inner,)*d + (B,) + (outer,)*d`` (the batch
+  after the node axes, `sem2d.Sem2DOps.fold_batch`'s layout) as ``(B,) +
+  (outer*inner,)*d`` lines, or as ``(B,) + (inner*outer,)*d`` with
+  `local_first`; returns them and the inverse map."""
+  nb = x.shape[d]
+  pairs = [(a, d + 1 + a) if local_first else (d + 1 + a, a)
+           for a in range(d)]
+  perm = [d] + [i for pair in pairs for i in pair]
+  line = inner * outer
+  lines = x.permute(perm).reshape((nb,) + (line,) * d)
+  inv = [0] * (2 * d + 1)
+  for pos, axis in enumerate(perm):
+    inv[axis] = pos
+  shape = (nb,) + sum(((inner, outer) if local_first else (outer, inner)
+                       for _ in range(d)), ())
+
+  def back(y):
+    return y.reshape(shape).permute(inv).contiguous()
+
+  return lines, back
 
 
 def build_fdm_helmholtz_solver_el(sem, time_order: int):
   """El-form FDM viscous solve: (k,)*d + eshape covector -> same-shaped.
 
   ``solve(r_el, mu, dt)`` applies H^{-1}; the transform matrices live on
-  the solver's device in its working dtype.
+  the solver's device in its working dtype.  A batched field ``(k,)*d +
+  (B,) + (n,)*d`` (the batch after the node axes) is solved sample by
+  sample in the same contractions, the batch riding through them.
   """
   vinfo = sem.fast_ops.vinfo
   d = vinfo.ndim
@@ -293,6 +319,11 @@ def build_fdm_helmholtz_solver_el(sem, time_order: int):
   inv = [2 * a + 1 for a in range(d)] + [2 * a for a in range(d)]
 
   def solve(r_el, mu, dt):
+    if r_el.dim() == 2 * d + 1:
+      x, back = _batch_lines(r_el, d, k, n, local_first=False)
+      x = _contract(x, zts, first=1)
+      x = x / (beta_k / dt + mu * lam)
+      return back(_contract(x, zs, first=1)).to(r_el.dtype)
     eshape = tuple(r_el.shape[d:])
     # (k.., n..) -> per-axis (element, local) line pairs of length n*k.
     x = r_el.reshape((k,) * d + (n,) * d).permute(perm).reshape((n * k,) * d)
@@ -454,7 +485,9 @@ def build_fdm_pressure_solver_el(sem, dt: float, time_order: int):
 
   The DG pressure has no duplicate nodes, so the el fold is a pure row
   permutation of the nodal transforms.  ``solve.has_nullspace`` says
-  whether E has a (pseudo-inverted) constant nullspace.
+  whether E has a (pseudo-inverted) constant nullspace.  A batched field
+  ``(m,)*d + (B,) + (n,)*d`` is solved sample by sample, as in
+  `build_fdm_helmholtz_solver_el`.
   """
   vinfo, pinfo = sem.fast_ops.vinfo, sem.fast_ops.pinfo
   d = vinfo.ndim
@@ -468,6 +501,10 @@ def build_fdm_pressure_solver_el(sem, dt: float, time_order: int):
   inv = [2 * a for a in range(d)] + [2 * a + 1 for a in range(d)]
 
   def solve(r_el):
+    if r_el.dim() == 2 * d + 1:
+      x, back = _batch_lines(r_el, d, m, n, local_first=True)
+      x = _contract(x, zts, first=1) * inv_lam
+      return back(_contract(x, zs, first=1)).to(r_el.dtype)
     eshape = tuple(r_el.shape[d:])
     # (i..., e...) el axes -> (i_a, e_a) line pairs per axis.
     x = r_el.reshape((m,) * d + (n,) * d).permute(perm).reshape((m * n,) * d)

@@ -23,6 +23,18 @@ ops.cuda_split on the congruent and affine classes).  Every key has a plain
 version, which CPU tensors run, and a hand-written kernel, which CUDA
 tensors run unless ``use_kernels`` is False (the JAX package's
 ``use_pallas=False``): then they run the plain version too, at any order.
+
+A batch of samples (the trainer's batched step) runs on the same operators
+with the batch folded into the element axis (`Sem2DOps.fold_batch`): a
+batched field is ``(k, k, B, n0, n1)`` per component, and its flat form
+``(k, k, B n0 n1)`` is the E-last layout with ``E = B n0 n1`` (element
+``b E0 + e`` is element e of sample b).  That one layout serves both
+kernels of the training step without a copy between them: the congruent
+stiffness (row 2) reads it as E-last with the larger E, unchanged, and the
+exchange kernel (row 1) reads it as B periodic grids, with a batch stride
+of ``n0 n1`` inside each plane of stride ``B n0 n1``.  A batch-leading
+layout ``(B, k, k, n0, n1)`` would keep the exchange's planes but break
+row 2's E-last contract, which needs the element axis last and dense.
 """
 
 from __future__ import annotations
@@ -62,12 +74,26 @@ def nodal_to_el(u: torch.Tensor, info: StructuredInfo) -> torch.Tensor:
   return s1.permute(1, 3, 0, 2).reshape(p + 1, p + 1, n * n)
 
 
+def nodal_to_el_batch(u: torch.Tensor, info: StructuredInfo) -> torch.Tensor:
+  """Nodal ``(B, num_nodes)`` -> batched element-local ``(n, n, B, E)``:
+  `nodal_to_el` on each sample, the batch after the node axes."""
+  return torch.vmap(lambda x: nodal_to_el(x, info), out_dims=2)(
+      u).contiguous()
+
+
+def el_to_nodal_batch(w: torch.Tensor, info: StructuredInfo) -> torch.Tensor:
+  """Transpose of `nodal_to_el_batch`: ``(n, n, B, ...)`` -> ``(B,
+  num_nodes)``, `el_to_nodal` on each sample."""
+  return torch.vmap(lambda x: el_to_nodal(x, info), in_dims=2)(w)
+
+
 def exchange_el(w, info: StructuredInfo):
   """Direct-stiffness summation (Q Q^T) in element-local form, periodic box.
 
   Input/output ``(k, k, n, n)`` with element axes last (k = order+1 local
-  nodes, n elements per dim), or a tuple of up to four such fields (the
-  components of a velocity), returned as a tuple.  On CUDA tensors this is
+  nodes, n elements per dim), or a batch ``(k, k, B, n, n)`` of such grids,
+  or a tuple of up to four such fields (the components of a velocity),
+  returned as a tuple.  On CUDA tensors this is
   one launch of the hand-written kernel for all the fields; on CPU tensors
   the two-pass torch.roll version, field by field.
   """
@@ -276,6 +302,24 @@ class Sem2DOps:
       if isinstance(val, torch.Tensor):
         moved[f.name] = val.to(device=device, dtype=dtype).contiguous()
     return dataclasses.replace(self, **moved)
+
+  def fold_batch(self, batch: int) -> 'Sem2DOps':
+    """These operators on `batch` samples folded into the element axis.
+
+    Every per-element field (last axis E0) is tiled `batch` times along
+    that axis, so that element ``b E0 + e`` carries element e's factors;
+    fields compressed to one constant (`StokesSEM.slim_for_el_step`) and
+    the 1D matrices stay as they are.  Every key of `STIFFNESS_DISPATCH`
+    and every other operator then takes the folded ``(n, n, batch E0)``
+    fields as it takes ``(n, n, E0)`` ones.
+    """
+    num_e = self.wmass.shape[-1]
+    tiled = {}
+    for f in dataclasses.fields(self):
+      val = getattr(self, f.name)
+      if isinstance(val, torch.Tensor) and val.shape[-1] == num_e:
+        tiled[f.name] = val.repeat((1,) * (val.dim() - 1) + (batch,))
+    return dataclasses.replace(self, **tiled)
 
   def const(self, key: str, value, dtype: torch.dtype | None = None
             ) -> torch.Tensor:

@@ -69,6 +69,19 @@ def test_exchange2d_bitwise_equals_plain(device, shape, dtype, num_fields):
   assert cuda_exchange.exchange2d.launches == before + 1
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('nb', [1, 3, 128])
+def test_batched_exchange2d_bitwise_equals_plain(device, dtype, nb):
+  """The batched layout at the training shape: nb samples x 2 components
+  of (5, 5, 12, 12) in one launch."""
+  ws = tuple(kernel_checks.random_field((5, 5, nb, 12, 12), dtype=dtype,
+                                        device=device, seed=s)
+             for s in range(2))
+  before = cuda_exchange.exchange2d.launches
+  assert kernel_checks.check_exchange2d(ws)['bitwise_equal']
+  assert cuda_exchange.exchange2d.launches == before + 1
+
+
 def test_exchange2d_takes_unaligned_fields(device):
   """Views one value into larger buffers: the scalar rows, still bitwise."""
   k, n = 9, 16
@@ -1174,8 +1187,8 @@ def test_training_step_gradient_on_card_matches_cpu(device):
     f = torch.as_tensor(rng.standard_normal((n, 2)), device=dev)
     f.requires_grad_()
     u, p, _, _ = train.solve_one_step(us, ps, [sem.C(x) for x in us], f, sem,
-                                      cfg, train.make_solver_preconds(sem,
-                                                                      cfg))
+                                      cfg, train.make_nodal_preconds(sem,
+                                                                     cfg))
     (g,) = torch.autograd.grad((u * w).sum() + p.square().sum(), f)
     out.append(g.cpu())
   err = float((out[0] - out[1]).abs().max() / out[1].abs().max())

@@ -220,14 +220,14 @@ def main() -> int:
       run(f'{kernel} {name} two launches', lambda: one(0) or one(1), outs,
           plain, symbol)
       continue
-    fn.argtypes = (pp, pp) + (ci,) * 8 + (pv,)
+    fn.argtypes = (pp, pp) + (ci,) * 9 + (pv,)
 
     def launch(fields, geo_fields, threads=cuda_exchange.THREADS):
       geo = cuda_exchange.launch_geometry(k, n, n, 4, geo_fields,
                                           threads=threads)
       return lambda: fn(ptrs(ws[fields]), ptrs(outs[fields]), geo_fields, k,
-                        n, n, int(geo.vec), geo.tx, geo.ty, int(geo.shuffle),
-                        stream)
+                        1, n, n, int(geo.vec), geo.tx, geo.ty,
+                        int(geo.shuffle), stream)
     for threads in ((128, 256, 512) if name == 'full'
                     else (cuda_exchange.THREADS,)):
       tag = f'{kernel} {name} {threads} threads'

@@ -449,3 +449,32 @@ def grads(ax, shard, *, boxes, partitioned, eps):
   out['part'] = {'grad': float(theta.grad), 'loss': float(total.detach()),
                  'fd': fd}
   return out
+
+
+def data_parallel_train(ax, shard, *, config, batch, steps, seed, lr):
+  """`steps` data-parallel train steps of a float64 model (the tiny
+  configuration) on this rank's rows of the global `batch`, the draws
+  sliced from the global batch's (`niles.train.make_draws_fn`'s `rows`);
+  every rank starts from the parameters of `torch.manual_seed(seed)`."""
+  from swirlfem_tpu_torch.niles import train
+  torch.manual_seed(seed)
+  model = train.create_model(config).double()
+  state = train.create_train_state(model, config)
+  sem = train.build_solver(config, device='cpu', dtype=torch.float64)
+  preconds = train.make_solver_preconds(sem, config)
+  size = config.batch_size
+  rows = slice(ax.index * size // ax.size, (ax.index + 1) * size // ax.size)
+  local = {k: torch.as_tensor(v[rows]) for k, v in batch.items()}
+  kl_fn = train.create_kl_penalty_fn(config, 100)
+  ax.reset_stats()
+  losses = []
+  for step in range(steps):
+    state, metrics, _ = train.train_step(
+        state, local, train.make_draws_fn(model, size, seed, step, 'cpu',
+                                          rows),
+        lambda _: lr, kl_fn, sem, config, preconds, axis=ax)
+    losses.append(float(metrics['loss']))
+  return {'losses': np.asarray(losses), 'stats': dict(ax.stats),
+          'params': torch.cat([p.detach().reshape(-1)
+                               for p in model.parameters()]),
+          'no_jax': _no_jax()}
